@@ -6,19 +6,39 @@ the ``sm_90a`` kernels) and the CUDA toolkit::
 
     python3 chip_smoke.py [--out DIR]
 
-It builds every kernel of the port's main path from ``src/repro_torch/
-kernels/csrc`` with nvcc, holds each against its plain PyTorch version on
-the card (main-path and odd shapes, f32 and bf16) and times it beside that
-plain version, a library call and its memory bound; then drives the main
-path — ``run_scenario("femnist1-fedavg-aocs-pallas", mode="host")`` at full
-width for 20 rounds — checks that every round went through the kernel, that
-the ledger is valid and the losses finite, that a second run reproduces the
-masks and parameters bitwise, and that a reduced run on the card matches the
-same run on the CPU.  A profiler pass over a few more rounds and a per-layer
-breakdown of a round say where a round's time goes.  ``--out DIR`` writes the full-width ledger and the
-profile there.
+It builds every kernel of the port from ``src/repro_torch/kernels/csrc`` with
+nvcc (one process per source, all at once), then:
 
-The last two lines of its output are a JSON line of per-kernel numbers and
+* kernel phases: holds each kernel against its plain PyTorch version on the
+  card (f32 and bf16, C in {1, 3, 4, 32, 33, 200} x D in {1, 7, 4097, 58430},
+  every compressor kind), checks the bitwise contracts between them, and
+  times each at its path shapes beside that plain version, a library call
+  where one computes the same function, and its memory bound;
+* path phases, each with every kernel count set to 0 just before and read
+  just after:
+
+  - the main path of the second slice, ``femnist1-fedavg-aocs-scan`` with
+    ``agg_backend="pallas"`` and the rand-k compressor of
+    ``femnist1-fedavg-aocs-randk`` (both settings of the reference's own
+    ``FLConfig``, built with ``Scenario.with_``): the single-pass scan engine
+    at full width for 20 rounds, 4 cached groups through the fused
+    norm+aggregate kernel and 4 spilled groups through the fused
+    compress+norm+aggregate kernel every round;
+  - ``femnist1-fedavg-aocs-randk`` with ``agg_backend="pallas"`` on the vmap
+    engine (the compress kernel once per round at the cohort's width);
+  - the first slice's ``femnist1-fedavg-aocs-pallas`` (the masked-aggregate
+    kernel once per round);
+  - the kernel-backed norms ``ops.tree_client_norms`` of full-width cohorts;
+
+  each path checks its launches per round, that the ledger is valid and the
+  losses finite, that a second run reproduces masks, losses and parameters
+  bitwise, and that a reduced run on the card matches the same run on the
+  CPU;
+* a profiler pass and a per-layer breakdown of the main path and of the
+  first slice's path, which say where a round's time goes.
+
+``--out DIR`` writes the full-width ledgers and the profiles there.  The last
+two lines of its output are a JSON line of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
 exits non-zero without a result; so it does without a CUDA device, and when
 it is not run from a checkout.  It imports neither jax nor the JAX package.
@@ -27,22 +47,35 @@ it is not run from a checkout.  It imports neither jax nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+from collections import defaultdict
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-MAIN_CELL = "femnist1-fedavg-aocs-pallas"
+MAIN_CELL = "femnist1-fedavg-aocs-scan"       # + randk 0.1, agg_backend pallas
+VMAP_CELL = "femnist1-fedavg-aocs-randk"      # + agg_backend pallas
+SLICE1_CELL = "femnist1-fedavg-aocs-pallas"
 PATH_ROUNDS = 20
-PROFILE_ROUNDS = 5
-BREAKDOWN_ROUNDS = 11
+VMAP_ROUNDS = 10
+SLICE1_ROUNDS = 10
+NORM_COHORTS = 5
+PROFILE_ROUNDS = 3
+BREAKDOWN_ROUNDS = 6
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 TIMING_REPS = 100
 SPIN_CYCLES = 200_000         # ~100 us of device spin at H100 clocks
+SWEEP_C = (1, 3, 4, 32, 33, 200)
+SWEEP_D = (1, 7, 4097, 58430)
+# (kind, param) of every compressor the kernel phase checks; qsgd at a
+# level count whose reciprocal is inexact too
+COMPRESSORS = (("randk", 0.1), ("qsgd", 8.0), ("qsgd", 5.0), ("natural", 0.0))
+RTOL, ATOL = 1e-5, 1e-6
 
 
 def card_line() -> str:
@@ -51,6 +84,28 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def counters():
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from repro_torch.kernels import masked_aggregate as ma
+    from repro_torch.kernels import norm_aggregate as na
+
+    return {
+        "masked_scale_aggregate": ma.masked_scale_aggregate_cuda,
+        "client_sqnorms": na.client_sqnorms_cuda,
+        "norm_scale_aggregate": na.norm_scale_aggregate_cuda,
+        "compress_norm_scale_aggregate": na.compress_norm_scale_aggregate_cuda,
+    }
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
 
 
 def time_ms(fn, torch, flush=None, reps=TIMING_REPS) -> float:
@@ -77,6 +132,14 @@ def time_ms(fn, torch, flush=None, reps=TIMING_REPS) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: int, flops: int) -> tuple:
+    """(bound ms, 'bytes' or 'operations') on an H100 SXM at its published
+    rates: device memory 3.35 TB/s, float32 67 TFLOP/s."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
 def check_close(name, got, want, u, s, rtol, atol) -> float:
     """``|got - want| <= atol + rtol * sum_i |s_i U_id|``: the two sum in
     different orders, and float32 summation error scales with the sum of the
@@ -93,6 +156,18 @@ def check_close(name, got, want, u, s, rtol, atol) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
+def check_sq(name, got, want, rtol) -> float:
+    """Squared norms sum positive terms: ``|got - want| <= rtol * want``."""
+    err = (got - want).abs()
+    bad = err > rtol * want.abs()
+    if bool(bad.any()):
+        raise AssertionError(
+            f"{name}: squared norms disagree with the plain version at "
+            f"{int(bad.sum())} of {bad.numel()} clients (max abs err {float(err.max())})"
+        )
+    return float(err.max()) if err.numel() else 0.0
+
+
 def kernel_phase(torch, dev, flush):
     """masked_scale_aggregate: kernel vs plain at every shape, then timings."""
     from repro_torch.kernels import masked_aggregate as ma
@@ -105,10 +180,9 @@ def kernel_phase(torch, dev, flush):
         s = torch.rand((c,), generator=gen).to(dev) * (torch.rand((c,), generator=gen) < 0.5).to(dev)
         return u, s
 
-    rtol, atol = 1e-5, 1e-6
     for dtype in (torch.float32, torch.bfloat16):
-        for c in (1, 3, 32, 33, 200):
-            for d in (1, 7, 4097, 58430):
+        for c in SWEEP_C:
+            for d in SWEEP_D:
                 u, s = inputs(c, d, dtype)
                 got = ops.masked_scale_aggregate(u, s)
                 want = ma.masked_scale_aggregate_ref(u, s)
@@ -116,13 +190,12 @@ def kernel_phase(torch, dev, flush):
                 if got.shape != (d,) or got.dtype != torch.float32:
                     raise AssertionError(f"bad output {tuple(got.shape)} {got.dtype}")
                 check_close(f"masked_scale_aggregate C={c} D={d} {dtype}", got, want,
-                            u, s, rtol, atol)
+                            u, s, RTOL, ATOL)
     print(f"kernel check: masked_scale_aggregate matches its plain version at "
-          f"C in (1,3,32,33,200) x D in (1,7,4097,58430), f32 and bf16 "
-          f"(rtol {rtol}, atol {atol})")
+          f"C in {SWEEP_C} x D in {SWEEP_D}, f32 and bf16 (rtol {RTOL}, atol {ATOL})")
 
-    # the main path's shape: 32 clients x 58,430 parameters, padded by ops to
-    # the tile multiple — the matrix the wrapper receives each round
+    # the first slice's path shape: 32 clients x 58,430 parameters, padded by
+    # ops to the tile multiple — the matrix the wrapper receives each round
     c, d = 32, 58430
     u, s = inputs(c, d, torch.float32)
     upad = torch.nn.functional.pad(u, (0, (-d) % ma.TILE)).contiguous()
@@ -131,7 +204,7 @@ def kernel_phase(torch, dev, flush):
     again = ma.masked_scale_aggregate_cuda(upad, s)
     torch.cuda.synchronize()
     max_err = check_close("masked_scale_aggregate main shape", got, want, upad, s,
-                          rtol, atol)
+                          RTOL, ATOL)
     if not torch.equal(got, again):
         raise AssertionError("masked_scale_aggregate is not deterministic run to run")
     try:
@@ -150,13 +223,11 @@ def kernel_phase(torch, dev, flush):
     cp, dp = upad.shape
     nbytes = (cp * dp + cp + dp) * 4
     flops = 2 * cp * dp
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    bound_ms, bound_by = bound(nbytes, flops)
     print(f"kernel timing (median of {TIMING_REPS}, L2 flushed): kernel {kernel_ms} ms, "
           f"plain {plain_ms} ms, torch.matmul {library_ms} ms; kernel with "
           f"L2-resident input {kernel_hot_ms} ms; bound {bound_ms} ms "
-          f"({nbytes} bytes at 3.35 TB/s; {flops} flops = {ops_ms} ms)")
+          f"({nbytes} bytes at 3.35 TB/s; {flops} flops)")
     return {
         "name": "masked_scale_aggregate",
         "route": "cuda",
@@ -166,31 +237,241 @@ def kernel_phase(torch, dev, flush):
         "launches": None,
         "max_abs_err": max_err,
         "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
         "kernel_l2_hot_ms": kernel_hot_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_by": bound_by,
         "library_ms": library_ms,
     }
 
 
-def path_phase(torch, out_dir):
-    """The main path at full width, through the kernel, reproduced bitwise."""
-    from repro_torch.kernels.masked_aggregate import masked_scale_aggregate_cuda
+def _special_values(torch):
+    """Values at, just below and just above powers of two, zeros and
+    subnormals: the inputs where natural compression's rounding turns."""
+    import numpy as np
+
+    pows = np.float32(2.0) ** np.arange(-20, 8, dtype=np.float32)
+    vals = np.concatenate([
+        pows, np.nextafter(pows, np.float32(0)), np.nextafter(pows, np.float32(np.inf)),
+        np.float32([0.0, 1e-40, 5e-39, 2.0 ** -126, 1e-45]),
+    ]).astype(np.float32)
+    return torch.from_numpy(np.concatenate([vals, -vals]))
+
+
+def norm_kernel_phase(torch, dev, flush):
+    """The second slice's kernels: each against its plain version over the
+    sweep and every compressor, the bitwise contracts between them, and
+    their timings at the path shapes."""
+    from repro_torch import rng
+    from repro_torch.core.compression import apply_compression_flat, client_material
+    from repro_torch.kernels import masked_aggregate as ma
+    from repro_torch.kernels import norm_aggregate as na
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    specials = _special_values(torch)
+    failures = []
+
+    def expect(ok, what):
+        if not ok:
+            failures.append(what)
+
+    def inputs(c, d, dtype, special=True):
+        u = torch.randn((c, d), generator=gen) * 1e-2
+        k = min(d, specials.numel()) if special else 0
+        u[0, :k] = specials[:k]
+        s = torch.rand((c,), generator=gen) * (torch.rand((c,), generator=gen) < 0.6)
+        return u.to(dev, dtype), s.to(dev)
+
+    def material(u, kind, param, seed):
+        keys = rng.split(rng.PRNGKey(seed, device=dev), u.shape[0])
+        return tuple(m["u"] for m in client_material({"u": u}, keys, kind, param))
+
+    n_checks = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for c in SWEEP_C:
+            for d in SWEEP_D:
+                tag = f"C={c} D={d} {dtype}"
+                u, s = inputs(c, d, dtype)
+                sq2 = ops.client_sqnorms(u)
+                sq2b = ops.client_sqnorms(u)
+                sq3, agg3 = ops.norm_scale_aggregate(u, s)
+                sq3b, agg3b = ops.norm_scale_aggregate(u, s)
+                agg1 = ops.masked_scale_aggregate(u, s)
+                sq4n, agg4n = ops.compress_norm_scale_aggregate(u, s, (), "none", 0.0)
+                torch.cuda.synchronize()
+                check_sq(f"client_sqnorms {tag}", sq2, na.client_sqnorms_ref(u), RTOL)
+                check_sq(f"norm_scale_aggregate {tag}", sq3, na.client_sqnorms_ref(u), RTOL)
+                check_close(f"norm_scale_aggregate {tag}", agg3,
+                            ma.masked_scale_aggregate_ref(u, s), u, s, RTOL, ATOL)
+                expect(torch.equal(sq2, sq2b) and torch.equal(sq3, sq3b)
+                       and torch.equal(agg3, agg3b), f"relaunch differs {tag}")
+                expect(torch.equal(sq3, sq2), f"norm_scale_aggregate norms != client_sqnorms {tag}")
+                expect(torch.equal(agg3, agg1),
+                       f"norm_scale_aggregate aggregate != masked_scale_aggregate {tag}")
+                expect(torch.equal(sq4n, sq3) and torch.equal(agg4n, agg3),
+                       f"compress kind=none != norm_scale_aggregate {tag}")
+                for j, (kind, param) in enumerate(COMPRESSORS):
+                    mats = material(u, kind, param, seed=c * 7919 + d + j)
+                    sq4, agg4 = ops.compress_norm_scale_aggregate(u, s, mats, kind, param)
+                    sq4b, agg4b = ops.compress_norm_scale_aggregate(u, s, mats, kind, param)
+                    xc = apply_compression_flat(u, kind, param, *mats).to(dtype)
+                    sq_m, agg_m = ops.norm_scale_aggregate(xc, s)
+                    want_sq, want_agg = na.compress_norm_scale_aggregate_ref(u, s, mats, kind,
+                                                                             param)
+                    torch.cuda.synchronize()
+                    ktag = f"{kind}({param}) {tag}"
+                    check_sq(f"compress_norm_scale_aggregate {ktag}", sq4, want_sq, RTOL)
+                    check_close(f"compress_norm_scale_aggregate {ktag}", agg4, want_agg,
+                                xc, s, RTOL, ATOL)
+                    expect(torch.equal(sq4, sq4b) and torch.equal(agg4, agg4b),
+                           f"relaunch differs {ktag}")
+                    expect(torch.equal(sq4, sq_m) and torch.equal(agg4, agg_m),
+                           f"fused != eager C(U) then norm_scale_aggregate {ktag}")
+                    n_checks += 1
+    if failures:
+        raise AssertionError(f"{len(failures)} bitwise contracts failed:\n  "
+                             + "\n  ".join(failures))
+    print(f"kernel check: client_sqnorms, norm_scale_aggregate and "
+          f"compress_norm_scale_aggregate ({', '.join(f'{k}({p})' for k, p in COMPRESSORS)}) "
+          f"match their plain versions at C in {SWEEP_C} x D in {SWEEP_D}, f32 and bf16 "
+          f"(norms rtol {RTOL}; aggregates rtol {RTOL} x sum|s_i x_i| + atol {ATOL}); "
+          f"{n_checks} compressed cases")
+    print("kernel check: bitwise on the card at every shape — norm_scale_aggregate's norms "
+          "== client_sqnorms, its aggregate == masked_scale_aggregate, compress kind=none "
+          "== norm_scale_aggregate, compress == eager C(U) then norm_scale_aggregate, and "
+          "every kernel launched twice gives equal results")
+
+    for bad in (torch.zeros((512, 4), device=dev).t(),                  # not contiguous
+                torch.zeros((4, 7), device=dev),                        # D not a multiple of 4
+                torch.zeros((4, 512), device=dev, dtype=torch.float16)):  # dtype
+        for call in (lambda: na.client_sqnorms_cuda(bad),
+                     lambda: na.norm_scale_aggregate_cuda(bad, torch.zeros(bad.shape[0],
+                                                                           device=dev))):
+            try:
+                call()
+            except (ValueError, TypeError):
+                pass
+            else:
+                raise AssertionError(f"a wrapper took {tuple(bad.shape)} {bad.dtype} "
+                                     f"stride {bad.stride()}")
+    print("kernel check: the wrappers reject a non-contiguous matrix, D % 4 != 0 and float16")
+
+    # timings at the path shapes, as the wrappers receive them (D padded)
+    d = 58430
+    dp = d + (-d) % ma.TILE
+    rows = []
+
+    def timed(name, c, kind, fn, plain, library, nbytes, flops, err):
+        bound_ms, bound_by = bound(nbytes, flops)
+        k_ms = time_ms(fn, torch, flush)
+        p_ms = time_ms(plain, torch, flush)
+        l_ms = time_ms(library, torch, flush) if library is not None else None
+        print(f"kernel timing {name}{'' if kind is None else ' ' + kind} at ({c}, {dp}) f32 "
+              f"(median of {TIMING_REPS}, L2 flushed): kernel {k_ms} ms, plain {p_ms} ms, "
+              f"library {l_ms} ms; bound {bound_ms} ms ({nbytes} bytes, {flops} flops, "
+              f"{bound_by}); max abs err {err}")
+        rows.append((name, c, kind, k_ms, p_ms, l_ms, bound_ms, bound_by, err))
+        return k_ms, p_ms, l_ms, bound_ms, bound_by
+
+    out = {}
+    u32 = torch.nn.functional.pad(inputs(32, d, torch.float32, False)[0],
+                                  (0, dp - d)).contiguous()
+    err = check_sq("client_sqnorms path shape", na.client_sqnorms_cuda(u32),
+                   na.client_sqnorms_ref(u32), RTOL)
+    out["client_sqnorms"] = ((32, dp), err, timed(
+        "client_sqnorms", 32, None, lambda: na.client_sqnorms_cuda(u32),
+        lambda: na.client_sqnorms_ref(u32),
+        lambda: torch.einsum("cd,cd->c", u32, u32),
+        (32 * dp + 32) * 4, 2 * 32 * dp, err))
+
+    u4, s4 = inputs(4, d, torch.float32, False)
+    u4 = torch.nn.functional.pad(u4, (0, dp - d)).contiguous()
+    sq, agg = na.norm_scale_aggregate_cuda(u4, s4)
+    want_sq, want_agg = na.norm_scale_aggregate_ref(u4, s4)
+    err = max(check_sq("norm_scale_aggregate path shape", sq, want_sq, RTOL),
+              check_close("norm_scale_aggregate path shape", agg, want_agg, u4, s4, RTOL, ATOL))
+    out["norm_scale_aggregate"] = ((4, dp), err, timed(
+        "norm_scale_aggregate", 4, None, lambda: na.norm_scale_aggregate_cuda(u4, s4),
+        lambda: na.norm_scale_aggregate_ref(u4, s4), None,
+        (4 * dp + 4 + 4 + dp) * 4, 4 * 4 * dp, err))
+
+    for c in (4, 32):
+        uc, sc = inputs(c, d, torch.float32, False)
+        uc = torch.nn.functional.pad(uc, (0, dp - d)).contiguous()
+        mats = tuple(torch.nn.functional.pad(m, (0, dp - d)).contiguous()
+                     for m in material(uc[:, :d], "randk", 0.1, seed=c))
+        sq, agg = na.compress_norm_scale_aggregate_cuda(uc, sc, mats, "randk", 0.1)
+        want_sq, want_agg = na.compress_norm_scale_aggregate_ref(uc, sc, mats, "randk", 0.1)
+        err = max(check_sq("compress_norm_scale_aggregate path shape", sq, want_sq, RTOL),
+                  check_close("compress_norm_scale_aggregate path shape", agg, want_agg,
+                              uc * mats[0], sc, RTOL, ATOL))
+        res = timed(
+            "compress_norm_scale_aggregate", c, "randk",
+            lambda: na.compress_norm_scale_aggregate_cuda(uc, sc, mats, "randk", 0.1),
+            lambda: na.compress_norm_scale_aggregate_ref(uc, sc, mats, "randk", 0.1), None,
+            (2 * c * dp + c + c + dp) * 4, 5 * c * dp, err)
+        out[f"compress_norm_scale_aggregate@{c}"] = ((c, dp), err, res)
+
+    def entry(name, replaces, key, launches=None):
+        shape, err, (k_ms, p_ms, l_ms, b_ms, b_by) = out[key]
+        return {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/norm_aggregate.cu",
+            "replaces": replaces, "shape": list(shape), "launches": launches,
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": l_ms,
+        }
+
+    vm = out["compress_norm_scale_aggregate@32"][2]
+    k4 = entry("compress_norm_scale_aggregate", "src/repro/kernels/norm_aggregate.py:125",
+               "compress_norm_scale_aggregate@4")
+    k4.update({"vmap_shape": [32, dp], "vmap_ms": vm[0], "vmap_plain_ms": vm[1],
+               "vmap_bound_ms": vm[3]})
+    return [
+        entry("client_sqnorms", "src/repro/kernels/client_norm.py:34", "client_sqnorms"),
+        entry("norm_scale_aggregate", "src/repro/kernels/norm_aggregate.py:62",
+              "norm_scale_aggregate"),
+        k4,
+    ]
+
+
+def main_scenario():
+    """The second slice's main path: the reference's scan cell with the
+    reference's rand-k compressor and the pallas backend (both settings of
+    its own FLConfig)."""
+    from repro_torch.sim.scenarios import get_scenario
+
+    sc = get_scenario(MAIN_CELL)
+    fl = dataclasses.replace(sc.fl, agg_backend="pallas", compression="randk",
+                             compression_param=0.1)
+    return sc.with_(name=f"{MAIN_CELL}+randk+pallas", fl=fl)
+
+
+def vmap_scenario():
+    from repro_torch.sim.scenarios import get_scenario
+
+    sc = get_scenario(VMAP_CELL)
+    return sc.with_(name=f"{VMAP_CELL}+pallas",
+                    fl=dataclasses.replace(sc.fl, agg_backend="pallas"))
+
+
+def path_phase(torch, sc, rounds, per_round, out_dir):
+    """One path at full width: ``rounds`` rounds through the kernels
+    (``per_round`` launches each), reproduced bitwise, and a reduced run on
+    the card against the CPU.  Returns the counts of the run."""
     from repro_torch.sim.driver import run_scenario, validate_ledger
 
-    masked_scale_aggregate_cuda.launches = 0
-    params, ledger = run_scenario(MAIN_CELL, mode="host", rounds=PATH_ROUNDS)
-    launches = masked_scale_aggregate_cuda.launches
-    if launches != PATH_ROUNDS:
-        raise AssertionError(
-            f"the main path launched masked_scale_aggregate {launches} times "
-            f"in {PATH_ROUNDS} rounds, want {PATH_ROUNDS}"
-        )
+    reset_counts()
+    t0 = time.perf_counter()
+    params, ledger = run_scenario(sc, mode="host", rounds=rounds)
+    counts = read_counts()
+    want = {name: per_round.get(name, 0) * rounds for name in counts}
+    if counts != want:
+        raise AssertionError(f"{sc.name}: launches {counts}, want {want}")
     doc = ledger.to_json(include_masks=True)
     validate_ledger(doc)
-    if len(ledger.loss) != PATH_ROUNDS or not all(map(_finite, ledger.loss)):
+    if len(ledger.loss) != rounds or not all(map(_finite, ledger.loss)):
         raise AssertionError(f"bad loss series {ledger.loss}")
     if ledger.workload["model_dim"] != 58430 or ledger.workload["backend_platform"] != "cuda":
         raise AssertionError(f"unexpected workload {ledger.workload}")
@@ -198,44 +479,84 @@ def path_phase(torch, out_dir):
         if p.device.type != "cuda" or not bool(torch.isfinite(p).all()):
             raise AssertionError(f"parameter {name} is not finite on the card")
     walls = ledger.wall_ms[1:]
-    print(f"path: {MAIN_CELL} full width, {PATH_ROUNDS} rounds on the card, "
-          f"{launches} kernel launches; loss {ledger.loss[0]} -> {ledger.loss[-1]}; "
-          f"sent {ledger.sent}")
-    print(f"path timing: {ledger.rounds_per_sec} rounds/s after the first round; "
+    print(f"path {sc.name}: full width, {rounds} rounds on the card in "
+          f"{time.perf_counter() - t0:.1f} s; launches per round "
+          f"{ {k: v / rounds for k, v in counts.items() if v} }; loss {ledger.loss[0]} -> "
+          f"{ledger.loss[-1]}; sent {ledger.sent}; uplink bits {ledger.uplink_bits[-1]}")
+    print(f"path {sc.name} timing: {ledger.rounds_per_sec} rounds/s after the first round; "
           f"per-round ms median {statistics.median(walls)}, min {min(walls)}, "
-          f"max {max(walls)}; first round {ledger.wall_ms[0]} ms")
+          f"max {max(walls)}; set-up (first round) {ledger.wall_ms[0]} ms")
 
-    params2, ledger2 = run_scenario(MAIN_CELL, mode="host", rounds=PATH_ROUNDS)
+    params2, ledger2 = run_scenario(sc, mode="host", rounds=rounds)
     same_masks = all(bool((a == b).all()) for a, b in zip(ledger.masks, ledger2.masks))
     same_params = all(torch.equal(params[k], params2[k]) for k in params)
     if not (same_masks and same_params and ledger.loss == ledger2.loss):
-        raise AssertionError("a second run of the main path is not bitwise the first")
-    print("path: a second run reproduces masks, losses and parameters bitwise")
+        raise AssertionError(f"{sc.name}: a second run is not bitwise the first")
+    print(f"path {sc.name}: a second run reproduces masks, losses and parameters bitwise")
 
     # a reference on a small input: the same reduced run on the CPU
-    _, red_cpu = run_scenario(MAIN_CELL, reduced=True, rounds=3, device="cpu")
-    _, red_gpu = run_scenario(MAIN_CELL, reduced=True, rounds=3)
+    _, red_cpu = run_scenario(sc, reduced=True, rounds=3, device="cpu")
+    _, red_gpu = run_scenario(sc, reduced=True, rounds=3)
     if not all(bool((a == b).all()) for a, b in zip(red_cpu.masks, red_gpu.masks)):
-        raise AssertionError("reduced run: masks differ between the card and the CPU")
+        raise AssertionError(f"{sc.name} reduced: masks differ between the card and the CPU")
     for a, b in zip(red_cpu.loss, red_gpu.loss):
         if abs(a - b) > 1e-4 * abs(a):
-            raise AssertionError(f"reduced run: losses differ {red_cpu.loss} {red_gpu.loss}")
-    print(f"path: reduced run on the card matches the CPU (masks bitwise, loss "
+            raise AssertionError(f"{sc.name} reduced: losses differ {red_cpu.loss} "
+                                 f"{red_gpu.loss}")
+    print(f"path {sc.name}: reduced run on the card matches the CPU (masks bitwise, loss "
           f"rtol 1e-4): {red_gpu.loss} vs {red_cpu.loss}")
     if out_dir is not None:
-        (out_dir / "chip_smoke_ledger.json").write_text(json.dumps(doc, indent=1))
-    return launches, ledger
+        (out_dir / f"chip_smoke_ledger_{sc.name}.json").write_text(json.dumps(doc, indent=1))
+    return counts
 
 
-def profile_phase(torch, out_dir):
+def norms_phase(torch):
+    """The kernel-backed norms ``ops.tree_client_norms`` (Alg. 1 line 3) of
+    full-width cohorts' updates, against the eager ``ocs.client_norms``."""
+    import numpy as np
+
+    from repro_torch import rng as trng
+    from repro_torch.core import ocs
+    from repro_torch.fl.engine import RoundEngine
+    from repro_torch.fl.round import client_weights
+    from repro_torch.kernels import ops
+
+    sc = main_scenario()
+    ds = sc.build_dataset()
+    init_fn, loss_fn, _ = sc.build_model(ds)
+    engine = RoundEngine(loss_fn, sc.fl)
+    dev = engine.device
+    params = init_fn(trng.fold_in(trng.PRNGKey(sc.seed, device=dev), 1))
+    weights = client_weights(sc.fl, device=dev)
+    gen = np.random.default_rng(sc.seed)
+    cohorts = []
+    for _ in range(NORM_COHORTS):
+        clients = gen.choice(ds.n_clients, size=sc.fl.n_clients, replace=False)
+        batch = ds.sample_round_batches(gen, clients, sc.fl.local_steps, sc.batch_size)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        cohorts.append(engine._batched_update(params, batch)[0])
+    reset_counts()
+    got = [ops.tree_client_norms(upd, weights) for upd in cohorts]
+    counts = read_counts()
+    if counts != {**{k: 0 for k in counts}, "client_sqnorms": NORM_COHORTS}:
+        raise AssertionError(f"tree_client_norms launches {counts}")
+    for upd, u in zip(cohorts, got):
+        want = ocs.client_norms(upd, weights)
+        if not bool(((u - want).abs() <= RTOL * want.abs()).all()):
+            raise AssertionError(f"tree_client_norms {u} vs client_norms {want}")
+    print(f"norms: ops.tree_client_norms of {NORM_COHORTS} full-width cohorts "
+          f"({sc.fl.n_clients} x 58430) matches ocs.client_norms (rtol {RTOL}); "
+          f"{counts['client_sqnorms']} launches")
+    return counts
+
+
+def profile_phase(torch, sc, out_dir):
     """Where a full-width round's time goes: device busy time by kernel
     against the rounds' wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.sim.driver import run_simulation
-    from repro_torch.sim.scenarios import get_scenario
 
-    sc = get_scenario(MAIN_CELL)
     ds = sc.build_dataset()
     init_fn, loss_fn, _ = sc.build_model(ds)
 
@@ -258,28 +579,61 @@ def profile_phase(torch, out_dir):
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     if not busy:
-        print("profile: the profiler recorded no device time (not measured)")
+        print(f"profile {sc.name}: the profiler recorded no device time (not measured)")
         return
     n_ops = sum(r[2] for r in rows)
-    print(f"profile: {PROFILE_ROUNDS} rounds under the profiler, rounds' wall {wall} ms, "
-          f"device busy {busy} ms, idle share {1 - busy / wall}; {n_ops} device ops "
-          f"({n_ops / PROFILE_ROUNDS} per round)")
+    print(f"profile {sc.name}: {PROFILE_ROUNDS} rounds under the profiler, rounds' wall "
+          f"{wall} ms, device busy {busy} ms, idle share {1 - busy / wall}; {n_ops} device "
+          f"ops ({n_ops / PROFILE_ROUNDS} per round)")
     for key, ms, count in rows[:12]:
         print(f"profile:   {ms:10.3f} ms  {count:6d}x  {key[:90]}")
     if out_dir is not None:
-        prof.export_chrome_trace(str(out_dir / "chip_smoke_trace.json"))
+        prof.export_chrome_trace(str(out_dir / f"chip_smoke_trace_{sc.name}.json.gz"))
+
+
+class Laps:
+    """Host-clock ms per named layer, each lap ending in a device sync."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.rounds = []
+
+    def new_round(self):
+        self.rounds.append(defaultdict(float))
+        self.t = time.perf_counter()
+
+    def lap(self, name):
+        self.torch.cuda.synchronize()
+        t = time.perf_counter()
+        self.rounds[-1][name] += (t - self.t) * 1e3
+        self.t = t
+
+    def report(self, label):
+        total = 0.0
+        for name in self.rounds[-1]:
+            med = statistics.median(r[name] for r in self.rounds[1:])
+            total += med
+            print(f"breakdown {label}: {med:9.3f} ms  {name}")
+        print(f"breakdown {label}: {total:9.3f} ms  sum of medians over "
+              f"{len(self.rounds) - 1} rounds")
+
+
+def _round_inputs(ds, sc, gen, torch, dev, laps):
+    clients = gen.choice(ds.n_clients, size=sc.fl.n_clients, replace=False)
+    batch = ds.sample_round_batches(gen, clients, sc.fl.local_steps, sc.batch_size)
+    laps.lap("data: numpy batch assembly")
+    batch = {bk: torch.as_tensor(v, device=dev) for bk, v in batch.items()}
+    laps.lap("data: upload (pageable copy)")
+    return batch
 
 
 def breakdown_phase(torch):
-    """Host-clock ms of each layer of a full-width round, with a device sync
-    after each, so every layer's time includes its device work (median over
-    rounds after the first).  The layers are called as the round step calls
-    them; the step itself does not sync between them, so the sum exceeds a
-    round's wall time by the syncs."""
-    from collections import defaultdict
-
+    """Host-clock ms of each layer of a first-slice full-width round, with a
+    device sync after each, so every layer's time includes its device work
+    (median over rounds after the first).  The layers are called as the round
+    step calls them; the step itself does not sync between them, so the sum
+    exceeds a round's wall time by the syncs."""
     import numpy as np
-    from torch.func import vmap
 
     from repro_torch import rng as trng
     from repro_torch.core import ocs
@@ -287,7 +641,7 @@ def breakdown_phase(torch):
     from repro_torch.fl.round import client_weights
     from repro_torch.sim.scenarios import get_scenario
 
-    sc = get_scenario(MAIN_CELL)
+    sc = get_scenario(SLICE1_CELL)
     fl = sc.fl
     ds = sc.build_dataset()
     init_fn, loss_fn, _ = sc.build_model(ds)
@@ -297,42 +651,102 @@ def breakdown_phase(torch):
     params = init_fn(trng.fold_in(key, 1))
     weights = client_weights(fl, device=dev)
     gen = np.random.default_rng(sc.seed)
-    local_update = vmap(engine._local_update, in_dims=(None, 0))
-    times = defaultdict(list)
-
-    def lap(name, t0):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        times[name].append((t1 - t0) * 1e3)
-        return t1
-
+    laps = Laps(torch)
     for k in range(BREAKDOWN_ROUNDS):
-        t = time.perf_counter()
-        clients = gen.choice(ds.n_clients, size=fl.n_clients, replace=False)
-        batch = ds.sample_round_batches(gen, clients, fl.local_steps, sc.batch_size)
-        t = lap("data: numpy batch assembly", t)
-        batch = {bk: torch.as_tensor(v, device=dev) for bk, v in batch.items()}
-        t = lap("data: upload (pageable copy)", t)
+        laps.new_round()
+        batch = _round_inputs(ds, sc, gen, torch, dev, laps)
         k_sample, _ = trng.split(trng.fold_in(key, 1000 + k))
-        t = lap("keys: fold_in + split", t)
-        updates, losses = local_update(params, batch)
-        t = lap("local update (vmap of grad, R steps)", t)
+        laps.lap("keys: fold_in + split")
+        updates, losses = engine._batched_update(params, batch)
+        laps.lap("local update (vmap of grad, R steps)")
         u = ocs.client_norms(updates, weights)
-        t = lap("norms", t)
-        plan = ocs.sampling_plan(u, weights, fl.cohort_target(), k_sample,
-                                 sampler=fl.sampler, j_max=fl.j_max,
-                                 availability=fl.availability)
-        t = lap("plan: probabilities + mask + alpha/gamma", t)
+        laps.lap("norms")
+        plan = engine._plan(u, weights, k_sample)
+        laps.lap("plan: probabilities + mask + alpha/gamma")
         aggregate = ocs.aggregate_updates(updates, plan.scale, backend=engine.backend)
-        t = lap("aggregate (tree -> matrix, pad, kernel, split)", t)
+        laps.lap("aggregate (tree -> matrix, pad, kernel, split)")
         params, _ = engine._apply_server(params, (), aggregate)
-        lap("server step", t)
-    total = 0.0
-    for name, vals in times.items():
-        med = statistics.median(vals[1:])
-        total += med
-        print(f"breakdown: {med:9.3f} ms  {name}")
-    print(f"breakdown: {total:9.3f} ms  sum of medians over {BREAKDOWN_ROUNDS - 1} rounds")
+        laps.lap("server step")
+    laps.report(SLICE1_CELL)
+
+
+def scan_breakdown_phase(torch):
+    """The same for the main path's scan round: every group's local update,
+    compression material, norms, the plan, and the post-plan aggregate of
+    the cached groups (fused norm+aggregate kernel) and of the spilled ones
+    (recompute, material, fused compress+norm+aggregate kernel)."""
+    import numpy as np
+
+    from repro_torch import rng as trng
+    from repro_torch.core import ocs
+    from repro_torch.fl.engine import (
+        RoundEngine,
+        client_apply_compression,
+        client_compression_material,
+    )
+    from repro_torch.fl.round import client_weights
+    from repro_torch.kernels import ops, update_cache
+
+    sc = main_scenario()
+    fl = sc.fl
+    ds = sc.build_dataset()
+    init_fn, loss_fn, _ = sc.build_model(ds)
+    engine = RoundEngine(loss_fn, fl)
+    dev = engine.device
+    n, g = fl.n_clients, engine.scan_group
+    n_groups = n // g
+    n_cached = update_cache.num_slots(engine.cache_groups, n_groups)
+    key = trng.PRNGKey(sc.seed, device=dev)
+    params = init_fn(trng.fold_in(key, 1))
+    weights = client_weights(fl, device=dev)
+    gen = np.random.default_rng(sc.seed)
+    laps = Laps(torch)
+    for k in range(BREAKDOWN_ROUNDS):
+        laps.new_round()
+        batch = _round_inputs(ds, sc, gen, torch, dev, laps)
+        k_sample, k_comp = trng.split(trng.fold_in(key, 1000 + k))
+        comp_keys = trng.split(k_comp, n)
+        laps.lap("keys: fold_in + split + per-client split")
+        dim = sum(p.numel() for p in params.values())
+        cache = torch.empty((n_cached, g, dim), device=dev)
+        norms = []
+        for j in range(n_groups):
+            gb = {bk: v[j * g:(j + 1) * g] for bk, v in batch.items()}
+            upd, _ = engine._batched_update(params, gb)
+            laps.lap(f"pass 1: local update ({n_groups} groups)")
+            mats = client_compression_material(upd, comp_keys[j * g:(j + 1) * g], fl)
+            laps.lap("compress/material: threefry (pass 1)")
+            upd = client_apply_compression(upd, mats, fl)
+            laps.lap("compress/material: apply (pass 1)")
+            norms.append(ocs.client_norms(upd, weights[j * g:(j + 1) * g]))
+            laps.lap("norms (pass 1)")
+            if j < n_cached:
+                ops.tree_to_client_matrix(upd, out=cache[j])
+                laps.lap("cache fill")
+        plan = engine._plan(torch.cat(norms), weights, k_sample)
+        laps.lap("plan: probabilities + mask + alpha/gamma")
+        scale_g = plan.scale.reshape(n_groups, g)
+        agg = torch.zeros((dim,), device=dev)
+        for j in range(n_cached):
+            agg = agg + update_cache.group_norm_aggregate(cache[j], scale_g[j], "pallas")[1]
+        laps.lap("post-plan aggregate: cached groups (norm_scale_aggregate)")
+        for j in range(n_cached, n_groups):
+            gb = {bk: v[j * g:(j + 1) * g] for bk, v in batch.items()}
+            upd, _ = engine._batched_update(params, gb)
+            laps.lap("post-plan: spill recompute (local update)")
+            mats = client_compression_material(upd, comp_keys[j * g:(j + 1) * g], fl)
+            laps.lap("compress/material: threefry (spill)")
+            flat = ops.tree_to_client_matrix(upd)
+            mat_flats = tuple(ops.tree_to_client_matrix(m) for m in mats)
+            laps.lap("post-plan aggregate: spill tree -> matrix")
+            agg = agg + update_cache.group_compress_norm_aggregate(
+                flat, scale_g[j], mat_flats, fl.compression, fl.compression_param,
+                "pallas")[1]
+            laps.lap("post-plan aggregate: spilled groups (compress_norm_scale_aggregate)")
+        aggregate = ops.client_matrix_to_tree(agg, params, strip_client_axis=False)
+        params, _ = engine._apply_server(params, (), aggregate)
+        laps.lap("server step")
+    laps.report(sc.name)
 
 
 def _finite(x: float) -> bool:
@@ -342,7 +756,7 @@ def _finite(x: float) -> bool:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
-                    help="directory for the full-width ledger and the profile trace")
+                    help="directory for the full-width ledgers and the profile traces")
     args = ap.parse_args()
 
     import torch
@@ -381,14 +795,46 @@ def main() -> int:
                 print(f"build:   {line.strip()}")
 
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
-    kernel = kernel_phase(torch, dev, flush)
+    kernels = [kernel_phase(torch, dev, flush)] + norm_kernel_phase(torch, dev, flush)
     del flush
-    launches, _ = path_phase(torch, args.out)
-    kernel["launches"] = launches
-    profile_phase(torch, args.out)
+
+    main_sc = main_scenario()
+    print(f"path: the main path is the reference cell {MAIN_CELL} built with "
+          f"Scenario.with_(fl=replace(fl, agg_backend='pallas', compression='randk', "
+          f"compression_param=0.1)), the rand-k setting of {VMAP_CELL}: {main_sc.fl}")
+    from repro_torch.fl.engine import RoundEngine
+
+    engine = RoundEngine(main_sc.build_model(main_sc.build_dataset())[1], main_sc.fl)
+    print(f"path {main_sc.name}: scan_group {engine.scan_group}, cache_groups "
+          f"{engine.cache_groups}, local_update_evals {engine.local_update_evals} per round")
+    counts = path_phase(torch, main_sc, PATH_ROUNDS,
+                        {"norm_scale_aggregate": 4, "compress_norm_scale_aggregate": 4},
+                        args.out)
+    vmap_counts = path_phase(torch, vmap_scenario(), VMAP_ROUNDS,
+                             {"compress_norm_scale_aggregate": 1}, args.out)
+    from repro_torch.sim.scenarios import get_scenario
+
+    slice1_counts = path_phase(torch, get_scenario(SLICE1_CELL), SLICE1_ROUNDS,
+                               {"masked_scale_aggregate": 1}, args.out)
+    norm_counts = norms_phase(torch)
+    launches = {
+        "masked_scale_aggregate": (slice1_counts, SLICE1_CELL),
+        "client_sqnorms": (norm_counts, "ops.tree_client_norms"),
+        "norm_scale_aggregate": (counts, main_sc.name),
+        "compress_norm_scale_aggregate": (counts, main_sc.name),
+    }
+    for k in kernels:
+        run_counts, path = launches[k["name"]]
+        k["launches"] = run_counts[k["name"]]
+        k["path"] = path
+    kernels[-1]["vmap_path_launches"] = vmap_counts["compress_norm_scale_aggregate"]
+
+    profile_phase(torch, main_sc, args.out)
+    profile_phase(torch, get_scenario(SLICE1_CELL), args.out)
+    scan_breakdown_phase(torch)
     breakdown_phase(torch)
 
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

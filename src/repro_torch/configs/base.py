@@ -2,9 +2,9 @@
 (``repro/configs/base.py``) with the same fields, defaults, validation and
 ``cohort_target``, so one scenario means the same run in both packages.
 
-The axes this slice of the port does not run yet (``round_engine='scan'``,
-compression, the sampler zoo beyond optimal/aocs/uniform/full, the mesh)
-keep their fields here and are rejected by the modules that would use them.
+The axes the port does not run yet (the sampler zoo beyond
+optimal/aocs/uniform/full, the client-state layer, the mesh) keep their
+fields here and are rejected by the modules that would use them.
 """
 
 from __future__ import annotations

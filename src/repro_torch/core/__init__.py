@@ -6,9 +6,10 @@
   ocs.sample_and_aggregate         — one round of sampling + Eq. 2 aggregate
   improvement.improvement_factors  — alpha^k, gamma^k (Defs. 11/12)
   bits.BitsLedger                  — client->master uplink accounting
+  compression                      — unbiased compressors (material + apply)
 """
 
-from repro_torch.core import bits, improvement, ocs, sampling  # noqa: F401
+from repro_torch.core import bits, compression, improvement, ocs, sampling  # noqa: F401
 from repro_torch.core.ocs import OCSResult, sample_and_aggregate  # noqa: F401
 from repro_torch.core.sampling import (  # noqa: F401
     SAMPLERS,

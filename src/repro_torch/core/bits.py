@@ -1,6 +1,6 @@
 """Client->master uplink accounting (the paper's x-axis metric).
 
-A copy of ``repro/core/bits.py`` for ``compression='none'``: the paper plots
+A copy of ``repro/core/bits.py`` for the paper's samplers: the paper plots
 loss against bits sent from clients to the master, including Algorithm 2's
 overhead (Remark 3: O(j_max) extra floats per client), and excludes the
 master->client broadcast (footnote 5), which the ledger reports apart:
@@ -10,7 +10,8 @@ master->client broadcast (footnote 5), which the ledger reports apart:
   OCS (Alg. 1)       : |S| * d * bits + n * f              (norm upload)
   AOCS (Alg. 2)      : |S| * d * bits + n * f * (1 + 2*j_used)
 
-with f = 32 (one float).
+with f = 32 (one float).  Under a compressor each sent update is billed at
+``compression.compressed_bits_per_update`` instead of ``d * 32``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+
+from repro_torch.core.compression import compressed_bits_per_update
 
 FLOAT_BITS = 32
 
@@ -48,12 +51,12 @@ class BitsLedger:
     def round_bits(self, mask, sampler: str, n: int, j_used: int = 4,
                    compression: str = "none", compression_param: float = 0.0):
         """Uplink bits for one communication round given the realized mask."""
-        if compression != "none":
-            raise NotImplementedError(
-                "compressed uplink billing is not ported yet: it lands with "
-                "the compression slice of the port"
-            )
         if sampler not in _OVERHEAD_FLOATS:
             raise ValueError(f"unknown or not yet ported sampler {sampler!r}")
-        sent = int(np.sum(np.asarray(mask))) * self.update_bits()
+        per_update = (
+            self.update_bits()
+            if compression == "none"
+            else compressed_bits_per_update(self.model_dim, compression, compression_param)
+        )
+        sent = int(np.sum(np.asarray(mask))) * per_update
         return sent + n * FLOAT_BITS * _OVERHEAD_FLOATS[sampler](j_used)

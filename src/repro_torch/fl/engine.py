@@ -1,25 +1,42 @@
-"""The round engine: one federated communication round (Algorithm 3).
+"""The round engine: one federated communication round (Algorithm 3) under
+two execution axes, ported from ``repro/fl/engine.py``.
 
-Ported from ``repro/fl/engine.py`` for the ``'vmap'`` memory policy: all n
-client updates are computed at once (``torch.func.vmap`` over the client
-axis of the batch), then the master takes their norms, draws the sampling
-plan and contracts Eq. 2's masked aggregate
-``G = sum_i mask_i * (w_i/p_i) * U_i`` through the configured backend
-(``'jnp'``: per-leaf torch contraction; ``'pallas'``: the hand-written CUDA
-kernel), and takes the plain ``lr_global`` server step.  Partial
-availability (Appendix E) is the scalar ``fl.availability``.
+* **memory policy** — how client updates are held while the master samples:
 
-The step consumes its key exactly as the reference's vmap step does
+  - ``'vmap'``: all n client updates are computed at once (``torch.func.vmap``
+    over the client axis of the batch) before sampling — O(n * d) live.
+  - ``'scan'`` (single-pass OCS): clients run in groups of ``scan_group``; pass
+    1 computes each group's (optionally compressed) updates once, takes their
+    norms, and parks the first ``cache_groups`` groups' update matrices in a
+    bounded cache (``kernels/update_cache.py``).  After the plan, cached
+    groups aggregate straight from the cache and only the groups beyond its
+    capacity recompute their updates.  The reference's ``lax.scan`` loops
+    are Python loops over groups here.
+
+* **aggregation backend** — how Eq. 2's ``G = sum_i mask_i (w_i/p_i) U_i``
+  is contracted: ``'jnp'`` (plain torch) or ``'pallas'`` (the hand-written
+  CUDA kernels: the masked aggregate on the vmap path, the fused
+  norm+aggregate and compress+norm+aggregate on the scan path and under
+  compression).
+
+Unbiased compression (``fl.compression``: randk, qsgd, natural) composes with
+both: each client compresses before its norm is taken (it reports the norm of
+what it would send), from per-client keys ``split(k_comp, n)`` shared by every
+path, so the compressed updates, the norms and the masks agree across
+engines and backends.
+
+The step consumes its key exactly as the reference's does
 (``k_sample, k_comp = split(key)``; ``k_sample`` feeds ``sampling_plan``),
 so the same key gives bitwise the reference's mask whenever the norms agree.
+Partial availability (Appendix E) is the scalar ``fl.availability``.
 
 ``local_update`` follows the paper:
   * fedavg: R local SGD steps with lr eta_l, update U_i = x^k - y_{i,R}
   * dsgd  : U_i = g_i (stochastic gradient of the local batch)
 
-Not ported yet, each raising ``NotImplementedError``: the ``'scan'`` memory
-policy and compression (the scan-engine slice), a server optimizer (the
-optimizer slice), the mesh (the mesh slice).
+Not ported yet, each raising ``NotImplementedError``: a server optimizer
+(the optimizer slice), the mesh (the mesh slice), the observability step
+``make_step(diag=True)``.
 """
 
 from __future__ import annotations
@@ -33,6 +50,9 @@ from repro_torch import rng
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import ocs, sampling
+from repro_torch.core.compression import COMPRESSORS, apply_compression, client_material
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import update_cache
 
 MEMORY_POLICIES = ("vmap", "scan")
 
@@ -55,6 +75,33 @@ class RoundMetrics(NamedTuple):
     selected_clients: torch.Tensor
     deadline_misses: torch.Tensor
     dropouts: torch.Tensor
+
+
+def client_compression_material(updates, keys: torch.Tensor, fl: FLConfig) -> tuple:
+    """Per-client compression material for a block of client updates.
+
+    ``keys`` is the matching ``(block, 2)`` slice of ``split(k_comp,
+    n_clients)`` — the per-client key contract every round path shares.
+    Returns the tuple of material trees (leaves with the leading client
+    axis); only call with ``fl.compression != 'none'``.
+    """
+    return client_material(updates, keys, fl.compression, fl.compression_param)
+
+
+def client_apply_compression(updates, mats: tuple, fl: FLConfig):
+    """Compressed client block from raw updates + material (elementwise)."""
+    return apply_compression(updates, mats, fl.compression, fl.compression_param)
+
+
+def compress_client_updates(updates, keys: torch.Tensor, fl: FLConfig):
+    """Compress a block of client updates with per-client keys (a no-op when
+    ``fl.compression == 'none'``): material, then the elementwise apply —
+    the same two stages the fused kernels take, so the materialised and
+    in-stream forms cannot diverge."""
+    if fl.compression == "none":
+        return updates
+    mats = client_compression_material(updates, keys, fl)
+    return client_apply_compression(updates, mats, fl)
 
 
 def make_local_update(loss_fn: Callable, fl: FLConfig):
@@ -115,7 +162,7 @@ def make_engine(loss_fn: Callable, fl: FLConfig, server_opt=None, *,
 
 
 class RoundEngine:
-    """Builds ``round_step`` for the config's (memory, backend) pair.
+    """Builds ``round_step`` for one (memory, backend) pair.
 
     ``round_step(params, opt_state, batch, weights, key) -> (params,
     opt_state, RoundMetrics)`` — one communication round of Algorithm 3:
@@ -123,13 +170,30 @@ class RoundEngine:
     probabilities ``p_i`` (Eq. 7 exact / Alg. 2 approximate), independent
     Bernoulli participation, and the unbiased masked aggregate (Eq. 2).
     Every tensor it is given must lie on the engine's device.
+
+    Defaults come from the config (``fl.round_engine`` / ``fl.agg_backend`` /
+    ``fl.scan_group`` / ``fl.cache_groups``); keyword arguments override them
+    per instance.
     """
 
-    def __init__(self, loss_fn: Callable, fl: FLConfig, server_opt=None, *, device=None):
+    def __init__(
+        self,
+        loss_fn: Callable,
+        fl: FLConfig,
+        server_opt=None,
+        *,
+        memory: str | None = None,
+        backend: str | None = None,
+        scan_group: int | None = None,
+        cache_groups: int | None = None,
+        device=None,
+    ):
         self.fl = fl
         self.device = resolve_device(device)
-        self.memory = fl.round_engine
-        self.backend = fl.agg_backend
+        self.memory = memory if memory is not None else fl.round_engine
+        self.backend = backend if backend is not None else fl.agg_backend
+        self.scan_group = scan_group if scan_group is not None else fl.scan_group
+        self.cache_groups = cache_groups if cache_groups is not None else fl.cache_groups
         if self.memory not in MEMORY_POLICIES:
             raise ValueError(
                 f"unknown memory policy {self.memory!r}; want one of {MEMORY_POLICIES}"
@@ -139,16 +203,47 @@ class RoundEngine:
                 f"unknown aggregation backend {self.backend!r}; "
                 f"want one of {ocs.AGG_BACKENDS}"
             )
-        if self.memory == "scan":
-            raise _not_ported("memory='scan' (the single-pass scan engine)", "scan-engine")
-        if fl.compression != "none":
-            raise _not_ported(f"compression={fl.compression!r}", "compression")
+        if self.memory == "scan" and fl.n_clients % self.scan_group:
+            raise ValueError(
+                f"n_clients={fl.n_clients} not divisible by scan_group={self.scan_group}"
+            )
+        if self.cache_groups < 0:
+            raise ValueError(f"cache_groups must be >= 0, got {self.cache_groups}")
+        if fl.compression not in COMPRESSORS:
+            raise ValueError(
+                f"unknown compressor {fl.compression!r}; want one of {COMPRESSORS}"
+            )
         if server_opt is not None:
             raise _not_ported("a server optimizer", "optimizer")
         if fl.algorithm not in ("fedavg", "dsgd"):
             raise ValueError(f"unknown algorithm {fl.algorithm!r}; want fedavg or dsgd")
         sampling.resolve_sampler(fl.sampler)
         self._local_update = make_local_update(loss_fn, fl)
+        self._batched_update = vmap(self._local_update, in_dims=(None, 0))
+
+    @property
+    def local_update_evals(self) -> int:
+        """Analytic ``local_update`` evaluations per round: n for vmap; for
+        scan, n plus one recompute per client beyond the cache's capacity."""
+        if self.memory == "vmap":
+            return self.fl.n_clients
+        return update_cache.local_update_evals(
+            self.fl.n_clients, self.scan_group, self.cache_groups
+        )
+
+    def _check_devices(self, weights, key) -> None:
+        for name, t in (("weights", weights), ("key", key)):
+            if t.device.type != self.device.type:
+                raise ValueError(
+                    f"{name} lies on {t.device}, the engine runs on {self.device}"
+                )
+
+    def _plan(self, u, weights, k_sample) -> ocs.SamplingPlan:
+        fl = self.fl
+        return ocs.sampling_plan(
+            u, weights, fl.cohort_target(), k_sample,
+            sampler=fl.sampler, j_max=fl.j_max, availability=fl.availability,
+        )
 
     def _apply_server(self, params, opt_state, aggregate):
         lr = self.fl.lr_global
@@ -171,26 +266,118 @@ class RoundEngine:
             dropouts=zero,
         )
 
-    def make_step(self) -> Callable:
-        """The vmap ``round_step`` (``_make_vmap_step`` in the reference)."""
+    def make_step(self, diag: bool = False) -> Callable:
+        """The ``round_step`` for this engine's (memory, backend).  The
+        observability variant ``diag=True`` is not ported yet."""
+        if diag:
+            raise _not_ported("make_step(diag=True) (the Eq. 2 gap diagnostic)",
+                              "observability")
+        if self.memory == "vmap":
+            return self._make_vmap_step()
+        return self._make_scan_step()
+
+    def _make_vmap_step(self) -> Callable:
         fl = self.fl
-        batched_update = vmap(self._local_update, in_dims=(None, 0))
 
         def round_step(params, opt_state, batch, weights, key):
-            for name, t in (("weights", weights), ("key", key)):
-                if t.device.type != self.device.type:
-                    raise ValueError(
-                        f"{name} lies on {t.device}, the engine runs on {self.device}"
-                    )
-            k_sample, _ = rng.split(key)
-            updates, losses = batched_update(params, batch)
-            u = ocs.client_norms(updates, weights)
-            plan = ocs.sampling_plan(
-                u, weights, fl.cohort_target(), k_sample,
-                sampler=fl.sampler, j_max=fl.j_max, availability=fl.availability,
-            )
-            aggregate = ocs.aggregate_updates(updates, plan.scale, backend=self.backend)
+            self._check_devices(weights, key)
+            k_sample, k_comp = rng.split(key)
+            updates, losses = self._batched_update(params, batch)
+            # each client compresses before its norm is taken: it reports
+            # the norm of what it would send
+            if fl.compression == "none":
+                sendables, mats = updates, ()
+            else:
+                comp_keys = rng.split(k_comp, fl.n_clients)
+                mats = client_compression_material(updates, comp_keys, fl)
+                sendables = client_apply_compression(updates, mats, fl)
+            plan = self._plan(ocs.client_norms(sendables, weights), weights, k_sample)
+            if fl.compression == "none":
+                aggregate = ocs.aggregate_updates(updates, plan.scale, backend=self.backend)
+            elif self.backend == "pallas":
+                # the kernel re-applies the compressor in its tile stream from
+                # the raw updates and the same material: no compressed (n, D)
+                # matrix is written for the aggregate
+                _, agg_flat = kops.compress_norm_scale_aggregate(
+                    kops.tree_to_client_matrix(updates), plan.scale,
+                    tuple(kops.tree_to_client_matrix(m) for m in mats),
+                    fl.compression, fl.compression_param,
+                )
+                aggregate = kops.client_matrix_to_tree(agg_flat, params,
+                                                       strip_client_axis=False)
+            else:
+                aggregate = ocs.aggregate_updates(sendables, plan.scale, backend="jnp")
             new_params, new_opt = self._apply_server(params, opt_state, aggregate)
             return new_params, new_opt, self._metrics(plan, losses)
+
+        return round_step
+
+    def _make_scan_step(self) -> Callable:
+        fl = self.fl
+        n, g = fl.n_clients, self.scan_group
+        n_groups = n // g
+        # the first n_cached groups' update matrices survive pass 1 in the
+        # bounded cache; the n_groups - n_cached beyond it recompute post-plan
+        n_cached = update_cache.num_slots(self.cache_groups, n_groups)
+
+        def round_step(params, opt_state, batch, weights, key):
+            self._check_devices(weights, key)
+            k_sample, k_comp = rng.split(key)
+            # the vmap path's per-client compression keys, re-derived for the
+            # spill recompute, so compressed updates (hence norms, hence
+            # masks) match on every engine
+            comp_keys = rng.split(k_comp, n) if fl.compression != "none" else None
+
+            def group(j):
+                lo = j * g
+                return ({k: v[lo:lo + g] for k, v in batch.items()},
+                        None if comp_keys is None else comp_keys[lo:lo + g])
+
+            leaves = kops.tree_leaves(params)
+            dim = sum(leaf.numel() for leaf in leaves)
+            dtype = leaves[0].dtype
+            for leaf in leaves[1:]:
+                dtype = torch.promote_types(dtype, leaf.dtype)
+            cache = torch.empty((n_cached, g, dim), dtype=dtype, device=self.device)
+
+            # pass 1: every group's updates once; norms from the same eager
+            # ocs.client_norms as the vmap path (masks never depend on a kernel)
+            norm_parts, loss_parts = [], []
+            for j in range(n_groups):
+                gb, keys = group(j)
+                upd, losses = self._batched_update(params, gb)
+                upd = compress_client_updates(upd, keys, fl)
+                norm_parts.append(ocs.client_norms(upd, weights[j * g:(j + 1) * g]))
+                loss_parts.append(losses)
+                if j < n_cached:
+                    kops.tree_to_client_matrix(upd, out=cache[j])
+            plan = self._plan(torch.cat(norm_parts), weights, k_sample)
+            scale_g = plan.scale.reshape(n_groups, g)
+
+            # post-plan: one flat f32 (D,) accumulator, group by group; the
+            # squared norms the fused stream re-emits are discarded
+            agg_flat = torch.zeros((dim,), dtype=torch.float32, device=self.device)
+            for j in range(n_cached):
+                _, part = update_cache.group_norm_aggregate(cache[j], scale_g[j],
+                                                            self.backend)
+                agg_flat = agg_flat + part
+            for j in range(n_cached, n_groups):
+                # spill: recompute the RAW updates and regenerate the material
+                # from the same per-client keys; the compressor runs inside the
+                # post-plan contraction
+                gb, keys = group(j)
+                upd, _ = self._batched_update(params, gb)
+                mats = () if keys is None else tuple(
+                    kops.tree_to_client_matrix(m)
+                    for m in client_compression_material(upd, keys, fl)
+                )
+                _, part = update_cache.group_compress_norm_aggregate(
+                    kops.tree_to_client_matrix(upd), scale_g[j], mats,
+                    fl.compression, fl.compression_param, self.backend,
+                )
+                agg_flat = agg_flat + part
+            aggregate = kops.client_matrix_to_tree(agg_flat, params, strip_client_axis=False)
+            new_params, new_opt = self._apply_server(params, opt_state, aggregate)
+            return new_params, new_opt, self._metrics(plan, torch.cat(loss_parts))
 
         return round_step

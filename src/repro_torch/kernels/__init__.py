@@ -3,7 +3,12 @@ PyTorch version, with the public wrappers in ``ops``:
 
 * masked_aggregate — Eq. 2's masked scale-&-aggregate
   ``sum_i mask_i * (w_i/p_i) * U_i`` in one pass over the updates
-  (replaces ``repro/kernels/masked_aggregate.py``).
+  (replaces ``repro/kernels/masked_aggregate.py``);
+* norm_aggregate — per-client squared norms, and the fused norm + Eq. 2
+  aggregate with and without in-stream compression (replace
+  ``repro/kernels/client_norm.py`` and ``repro/kernels/norm_aggregate.py``);
+* update_cache — the scan engine's bounded update cache and its per-group
+  post-plan contraction on either backend.
 
 Kernels are compiled by ``_build`` from ``csrc/`` at first use, never at
 import.

@@ -1,8 +1,9 @@
 """Builds the port's CUDA kernels from ``csrc/`` with ``nvcc`` at first use.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
-``_build/lib<name>-<hash>.so`` (the hash covers the source and the flags, so
-an edited source never loads a stale library), which :func:`load` opens with
+``_build/lib<name>-<hash>.so`` (the hash covers the source, the shared
+headers ``csrc/*.cuh`` and the flags, so an edited source never loads a
+stale library), which :func:`load` opens with
 ``ctypes``.  :func:`build` starts one ``nvcc`` per missing library, all at
 once, and waits for them all.  Nothing is compiled when a module is imported.
 """
@@ -20,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("masked_aggregate",)
+SOURCES = ("masked_aggregate", "norm_aggregate")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,6 +47,7 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to under the current source and flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -13,10 +13,12 @@
 // bytes, so the kernel's time is launch latency; the design keeps one read of
 // U and no scaled (C, D) intermediate, and stays simple.
 //
-// Design: a 1-D grid over D.  Each thread owns kCols adjacent columns (one
-// 16-byte load of f32, or 8 bytes of bf16, per client), loops over the
-// clients i = 0..C-1 in order and accumulates in f32 registers; scale is
-// staged once per block in shared memory.  Every output element is written by
+// Design: a 1-D grid over D, in the tile layout of ocs_tile.cuh.  Each thread
+// owns kCols adjacent columns (one 16-byte load of f32, or 8 bytes of bf16,
+// per client), loops over the clients i = 0..C-1 in order and accumulates in
+// f32 registers (ocs::agg_step, shared with norm_aggregate.cu, whose
+// aggregate is therefore bitwise this one); scale is staged once per block in
+// shared memory.  Every output element is written by
 // exactly one thread, with no atomics and a fixed summation order, so the
 // result is deterministic run to run — the reference's bitwise contracts
 // (resume, cross-mode parity) need that from every kernel feeding params.
@@ -26,28 +28,12 @@
 // f32, out is (D,) f32, C <= 12288 (48 KB of shared memory).  The wrapper in
 // ops.py pads D with zero columns to a multiple of the block's tile.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "ocs_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kCols = 4;
-
-__device__ __forceinline__ float4 load_cols(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load_cols(const __nv_bfloat16* p) {
-  union {
-    uint2 raw;
-    __nv_bfloat162 pair[2];
-  } v;
-  v.raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(v.pair[0]);
-  const float2 b = __bfloat1622float2(v.pair[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
+using ocs::kCols;
+using ocs::kThreads;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -66,11 +52,7 @@ masked_scale_aggregate_kernel(const T* __restrict__ u,
 #pragma unroll 8
   for (int i = 0; i < c; ++i) {
     const float s = s_scale[i];
-    const float4 x = load_cols(p + static_cast<long long>(i) * d);
-    acc.x = fmaf(s, x.x, acc.x);
-    acc.y = fmaf(s, x.y, acc.y);
-    acc.z = fmaf(s, x.z, acc.z);
-    acc.w = fmaf(s, x.w, acc.w);
+    ocs::agg_step(acc, s, ocs::load_cols(p + static_cast<long long>(i) * d));
   }
   *reinterpret_cast<float4*>(out + col) = acc;
 }
@@ -78,7 +60,7 @@ masked_scale_aggregate_kernel(const T* __restrict__ u,
 template <typename T>
 int launch(const void* u, const void* scale, void* out, int c, int d,
            void* stream) {
-  const int blocks = (d / kCols + kThreads - 1) / kThreads;
+  const int blocks = ocs::tile_blocks(d);
   masked_scale_aggregate_kernel<T>
       <<<blocks, kThreads, c * sizeof(float),
          static_cast<cudaStream_t>(stream)>>>(

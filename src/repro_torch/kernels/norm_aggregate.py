@@ -1,0 +1,244 @@
+"""Per-client squared norms and the fused norm + Eq. 2 aggregate on the GPU,
+with and without in-stream compression.
+
+The hand-written CUDA kernels of ``csrc/norm_aggregate.cu`` replace three
+TPU kernels:
+
+* :func:`client_sqnorms_cuda` — ``repro/kernels/client_norm.py::
+  client_sqnorms_pallas``: ``(C, D) -> (C,)`` f32 ``sum_d U_id^2``;
+* :func:`norm_scale_aggregate_cuda` — ``repro/kernels/norm_aggregate.py::
+  norm_scale_aggregate_pallas``: the squared norms and ``sum_i s_i U_i``
+  from one read of U (the scan engine's post-plan pass);
+* :func:`compress_norm_scale_aggregate_cuda` — ``repro/kernels/
+  norm_aggregate.py::compress_norm_scale_aggregate_pallas``: the same on
+  ``C(U)``, compressed in the tile stream from the raw values and their
+  material (``core/compression.py``), ``C(U)`` never written.
+
+All three share one tile layout and one reduction code (``csrc/
+ocs_tile.cuh``), with a fixed summation order and no atomics on values: the
+norms of the second equal the first's bitwise, its aggregate equals
+``masked_scale_aggregate_cuda``'s, the third with ``kind='none'`` equals the
+second, and the third equals "compress eagerly on the card, then the second".
+On an H100 each is bound by device memory, and at the round's shapes by the
+latency of its two launches (the tile pass and the fixed-order sum of the
+per-CTA norm partials).
+
+Each wrapper launches its kernel for CUDA tensors and raises on anything it
+cannot take; for CPU tensors it returns the plain version beside it.  Its
+``launches`` attribute counts its launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.masked_aggregate import (
+    COLS_PER_THREAD,
+    MAX_CLIENTS,
+    THREADS,
+    masked_scale_aggregate_ref,
+)
+
+WARPS = THREADS // 32          # kWarps in the source: norm partials per CTA
+KINDS = {"none": 0, "randk": 1, "qsgd": 2, "natural": 3}    # kNone.. in the source
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_ARGTYPES = {
+    "client_sqnorms": [_P] * 3 + [_I] * 2 + [_P],
+    "norm_scale_aggregate": [_P] * 5 + [_I] * 2 + [_P],
+    "compress_norm_scale_aggregate": [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P],
+}
+
+
+def client_sqnorms_ref(updates: torch.Tensor) -> torch.Tensor:
+    """(clients, D) -> (clients,) f32 squared norms."""
+    x = updates.to(torch.float32)
+    return torch.sum(x * x, dim=-1)
+
+
+def norm_scale_aggregate_ref(updates: torch.Tensor, scale: torch.Tensor):
+    """(clients, D), (clients,) -> ((clients,) sq norms, (D,) aggregate)."""
+    return client_sqnorms_ref(updates), masked_scale_aggregate_ref(updates, scale)
+
+
+def compress_norm_scale_aggregate_ref(updates, scale, mats, kind, param):
+    """Compress the raw ``(clients, D)`` matrix with its material (cast
+    through the transport dtype), then both reductions on ``C(U)``."""
+    from repro_torch.core.compression import apply_compression_flat
+
+    xc = apply_compression_flat(updates, kind, param,
+                                *[m.to(torch.float32) for m in mats])
+    xc = xc.to(updates.dtype).to(torch.float32)
+    return client_sqnorms_ref(xc), masked_scale_aggregate_ref(xc, scale)
+
+
+def _kernel_fn(name: str, dtype):
+    fn = getattr(_build.load("norm_aggregate"), f"{name}_{_SUFFIX[dtype]}")
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_matrix(name: str, x: torch.Tensor, dev, shape, dtypes) -> None:
+    if x.device != dev:
+        raise ValueError(f"{name} must lie on {dev}, got {x.device}")
+    if x.dtype not in dtypes:
+        raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, got {x.dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"want {name} of shape {shape}, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if x.data_ptr() % (COLS_PER_THREAD * x.element_size()):
+        raise ValueError(f"{name} must start on a {COLS_PER_THREAD}-element boundary")
+
+
+def _check(updates: torch.Tensor, scale=None, mats=()) -> tuple:
+    """Validate the inputs for the kernel; returns ``(C, D)``."""
+    if updates.device.type != "cuda":
+        raise ValueError(f"updates must lie on a CUDA device, got {updates.device}")
+    if updates.dim() != 2:
+        raise ValueError(f"want updates (C, D), got {tuple(updates.shape)}")
+    c, d = updates.shape
+    if d % COLS_PER_THREAD:
+        raise ValueError(
+            f"D must be a multiple of {COLS_PER_THREAD} (the ops wrappers pad it), got D={d}"
+        )
+    if not 0 < c <= MAX_CLIENTS or d >= 2**31:
+        raise ValueError(
+            f"shape beyond the kernel's limits: C={c} (1 to {MAX_CLIENTS}), D={d} (below 2**31)"
+        )
+    _check_matrix("updates", updates, updates.device, (c, d), tuple(_SUFFIX))
+    if scale is not None:
+        _check_vector(scale, updates.device, c)
+    for j, m in enumerate(mats):
+        _check_matrix(f"material {j}", m, updates.device, (c, d), (torch.float32,))
+    return c, d
+
+
+def _check_vector(scale: torch.Tensor, dev, c: int) -> None:
+    if scale.device != dev:
+        raise ValueError(f"scale must lie on {dev}, got {scale.device}")
+    if scale.dtype != torch.float32:
+        raise TypeError(f"scale must be float32, got {scale.dtype}")
+    if tuple(scale.shape) != (c,) or not scale.is_contiguous():
+        raise ValueError(f"want a contiguous scale of shape ({c},), got {tuple(scale.shape)}")
+
+
+def _scratch(c: int, d: int, dev) -> torch.Tensor:
+    """The per-(client, CTA, warp) norm partials; the caching allocator
+    hands this memory out again only to work queued after the kernels on
+    the same stream."""
+    blocks = (d // COLS_PER_THREAD + THREADS - 1) // THREADS
+    return torch.empty((c, blocks * WARPS), dtype=torch.float32, device=dev)
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def client_sqnorms_cuda(updates: torch.Tensor) -> torch.Tensor:
+    """(C, D) f32/bf16 -> (C,) f32 squared norms.
+
+    CUDA tensors run the kernel (or raise); CPU tensors run the plain version.
+    """
+    if _on_cpu(updates):
+        return client_sqnorms_ref(updates)
+    c, d = _check(updates)
+    sq = torch.empty((c,), dtype=torch.float32, device=updates.device)
+    if d == 0:
+        return sq.zero_()
+    partials = _scratch(c, d, updates.device)
+    stream = torch.cuda.current_stream(updates.device).cuda_stream
+    rc = _kernel_fn("client_sqnorms", updates.dtype)(
+        updates.data_ptr(), partials.data_ptr(), sq.data_ptr(), c, d, stream,
+    )
+    _raise_on(rc, "client_sqnorms")
+    client_sqnorms_cuda.launches += 1
+    return sq
+
+
+def norm_scale_aggregate_cuda(updates: torch.Tensor, scale: torch.Tensor):
+    """(C, D) f32/bf16, (C,) f32 -> ((C,) f32 squared norms, (D,) f32
+    ``sum_i scale_i * U_i``) from one read of U.
+
+    CUDA tensors run the kernel (or raise); CPU tensors run the plain version.
+    """
+    if _on_cpu(updates, scale):
+        return norm_scale_aggregate_ref(updates, scale)
+    c, d = _check(updates, scale)
+    dev = updates.device
+    sq = torch.empty((c,), dtype=torch.float32, device=dev)
+    agg = torch.empty((d,), dtype=torch.float32, device=dev)
+    if d == 0:
+        return sq.zero_(), agg
+    partials = _scratch(c, d, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _kernel_fn("norm_scale_aggregate", updates.dtype)(
+        updates.data_ptr(), scale.data_ptr(), partials.data_ptr(), sq.data_ptr(),
+        agg.data_ptr(), c, d, stream,
+    )
+    _raise_on(rc, "norm_scale_aggregate")
+    norm_scale_aggregate_cuda.launches += 1
+    return sq, agg
+
+
+def compress_norm_scale_aggregate_cuda(updates: torch.Tensor, scale: torch.Tensor,
+                                       mats: tuple, kind: str, param: float):
+    """Raw (C, D) f32/bf16 + ``MATERIAL_ARITY[kind]`` (C, D) f32 material,
+    (C,) f32 scale -> ((C,) f32 squared norms of C(U), (D,) f32
+    ``sum_i scale_i * C(U_i)``), compressed in the tile stream.
+
+    CUDA tensors run the kernel (or raise); CPU tensors run the plain version.
+    """
+    # imported here: core.compression imports this package
+    from repro_torch.core.compression import MATERIAL_ARITY
+
+    if kind not in KINDS:
+        raise ValueError(f"unknown compressor {kind!r}; want one of {tuple(KINDS)}")
+    mats = tuple(mats)
+    if len(mats) != MATERIAL_ARITY[kind]:
+        raise ValueError(
+            f"compressor {kind!r} takes {MATERIAL_ARITY[kind]} material matrices, "
+            f"got {len(mats)}"
+        )
+    if _on_cpu(updates, scale, *mats):
+        return compress_norm_scale_aggregate_ref(updates, scale, mats, kind, param)
+    c, d = _check(updates, scale, mats)
+    dev = updates.device
+    sq = torch.empty((c,), dtype=torch.float32, device=dev)
+    agg = torch.empty((d,), dtype=torch.float32, device=dev)
+    if d == 0:
+        return sq.zero_(), agg
+    levels = float(int(param)) if kind == "qsgd" else 0.0
+    if kind == "qsgd" and levels < 1:
+        raise ValueError(f"qsgd needs at least one level, got {param}")
+    # torch's CUDA division by a Python scalar multiplies by its float32
+    # reciprocal; the kernel does the same with this one
+    inv_levels = float(np.float32(1.0) / np.float32(levels)) if levels else 0.0
+    ptrs = [m.data_ptr() for m in mats] + [0] * (2 - len(mats))
+    partials = _scratch(c, d, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _kernel_fn("compress_norm_scale_aggregate", updates.dtype)(
+        updates.data_ptr(), scale.data_ptr(), ptrs[0], ptrs[1], partials.data_ptr(),
+        sq.data_ptr(), agg.data_ptr(), c, d, KINDS[kind], levels, inv_levels, stream,
+    )
+    _raise_on(rc, "compress_norm_scale_aggregate")
+    compress_norm_scale_aggregate_cuda.launches += 1
+    return sq, agg
+
+
+client_sqnorms_cuda.launches = 0
+norm_scale_aggregate_cuda.launches = 0
+compress_norm_scale_aggregate_cuda.launches = 0

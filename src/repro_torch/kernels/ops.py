@@ -6,8 +6,15 @@ to a multiple of the kernel's tile (zeros leave the contraction unchanged),
 and outputs are unpadded before return.  A CUDA tensor runs the hand-written
 kernel; a CPU tensor runs its plain version.
 
+* ``client_sqnorms`` / ``tree_client_norms`` — Alg. 1 line 3 / Alg. 2 input:
+  ``u_i = ||w_i U_i||``.
 * ``masked_scale_aggregate`` / ``tree_masked_aggregate`` — Eq. 2's masked
   unbiased aggregate ``G = sum_i mask_i (w_i / p_i) U_i`` on one device.
+* ``norm_scale_aggregate`` — both reductions from one read (the scan
+  engine's post-plan pass over each group).
+* ``compress_norm_scale_aggregate`` — the same on ``C(U)``, compressed in the
+  tile stream from the raw updates and their material (material matrices
+  are zero-padded with the updates: zero in, zero out for every kind).
 """
 
 from __future__ import annotations
@@ -16,6 +23,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.masked_aggregate import TILE, masked_scale_aggregate_cuda
+from repro_torch.kernels.norm_aggregate import (
+    client_sqnorms_cuda,
+    compress_norm_scale_aggregate_cuda,
+    norm_scale_aggregate_cuda,
+)
 
 
 def tree_leaves(tree) -> list:
@@ -32,22 +44,28 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def _tree_rebuild(like, leaves_iter):
+def tree_rebuild(like, leaves_iter):
+    """A tree shaped like ``like`` whose leaves are taken, in ``tree_leaves``
+    order, from ``leaves_iter``."""
     if isinstance(like, dict):
-        return {k: _tree_rebuild(like[k], leaves_iter) for k in sorted(like)}
+        return {k: tree_rebuild(like[k], leaves_iter) for k in sorted(like)}
     return next(leaves_iter)
 
 
-def tree_to_client_matrix(updates_tree) -> torch.Tensor:
+def tree_to_client_matrix(updates_tree, out: torch.Tensor | None = None) -> torch.Tensor:
     """Client-major ``(n, D)`` matrix of a tree of ``(n, ...)`` leaves.
 
     One concatenated copy in ``tree_leaves`` order (for the MLP:
     ``b1, b2, b3, w1, w2, w3``) — the layout the reference's kernels stream
-    and ``client_matrix_to_tree`` inverts.
+    and ``client_matrix_to_tree`` inverts.  ``out`` (an ``(n, D)`` tensor,
+    e.g. a slot of the scan engine's update cache) receives the copy.
     """
     leaves = tree_leaves(updates_tree)
     n = leaves[0].shape[0]
-    return torch.cat([leaf.reshape(n, -1) for leaf in leaves], dim=1)
+    parts = [leaf.reshape(n, -1) for leaf in leaves]
+    if out is None:
+        return torch.cat(parts, dim=1)
+    return torch.cat(parts, dim=1, out=out)
 
 
 def client_matrix_to_tree(vec: torch.Tensor, like_tree, strip_client_axis: bool,
@@ -65,7 +83,55 @@ def client_matrix_to_tree(vec: torch.Tensor, like_tree, strip_client_axis: bool,
         piece = vec[off:off + size].reshape(shape)
         out.append(piece.to(leaf.dtype) if keep_dtype else piece)
         off += size
-    return _tree_rebuild(like_tree, iter(out))
+    return tree_rebuild(like_tree, iter(out))
+
+
+def _pad_cols(x: torch.Tensor, pad: int) -> torch.Tensor:
+    return F.pad(x, (0, pad)) if pad else x
+
+
+def client_sqnorms(updates: torch.Tensor) -> torch.Tensor:
+    """(clients, D) -> (clients,) f32 squared norms in one pass (D zero-padded
+    to the kernel's tile)."""
+    return client_sqnorms_cuda(_pad_cols(updates, (-updates.shape[1]) % TILE))
+
+
+def tree_client_norms(updates_tree, weights: torch.Tensor) -> torch.Tensor:
+    """Kernel-backed equivalent of ``core.ocs.client_norms``:
+    ``u_i = w_i * ||U_i||`` over a tree of ``(n, ...)`` leaves."""
+    sq = client_sqnorms(tree_to_client_matrix(updates_tree))
+    return weights.to(torch.float32) * torch.sqrt(sq)
+
+
+def norm_scale_aggregate(updates: torch.Tensor, scale: torch.Tensor) -> tuple:
+    """(clients, D), (clients,) -> ((clients,) sq norms, (D,) aggregate).
+
+    Both OCS reductions from one read of the updates: the per-client squared
+    norms behind ``u_i = ||w_i U_i||`` and Eq. 2's ``sum_i scale_i U_i``.
+    The scan engine calls it on each cached group after the plan.
+    """
+    d = updates.shape[1]
+    sq, agg = norm_scale_aggregate_cuda(_pad_cols(updates, (-d) % TILE), scale)
+    return sq, agg[:d]
+
+
+def compress_norm_scale_aggregate(updates: torch.Tensor, scale: torch.Tensor,
+                                  mats: tuple, kind: str, param: float) -> tuple:
+    """Raw (clients, D) + material -> ((clients,) sq norms of C(U),
+    (D,) aggregate of C(U)), compression fused into the aggregate stream.
+
+    The compressor runs elementwise on each tile of the raw values and its
+    ``MATERIAL_ARITY[kind]`` material matrices, and both reductions take the
+    compressed tile: one read of each update, no ``C(U)`` written.  D pads
+    with zeros on the updates AND the material.
+    """
+    d = updates.shape[1]
+    pad = (-d) % TILE
+    sq, agg = compress_norm_scale_aggregate_cuda(
+        _pad_cols(updates, pad), scale, tuple(_pad_cols(m, pad) for m in mats),
+        kind, param,
+    )
+    return sq, agg[:d]
 
 
 def masked_scale_aggregate(updates: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -78,10 +144,7 @@ def masked_scale_aggregate(updates: torch.Tensor, scale: torch.Tensor) -> torch.
     and the result is unpadded.
     """
     d = updates.shape[1]
-    pad = (-d) % TILE
-    if pad:
-        updates = F.pad(updates, (0, pad))
-    return masked_scale_aggregate_cuda(updates, scale)[:d]
+    return masked_scale_aggregate_cuda(_pad_cols(updates, (-d) % TILE), scale)[:d]
 
 
 def tree_masked_aggregate(updates_tree, scale: torch.Tensor):

@@ -2,3 +2,8 @@
 (``repro/kernels/ref.py``): the ground truth the kernels are held against."""
 
 from repro_torch.kernels.masked_aggregate import masked_scale_aggregate_ref  # noqa: F401
+from repro_torch.kernels.norm_aggregate import (  # noqa: F401
+    client_sqnorms_ref,
+    compress_norm_scale_aggregate_ref,
+    norm_scale_aggregate_ref,
+)

@@ -7,8 +7,12 @@ key is ``fold_in(PRNGKey(seed), 1000 + k)`` and every participation mask is
 lets the port draw the same masks as the reference from the same seed, which
 is what makes the two ledgers comparable round by round.
 
-A key is an int64 tensor of shape ``(2,)`` (a batch of keys: ``(..., 2)``)
-holding two uint32 words; every function runs on the key's device.  All
+A key is an int64 tensor of shape ``(2,)`` holding two uint32 words; every
+function runs on the key's device.  ``split``, ``bits`` and ``uniform`` also
+take a ``(..., 2)`` batch of keys and draw for all of them in one cipher call
+(bitwise ``jax.vmap`` of the single-key form): the compressor's per-client,
+per-leaf material is drawn that way, since each cipher call is some 170
+small device ops.  All
 arithmetic is int64 masked with ``& 0xFFFFFFFF``, because torch's uint32
 arithmetic is partial.
 """
@@ -58,10 +62,21 @@ def _counts(shape, device):
     return (idx >> 32).reshape(shape), (idx & _MASK).reshape(shape)
 
 
+def _key_words(key: torch.Tensor, ndim: int):
+    """The two words of a key, or of a ``(..., 2)`` batch of keys, shaped to
+    broadcast against ``ndim`` trailing counter dims."""
+    pad = (slice(None),) * (key.dim() - 1) + (None,) * ndim
+    return key[..., 0][pad], key[..., 1][pad]
+
+
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split``: ``(num, 2)`` new keys, key ``i`` = cipher of counter ``i``."""
+    """``jax.random.split``: ``(num, 2)`` new keys, key ``i`` = cipher of counter ``i``.
+
+    A ``(..., 2)`` batch of keys gives ``(..., num, 2)``: bitwise ``jax.vmap``
+    of the single-key form, in one cipher call over the whole batch.
+    """
     hi, lo = _counts((num,), key.device)
-    y0, y1 = threefry2x32(key[0], key[1], hi, lo)
+    y0, y1 = threefry2x32(*_key_words(key, 1), hi, lo)
     return torch.stack([y0, y1], dim=-1)
 
 
@@ -74,16 +89,21 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
 
 def bits(key: torch.Tensor, shape=()) -> torch.Tensor:
     """``jax.random.bits`` (uint32): the two cipher words of each element's
-    flat row-major index XORed, returned as int64 in ``[0, 2**32)``."""
+    flat row-major index XORed, returned as int64 in ``[0, 2**32)``.
+
+    A ``(..., 2)`` batch of keys gives ``(..., *shape)``, bitwise ``jax.vmap``
+    of the single-key form.
+    """
     shape = tuple(shape)
     hi, lo = _counts(shape, key.device)
-    y0, y1 = threefry2x32(key[0], key[1], hi, lo)
+    y0, y1 = threefry2x32(*_key_words(key, len(shape)), hi, lo)
     return y0 ^ y1
 
 
 def uniform(key: torch.Tensor, shape=(), minval=0.0, maxval=1.0) -> torch.Tensor:
     """``jax.random.uniform`` in float32: 23 random mantissa bits under the
-    exponent of 1.0, minus 1, then scaled to ``[minval, maxval)``."""
+    exponent of 1.0, minus 1, then scaled to ``[minval, maxval)``.  Takes a
+    batch of keys as :func:`bits` does."""
     b = bits(key, shape)
     floats = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)

@@ -10,7 +10,8 @@ keys, so a run draws the reference's cohorts, batches and — whenever the
 norms agree — its participation masks.
 
 Every run fills a :class:`SimLedger` (schema 3, the reference's artifact
-contract: ``validate_ledger`` accepts the same documents as the reference's).
+contract: ``validate_ledger`` accepts the same documents as the reference's);
+its uplink series bills compressed updates at the compressor's size.
 
 Not ported yet: the ``'prefetch'`` and ``'scan'`` modes, telemetry
 (``obs``), checkpoint/resume, the client-state layer (``system``) and the
@@ -224,9 +225,10 @@ def run_simulation(
 
     Each round draws the cohort (``rng.choice`` without replacement), the
     per-client example permutations and the round key
-    (``fold_in(key, 1000 + k)``) in the reference's order, runs one vmap
-    round step on ``device`` (``None`` means CUDA and raises without one;
-    pass ``device='cpu'``), and waits for it.  ``init_fn(key)`` gets
+    (``fold_in(key, 1000 + k)``) in the reference's order, runs one round
+    step of the configured engine (``fl.round_engine``) on ``device``
+    (``None`` means CUDA and raises without one; pass ``device='cpu'``), and
+    waits for it.  ``init_fn(key)`` gets
     ``fold_in(PRNGKey(seed), 1)``.  ``fl.weights == 'data_size'`` takes each
     cohort's slice of ``dataset.sizes()``, normalised per round.
     ``artifact`` (a path) serialises the ledger on completion.

@@ -1,14 +1,17 @@
 """Scenario registry: the cells of the paper's Sec. 4 grid that the port runs.
 
 A copy of the reference's registry (``repro/sim/scenarios.py``) restricted
-to what this slice of the port can run — the MLP cells on the vmap engine
-without compression, the client-state layer or a mesh — with field values
-identical to the reference's, so one name means one run in both packages:
+to what the port can run so far — the MLP cells on the vmap and scan engines,
+with or without compression, without the client-state layer or a mesh — with
+field values identical to the reference's, so one name means one run in both
+packages:
 
 * ``femnist{1,2,3}-fedavg-{full,aocs,uniform}`` (Sec. 4.2, Figs. 3-5)
 * ``femnist1-dsgd-{optimal,uniform}`` (Sec. 4.1)
 * ``cifar-fedavg-aocs`` (Appendix G)
 * ``femnist1-fedavg-aocs-q0.7`` (Appendix E)
+* ``femnist1-fedavg-aocs-randk`` (Sec. 6 future work: rand-k x OCS)
+* ``femnist1-fedavg-aocs-scan`` (the single-pass scan engine)
 * ``femnist1-fedavg-aocs-pallas`` (the Eq. 2 aggregate on the CUDA kernel)
 
 Any other name raises ``KeyError``: a reference cell not ported yet, or an
@@ -164,6 +167,19 @@ def _build_grid():
         dataset="femnist1",
         fl=_fl(availability=0.7),
         paper="Appendix E (partial availability, q=0.7)",
+    ))
+    # OCS composed with unbiased compression (Sec. 6 future work).
+    register(Scenario(
+        name="femnist1-fedavg-aocs-randk",
+        dataset="femnist1",
+        fl=_fl(compression="randk", compression_param=0.1),
+        paper="Sec. 6 future work (rand-k x OCS)",
+    ))
+    register(Scenario(
+        name="femnist1-fedavg-aocs-scan",
+        dataset="femnist1",
+        fl=_fl(round_engine="scan", scan_group=4, cache_groups=4),
+        paper="Sec. 4.2 grid cell on the single-pass scan engine",
     ))
     register(Scenario(
         name="femnist1-fedavg-aocs-pallas",

@@ -107,14 +107,24 @@ def test_one_round_matches_reference(algorithm, backend, availability):
 
 
 def test_unported_axes_raise():
+    # the scan engine and compression are ported (tests/test_torch_scan_engine.py);
+    # a server optimizer, the mesh, the diag step, the sampler zoo and an
+    # availability trace are not
     kw, _, _, _, tloss = _setup("fedavg")
-    for bad in (dict(round_engine="scan"), dict(compression="randk")):
+    for sampler in ("clustered", "cyclic", "threshold"):
         with pytest.raises(NotImplementedError, match="not ported"):
-            engine.RoundEngine(tloss, FLConfig(**kw, **bad), device="cpu")
+            engine.RoundEngine(tloss, FLConfig(**kw, sampler=sampler), device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         engine.RoundEngine(tloss, FLConfig(**kw), server_opt=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         engine.make_engine(tloss, FLConfig(**kw), mesh=object(), device="cpu")
+    for memory in ("vmap", "scan"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            engine.RoundEngine(tloss, FLConfig(**kw, round_engine=memory, scan_group=4),
+                               device="cpu").make_step(diag=True)
+    u = torch.ones((8,))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ocs.sampling_plan(u, u / 8, 3, rng.PRNGKey(0), availability=object())
 
 
 def test_mlp_module_matches_reference_logits():

@@ -71,6 +71,7 @@ def test_registry_cells_equal_reference():
         *(f"femnist{d}-fedavg-{s}" for d in (1, 2, 3) for s in ("full", "aocs", "uniform")),
         "femnist1-dsgd-optimal", "femnist1-dsgd-uniform", "cifar-fedavg-aocs",
         "femnist1-fedavg-aocs-q0.7", "femnist1-fedavg-aocs-pallas",
+        "femnist1-fedavg-aocs-randk", "femnist1-fedavg-aocs-scan",
     ])
     for name in scenarios.list_scenarios():
         assert dataclasses.asdict(scenarios.get_scenario(name)) == dataclasses.asdict(
@@ -78,7 +79,7 @@ def test_registry_cells_equal_reference():
         assert dataclasses.asdict(scenarios.get_scenario(name).reduced()) == dataclasses.asdict(
             j_scenarios.get_scenario(name).reduced())
     with pytest.raises(KeyError, match="not ported yet"):
-        scenarios.get_scenario("femnist1-fedavg-aocs-scan")
+        scenarios.get_scenario("femnist1-fedavg-aocs-straggler-scan")
 
 
 @pytest.mark.parametrize("dataset", ("femnist2", "cifar"))
