@@ -11,9 +11,11 @@ nvcc (one process per source, all at once), then:
 
 * kernel phases: holds each kernel against its plain PyTorch version on the
   card (f32 and bf16, C in {1, 3, 4, 32, 33, 200} x D in {1, 7, 4097, 58430},
-  every compressor kind), checks the bitwise contracts between them, and
-  times each at its path shapes beside that plain version, a library call
-  where one computes the same function, and its memory bound;
+  every compressor kind; the mesh round's two kernels also at C = 8), checks
+  the bitwise contracts between them, and times each at its path shapes
+  (the mesh kernels also at a large local block of 1,024 clients) beside
+  that plain version, a library call where one computes the same function,
+  and its memory bound;
 * path phases, each with every kernel count set to 0 just before and read
   just after:
 
@@ -29,13 +31,23 @@ nvcc (one process per source, all at once), then:
   - the first slice's ``femnist1-fedavg-aocs-pallas`` (the masked-aggregate
     kernel once per round);
   - the kernel-backed norms ``ops.tree_client_norms`` of full-width cohorts;
+  - the mesh round at world size 1 on NCCL: ``femnist1-fedavg-aocs-shard-randk``
+    (the sharded compress kernel once per round) and
+    ``femnist1-fedavg-aocs-shard`` (the sharded aggregate kernel once per
+    round), each also bitwise equal to its single-device counterpart (the
+    vmap + rand-k + pallas path and the first slice's path);
 
   each path checks its launches per round, that the ledger is valid and the
   losses finite, that a second run reproduces masks, losses and parameters
   bitwise, and that a reduced run on the card matches the same run on the
   CPU;
-* a profiler pass and a per-layer breakdown of the main path and of the
-  first slice's path, which say where a round's time goes.
+* ``femnist1-fedavg-aocs-shard-randk`` on 4 ranks sharing the one card (gloo,
+  every rank on ``cuda:0``): each rank's launches, masks equal across ranks,
+  the first round's mask equal to the world-size-1 run's and the parameters
+  within 1e-5 of it; its times are those of 4 ranks sharing one card, not of
+  4 GPUs;
+* a profiler pass and a per-layer breakdown of the main path, of the first
+  slice's path and of the mesh round, which say where a round's time goes.
 
 ``--out DIR`` writes the full-width ledgers and the profiles there.  The last
 two lines of its output are a JSON line of per-kernel numbers and
@@ -60,7 +72,13 @@ ROOT = Path(__file__).resolve().parent
 MAIN_CELL = "femnist1-fedavg-aocs-scan"       # + randk 0.1, agg_backend pallas
 VMAP_CELL = "femnist1-fedavg-aocs-randk"      # + agg_backend pallas
 SLICE1_CELL = "femnist1-fedavg-aocs-pallas"
+SHARD_RANDK_CELL = "femnist1-fedavg-aocs-shard-randk"
+SHARD_CELL = "femnist1-fedavg-aocs-shard"
 PATH_ROUNDS = 20
+SHARD_ROUNDS = 10            # = VMAP_ROUNDS = SLICE1_ROUNDS: compared bitwise
+MESH4_RANKS = 4
+MESH4_ROUNDS = 5
+MESH4_TIMEOUT_S = 600
 VMAP_ROUNDS = 10
 SLICE1_ROUNDS = 10
 NORM_COHORTS = 5
@@ -71,6 +89,7 @@ F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 TIMING_REPS = 100
 SPIN_CYCLES = 200_000         # ~100 us of device spin at H100 clocks
 SWEEP_C = (1, 3, 4, 32, 33, 200)
+SHARD_SWEEP_C = (1, 3, 4, 8, 32, 33, 200)    # 200 > the kernels' client block of 128
 SWEEP_D = (1, 7, 4097, 58430)
 # (kind, param) of every compressor the kernel phase checks; qsgd at a
 # level count whose reciprocal is inexact too
@@ -90,12 +109,15 @@ def counters():
     """Every kernel wrapper's launch counter, by kernel name."""
     from repro_torch.kernels import masked_aggregate as ma
     from repro_torch.kernels import norm_aggregate as na
+    from repro_torch.kernels import sharded_aggregate as sa
 
     return {
         "masked_scale_aggregate": ma.masked_scale_aggregate_cuda,
         "client_sqnorms": na.client_sqnorms_cuda,
         "norm_scale_aggregate": na.norm_scale_aggregate_cuda,
         "compress_norm_scale_aggregate": na.compress_norm_scale_aggregate_cuda,
+        "sharded_masked_aggregate": sa.sharded_masked_aggregate_cuda,
+        "sharded_compress_aggregate": sa.sharded_compress_aggregate_cuda,
     }
 
 
@@ -436,6 +458,164 @@ def norm_kernel_phase(torch, dev, flush):
     ]
 
 
+def shard_kernel_phase(torch, dev, flush):
+    """The mesh round's kernels: each against its plain version over the
+    sweep and every compressor, their bitwise contracts with the
+    single-device kernels, and their timings at the per-rank path shapes and
+    at a large local block."""
+    from repro_torch import rng
+    from repro_torch.core.compression import apply_compression_flat, client_material
+    from repro_torch.kernels import masked_aggregate as ma
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sharded_aggregate as sa
+
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    specials = _special_values(torch)
+    failures = []
+
+    def expect(ok, what):
+        if not ok:
+            failures.append(what)
+
+    def inputs(c, d, dtype, special=True):
+        u = torch.randn((c, d), generator=gen) * 1e-2
+        k = min(d, specials.numel()) if special else 0
+        u[0, :k] = specials[:k]
+        s = torch.rand((c,), generator=gen) * (torch.rand((c,), generator=gen) < 0.6)
+        return u.to(dev, dtype), s.to(dev)
+
+    def material(u, kind, param, seed):
+        keys = rng.split(rng.PRNGKey(seed, device=dev), u.shape[0])
+        return tuple(m["u"] for m in client_material({"u": u}, keys, kind, param))
+
+    n_checks = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for c in SHARD_SWEEP_C:
+            for d in SWEEP_D:
+                tag = f"C={c} D={d} {dtype}"
+                one_block = c <= sa.BLOCK_CLIENTS
+                u, s = inputs(c, d, dtype)
+                agg5 = ops.shard_masked_aggregate(u, s)
+                agg5b = ops.shard_masked_aggregate(u, s)
+                sq6n, agg6n = ops.shard_compress_aggregate(u, s, (), "none", 0.0)
+                agg1 = ops.masked_scale_aggregate(u, s)
+                sq2 = ops.client_sqnorms(u)
+                torch.cuda.synchronize()
+                check_close(f"sharded_masked_aggregate {tag}", agg5,
+                            sa.sharded_masked_aggregate_ref(u, s), u, s, RTOL, ATOL)
+                expect(torch.equal(agg5, agg5b), f"relaunch differs {tag}")
+                expect(torch.equal(agg6n, agg5),
+                       f"sharded compress kind=none != sharded_masked_aggregate {tag}")
+                expect(torch.equal(sq6n, sq2), f"sharded compress kind=none norms != "
+                                               f"client_sqnorms {tag}")
+                if one_block:
+                    expect(torch.equal(agg5, agg1),
+                           f"sharded_masked_aggregate != masked_scale_aggregate {tag}")
+                for j, (kind, param) in enumerate(COMPRESSORS):
+                    mats = material(u, kind, param, seed=c * 7919 + d + j)
+                    sq6, agg6 = ops.shard_compress_aggregate(u, s, mats, kind, param)
+                    sq6b, agg6b = ops.shard_compress_aggregate(u, s, mats, kind, param)
+                    sq4, agg4 = ops.compress_norm_scale_aggregate(u, s, mats, kind, param)
+                    want_sq, want_agg = sa.sharded_compress_aggregate_ref(u, s, mats, kind,
+                                                                          param)
+                    torch.cuda.synchronize()
+                    ktag = f"{kind}({param}) {tag}"
+                    check_sq(f"sharded_compress_aggregate {ktag}", sq6, want_sq, RTOL)
+                    xc = apply_compression_flat(u, kind, param, *mats).to(dtype)
+                    check_close(f"sharded_compress_aggregate {ktag}", agg6, want_agg,
+                                xc, s, RTOL, ATOL)
+                    expect(torch.equal(sq6, sq6b) and torch.equal(agg6, agg6b),
+                           f"relaunch differs {ktag}")
+                    expect(torch.equal(sq6, sq4),
+                           f"sharded compress norms != compress_norm_scale_aggregate {ktag}")
+                    if one_block:
+                        expect(torch.equal(agg6, agg4), f"sharded compress aggregate != "
+                                                        f"compress_norm_scale_aggregate {ktag}")
+                    n_checks += 1
+    if failures:
+        raise AssertionError(f"{len(failures)} bitwise contracts failed:\n  "
+                             + "\n  ".join(failures))
+    print(f"kernel check: sharded_masked_aggregate and sharded_compress_aggregate "
+          f"({', '.join(f'{k}({p})' for k, p in COMPRESSORS)}) match their plain versions "
+          f"at C in {SHARD_SWEEP_C} x D in {SWEEP_D}, f32 and bf16 (norms rtol {RTOL}; "
+          f"aggregates rtol {RTOL} x sum|s_i x_i| + atol {ATOL}); {n_checks} compressed cases")
+    print(f"kernel check: bitwise on the card at every shape — at C <= {sa.BLOCK_CLIENTS} "
+          f"sharded_masked_aggregate == masked_scale_aggregate and the sharded compress "
+          f"aggregate == compress_norm_scale_aggregate's; at every C the sharded compress "
+          f"norms == compress_norm_scale_aggregate's, kind=none == sharded_masked_aggregate "
+          f"(its norms == client_sqnorms), and a relaunch gives equal results")
+
+    for bad in (torch.zeros((512, 4), device=dev).t(),                  # not contiguous
+                torch.zeros((4, 7), device=dev),                        # D not a multiple of 4
+                torch.zeros((4, 512), device=dev, dtype=torch.float16)):  # dtype
+        s4 = torch.zeros(bad.shape[0], device=dev)
+        for call in (lambda: sa.sharded_masked_aggregate_cuda(bad, s4),
+                     lambda: sa.sharded_compress_aggregate_cuda(bad, s4, (), "none", 0.0)):
+            try:
+                call()
+            except (ValueError, TypeError):
+                pass
+            else:
+                raise AssertionError(f"a sharded wrapper took {tuple(bad.shape)} "
+                                     f"{bad.dtype} stride {bad.stride()}")
+    print("kernel check: the sharded wrappers reject a non-contiguous matrix, D % 4 != 0 "
+          "and float16")
+
+    d = 58430
+    dp = d + (-d) % ma.TILE
+    out = {}
+    for c in (32, 8, 1024):
+        u, s = inputs(c, d, torch.float32, False)
+        u = torch.nn.functional.pad(u, (0, dp - d)).contiguous()
+        got = sa.sharded_masked_aggregate_cuda(u, s)
+        err5 = check_close("sharded_masked_aggregate path shape", got,
+                           sa.sharded_masked_aggregate_ref(u, s), u, s, RTOL, ATOL)
+        b5 = bound((c * dp + c + dp) * 4, 2 * c * dp)
+        t5 = (time_ms(lambda: sa.sharded_masked_aggregate_cuda(u, s), torch, flush),
+              time_ms(lambda: sa.sharded_masked_aggregate_ref(u, s), torch, flush),
+              time_ms(lambda: torch.matmul(s, u), torch, flush))
+        mats = tuple(torch.nn.functional.pad(m, (0, dp - d)).contiguous()
+                     for m in material(u[:, :d], "randk", 0.1, seed=c))
+        sq, agg = sa.sharded_compress_aggregate_cuda(u, s, mats, "randk", 0.1)
+        want_sq, want_agg = sa.sharded_compress_aggregate_ref(u, s, mats, "randk", 0.1)
+        err6 = max(check_sq("sharded_compress_aggregate path shape", sq, want_sq, RTOL),
+                   check_close("sharded_compress_aggregate path shape", agg, want_agg,
+                               u * mats[0], s, RTOL, ATOL))
+        b6 = bound((2 * c * dp + c + c + dp) * 4, 5 * c * dp)
+        t6 = (time_ms(lambda: sa.sharded_compress_aggregate_cuda(u, s, mats, "randk", 0.1),
+                      torch, flush),
+              time_ms(lambda: sa.sharded_compress_aggregate_ref(u, s, mats, "randk", 0.1),
+                      torch, flush))
+        print(f"kernel timing sharded_masked_aggregate at ({c}, {dp}) f32 (median of "
+              f"{TIMING_REPS}, L2 flushed): kernel {t5[0]} ms, plain {t5[1]} ms, "
+              f"torch.matmul {t5[2]} ms; bound {b5[0]} ms ({b5[1]}); max abs err {err5}")
+        print(f"kernel timing sharded_compress_aggregate randk at ({c}, {dp}) f32 (median "
+              f"of {TIMING_REPS}, L2 flushed): kernel {t6[0]} ms, plain {t6[1]} ms, "
+              f"library none; bound {b6[0]} ms ({b6[1]}); max abs err {err6}")
+        out[c] = (err5, t5, b5, err6, t6, b6)
+
+    def entry(name, replaces, i):
+        err, t, b = out[32][i:i + 3]
+        row = {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sharded_aggregate.cu",
+            "replaces": replaces, "shape": [32, dp], "launches": None,
+            "max_abs_err": max(out[c][i] for c in out), "ms": t[0], "plain_ms": t[1],
+            "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": t[2] if len(t) > 2 else None,
+        }
+        for c in (8, 1024):
+            ec, tc, bc = out[c][i:i + 3]
+            row[f"at_{c}"] = {"shape": [c, dp], "ms": tc[0], "plain_ms": tc[1],
+                              "library_ms": tc[2] if len(tc) > 2 else None,
+                              "bound_ms": bc[0], "bound_by": bc[1]}
+        return row
+
+    return [entry("sharded_masked_aggregate", "src/repro/kernels/sharded_aggregate.py:68", 0),
+            entry("sharded_compress_aggregate", "src/repro/kernels/sharded_aggregate.py:140",
+                  3)]
+
+
 def main_scenario():
     """The second slice's main path: the reference's scan cell with the
     reference's rand-k compressor and the pallas backend (both settings of
@@ -459,7 +639,9 @@ def vmap_scenario():
 def path_phase(torch, sc, rounds, per_round, out_dir):
     """One path at full width: ``rounds`` rounds through the kernels
     (``per_round`` launches each), reproduced bitwise, and a reduced run on
-    the card against the CPU.  Returns the counts of the run."""
+    the card against the CPU.  A sharded cell runs the mesh round at world
+    size 1 (NCCL on the card, gloo for the CPU run).  Returns the counts,
+    the parameters and the ledger of the run."""
     from repro_torch.sim.driver import run_scenario, validate_ledger
 
     reset_counts()
@@ -473,7 +655,8 @@ def path_phase(torch, sc, rounds, per_round, out_dir):
     validate_ledger(doc)
     if len(ledger.loss) != rounds or not all(map(_finite, ledger.loss)):
         raise AssertionError(f"bad loss series {ledger.loss}")
-    if ledger.workload["model_dim"] != 58430 or ledger.workload["backend_platform"] != "cuda":
+    if (ledger.workload["model_dim"] != 58430 or ledger.workload["backend_platform"] != "cuda"
+            or ledger.workload.get("mesh_axis_size") != (1 if sc.sharded else None)):
         raise AssertionError(f"unexpected workload {ledger.workload}")
     for name, p in params.items():
         if p.device.type != "cuda" or not bool(torch.isfinite(p).all()):
@@ -507,7 +690,104 @@ def path_phase(torch, sc, rounds, per_round, out_dir):
           f"rtol 1e-4): {red_gpu.loss} vs {red_cpu.loss}")
     if out_dir is not None:
         (out_dir / f"chip_smoke_ledger_{sc.name}.json").write_text(json.dumps(doc, indent=1))
-    return counts
+    return counts, params, ledger
+
+
+def same_run(torch, what, a, b) -> None:
+    """Two runs' masks, losses and parameters, bitwise."""
+    (pa, la), (pb, lb) = a, b
+    same = (len(la.masks) == len(lb.masks)
+            and all(bool((x == y).all()) for x, y in zip(la.masks, lb.masks))
+            and la.loss == lb.loss and la.uplink_bits == lb.uplink_bits
+            and all(torch.equal(pa[k], pb[k]) for k in pa))
+    if not same:
+        raise AssertionError(f"{what}: the runs differ")
+    print(f"path {what}: masks, losses, uplink bits and parameters bitwise equal over "
+          f"{len(la.masks)} rounds")
+
+
+def _mesh4_rank(mesh, rounds):
+    """One of the ranks that share the card: the shard-randk cell at full
+    width, with the shapes its sharded compress kernel receives."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.sim.driver import run_scenario
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shapes = []
+    kernel = ops.sharded_compress_aggregate_cuda
+
+    def recorded(u, *rest):
+        shapes.append(tuple(u.shape))
+        return kernel(u, *rest)
+
+    ops.sharded_compress_aggregate_cuda = recorded
+    reset_counts()
+    params, ledger = run_scenario(SHARD_RANDK_CELL, rounds=rounds, mesh=mesh)
+    counts = read_counts()
+    return {"rank": mesh.rank, "backend": mesh.backend, "device": str(mesh.device),
+            "counts": counts, "shapes": shapes,
+            "params": {k: v.cpu() for k, v in params.items()},
+            "doc": ledger.to_json(include_masks=True)}
+
+
+def mesh4_phase(torch, out_dir):
+    """``femnist1-fedavg-aocs-shard-randk`` on MESH4_RANKS gloo ranks sharing
+    the one card, against the world-size-1 run of the same rounds."""
+    from repro_torch.fl.mesh import spawn_mesh
+    from repro_torch.sim.driver import run_scenario, validate_ledger
+
+    ref_params, ref_ledger = run_scenario(SHARD_RANDK_CELL, rounds=MESH4_ROUNDS)
+    t0 = time.perf_counter()
+    ranks = spawn_mesh(_mesh4_rank, MESH4_RANKS, "gloo", MESH4_TIMEOUT_S, device="cuda:0",
+                       args=(MESH4_ROUNDS,))
+    secs = time.perf_counter() - t0
+    k = 32 // MESH4_RANKS
+    doc0 = ranks[0]["doc"]
+    validate_ledger(doc0)
+    for r in ranks:
+        want = {name: 0 for name in r["counts"]}
+        want["sharded_compress_aggregate"] = MESH4_ROUNDS
+        if r["counts"] != want or r["backend"] != "gloo" or r["device"] != "cuda:0":
+            raise AssertionError(f"rank {r['rank']}: launches {r['counts']} on {r['backend']} "
+                                 f"{r['device']}, want {want} on gloo cuda:0")
+        if len(r["shapes"]) != MESH4_ROUNDS or {s[0] for s in r["shapes"]} != {k}:
+            raise AssertionError(f"rank {r['rank']}: kernel shapes {r['shapes']}")
+        if r["doc"] != doc0:
+            raise AssertionError(f"rank {r['rank']}: its ledger differs from rank 0's")
+        for name, p in r["params"].items():
+            if not torch.equal(p, ranks[0]["params"][name]):
+                raise AssertionError(f"rank {r['rank']}: parameter {name} differs from rank 0's")
+    if doc0["workload"]["mesh_axis_size"] != MESH4_RANKS:
+        raise AssertionError(f"unexpected workload {doc0['workload']}")
+    if not all(_finite(x) for x in doc0["metrics"]["loss"]):
+        raise AssertionError(f"bad loss series {doc0['metrics']['loss']}")
+    ref_masks = [[int(v) for v in m] for m in ref_ledger.masks]
+    if doc0["masks"][0] != ref_masks[0]:
+        raise AssertionError("4 ranks: the first round's mask differs from the world-size-1 run's")
+    later = sum(a != b for a, b in zip(doc0["masks"][1:], ref_masks[1:]))
+    err = max(float((ranks[0]["params"][n] - ref_params[n].cpu()).abs().max())
+              for n in ref_params)
+    print(f"mesh 4 ranks sharing one card (gloo, every rank on cuda:0): {SHARD_RANDK_CELL} "
+          f"at full width, {MESH4_ROUNDS} rounds in {secs:.1f} s with the ranks' start; each "
+          f"rank launched sharded_compress_aggregate once per round at {ranks[0]['shapes'][0]} "
+          f"(D 58430 padded); ledgers, masks and parameters equal across the ranks; the first "
+          f"round's mask equals the world-size-1 run's; later rounds whose mask differs from "
+          f"it: {later} of {MESH4_ROUNDS - 1}; max |param - world-size-1 param| after the last "
+          f"round {err}")
+    if err > 1e-5:
+        raise AssertionError(f"4 ranks: parameters {err} from the world-size-1 run's (atol 1e-5)")
+    walls = doc0["metrics"]["wall_ms"][1:]
+    print(f"mesh 4 ranks sharing one card timing (not a multi-GPU figure): "
+          f"{doc0['rounds_per_sec']} rounds/s after the first round; per-round ms (slowest "
+          f"rank) median {statistics.median(walls)}, min {min(walls)}, max {max(walls)}; "
+          f"set-up (first round) {doc0['metrics']['wall_ms'][0]} ms; world size 1 on the "
+          f"same card: median {statistics.median(ref_ledger.wall_ms[1:])} ms")
+    if out_dir is not None:
+        (out_dir / f"chip_smoke_ledger_{SHARD_RANDK_CELL}_4ranks.json").write_text(
+            json.dumps(doc0, indent=1))
 
 
 def norms_phase(torch):
@@ -555,18 +835,23 @@ def profile_phase(torch, sc, out_dir):
     against the rounds' wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.sim.driver import run_simulation
+    from repro_torch.sim.driver import build_client_mesh, run_simulation
 
     ds = sc.build_dataset()
     init_fn, loss_fn, _ = sc.build_model(ds)
+    mesh = build_client_mesh(sc.fl) if sc.sharded else None
 
     def run(rounds):
         return run_simulation(ds, init_fn, loss_fn, sc.fl, rounds,
-                              batch_size=sc.batch_size, seed=sc.seed)[1]
+                              batch_size=sc.batch_size, seed=sc.seed, mesh=mesh)[1]
 
-    run(2)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ledger = run(PROFILE_ROUNDS)
+    try:
+        run(2)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ledger = run(PROFILE_ROUNDS)
+    finally:
+        if mesh is not None:
+            mesh.close()
     wall = sum(ledger.wall_ms)
     rows = []
     for e in prof.key_averages():
@@ -749,6 +1034,96 @@ def scan_breakdown_phase(torch):
     laps.report(sc.name)
 
 
+def shard_breakdown_phase(torch):
+    """The same for the mesh round of ``femnist1-fedavg-aocs-shard-randk`` at
+    world size 1 on NCCL: local update, material, norms, the all_gather, the
+    plan, the sharded compress kernel, the all_reduce and the server step.
+    The layers are those of ``fl/shard_round.py``'s round body, called one by
+    one; the same rounds then run through the real round step
+    (``make_engine(mesh=...)``) on the same batches and keys, and its
+    parameters must equal the layered copy's bit for bit, so the copy cannot
+    drift from the round it times."""
+    import numpy as np
+    from torch.func import vmap
+
+    from repro_torch import rng as trng
+    from repro_torch.core import ocs
+    from repro_torch.fl.engine import (
+        client_apply_compression,
+        client_compression_material,
+        make_engine,
+        make_local_update,
+    )
+    from repro_torch.fl.round import client_weights
+    from repro_torch.kernels import ops
+    from repro_torch.sim.driver import build_client_mesh
+    from repro_torch.sim.scenarios import get_scenario
+
+    sc = get_scenario(SHARD_RANDK_CELL)
+    fl = sc.fl
+    ds = sc.build_dataset()
+    init_fn, loss_fn, _ = sc.build_model(ds)
+    mesh = build_client_mesh(fl)
+    try:
+        dev = mesh.device
+        batched_update = vmap(make_local_update(loss_fn, fl), in_dims=(None, 0))
+        key = trng.PRNGKey(sc.seed, device=dev)
+        params0 = params = init_fn(trng.fold_in(key, 1))
+        weights = client_weights(fl, device=dev)
+        gen = np.random.default_rng(sc.seed)
+        laps = Laps(torch)
+        batches = []
+        for k in range(BREAKDOWN_ROUNDS):
+            laps.new_round()
+            batch = _round_inputs(ds, sc, gen, torch, dev, laps)
+            batches.append(batch)
+            k_sample, k_comp = trng.split(trng.fold_in(key, 1000 + k))
+            comp_keys = trng.split(k_comp, fl.n_clients)
+            laps.lap("keys: fold_in + split + per-client split")
+            updates, losses = batched_update(params, batch)
+            laps.lap("local update (vmap of grad, R steps)")
+            mats = client_compression_material(updates, comp_keys, fl)
+            laps.lap("compress/material: threefry")
+            sendables = client_apply_compression(updates, mats, fl)
+            laps.lap("compress/material: apply")
+            u = ocs.client_norms(sendables, weights)
+            laps.lap("norms")
+            u_all, w_all = mesh.all_gather(u), mesh.all_gather(weights)
+            laps.lap("all_gather (norms, weights)")
+            plan = ocs.sampling_plan(u_all, w_all, fl.cohort_target(), k_sample,
+                                     sampler=fl.sampler, j_max=fl.j_max,
+                                     availability=fl.availability)
+            laps.lap("plan: probabilities + mask + alpha/gamma")
+            flat = ops.tree_to_client_matrix(updates)
+            mat_flats = tuple(ops.tree_to_client_matrix(m) for m in mats)
+            laps.lap("aggregate: tree -> matrix")
+            _, part = ops.shard_compress_aggregate(flat, plan.scale, mat_flats,
+                                                   fl.compression, fl.compression_param)
+            laps.lap("aggregate: pad + kernel (sharded_compress_aggregate)")
+            agg = mesh.all_reduce(part)
+            laps.lap("all_reduce of the (D,) partial")
+            aggregate = ops.client_matrix_to_tree(agg, params, strip_client_axis=False)
+            params = {n: params[n] - fl.lr_global * aggregate[n].to(params[n].dtype)
+                      for n in params}
+            laps.lap("server step")
+            mesh.pmean(torch.mean(losses))
+            laps.lap("loss pmean")
+        laps.report(f"{SHARD_RANDK_CELL} (world size 1, nccl)")
+        round_step = make_engine(loss_fn, fl, mesh=mesh)
+        real = params0
+        for k, batch in enumerate(batches):
+            real, _, _ = round_step(real, (), batch, weights, trng.fold_in(key, 1000 + k))
+        for n in params:
+            if not torch.equal(real[n], params[n]):
+                raise AssertionError(
+                    f"shard breakdown: the layered round's {n} differs from the "
+                    f"round step's after {BREAKDOWN_ROUNDS} rounds")
+        print(f"shard breakdown: the layered round's parameters equal the round "
+              f"step's after {BREAKDOWN_ROUNDS} rounds (bitwise)")
+    finally:
+        mesh.close()
+
+
 def _finite(x: float) -> bool:
     return x == x and abs(x) != float("inf")
 
@@ -796,6 +1171,7 @@ def main() -> int:
 
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
     kernels = [kernel_phase(torch, dev, flush)] + norm_kernel_phase(torch, dev, flush)
+    kernels += shard_kernel_phase(torch, dev, flush)
     del flush
 
     main_sc = main_scenario()
@@ -807,33 +1183,50 @@ def main() -> int:
     engine = RoundEngine(main_sc.build_model(main_sc.build_dataset())[1], main_sc.fl)
     print(f"path {main_sc.name}: scan_group {engine.scan_group}, cache_groups "
           f"{engine.cache_groups}, local_update_evals {engine.local_update_evals} per round")
-    counts = path_phase(torch, main_sc, PATH_ROUNDS,
-                        {"norm_scale_aggregate": 4, "compress_norm_scale_aggregate": 4},
-                        args.out)
-    vmap_counts = path_phase(torch, vmap_scenario(), VMAP_ROUNDS,
-                             {"compress_norm_scale_aggregate": 1}, args.out)
+    counts, _, _ = path_phase(torch, main_sc, PATH_ROUNDS,
+                              {"norm_scale_aggregate": 4, "compress_norm_scale_aggregate": 4},
+                              args.out)
+    vmap_counts, vmap_params, vmap_ledger = path_phase(
+        torch, vmap_scenario(), VMAP_ROUNDS, {"compress_norm_scale_aggregate": 1}, args.out)
     from repro_torch.sim.scenarios import get_scenario
 
-    slice1_counts = path_phase(torch, get_scenario(SLICE1_CELL), SLICE1_ROUNDS,
-                               {"masked_scale_aggregate": 1}, args.out)
+    slice1_counts, slice1_params, slice1_ledger = path_phase(
+        torch, get_scenario(SLICE1_CELL), SLICE1_ROUNDS, {"masked_scale_aggregate": 1},
+        args.out)
     norm_counts = norms_phase(torch)
+    srk_counts, srk_params, srk_ledger = path_phase(
+        torch, get_scenario(SHARD_RANDK_CELL), SHARD_ROUNDS,
+        {"sharded_compress_aggregate": 1}, args.out)
+    same_run(torch, f"{SHARD_RANDK_CELL} (world size 1) vs {VMAP_CELL}+pallas",
+             (srk_params, srk_ledger), (vmap_params, vmap_ledger))
+    shard_counts, shard_params, shard_ledger = path_phase(
+        torch, get_scenario(SHARD_CELL), SHARD_ROUNDS, {"sharded_masked_aggregate": 1},
+        args.out)
+    same_run(torch, f"{SHARD_CELL} (world size 1) vs {SLICE1_CELL}",
+             (shard_params, shard_ledger), (slice1_params, slice1_ledger))
+    mesh4_phase(torch, args.out)
     launches = {
         "masked_scale_aggregate": (slice1_counts, SLICE1_CELL),
         "client_sqnorms": (norm_counts, "ops.tree_client_norms"),
         "norm_scale_aggregate": (counts, main_sc.name),
         "compress_norm_scale_aggregate": (counts, main_sc.name),
+        "sharded_masked_aggregate": (shard_counts, SHARD_CELL),
+        "sharded_compress_aggregate": (srk_counts, SHARD_RANDK_CELL),
     }
     for k in kernels:
         run_counts, path = launches[k["name"]]
         k["launches"] = run_counts[k["name"]]
         k["path"] = path
-    kernels[-1]["vmap_path_launches"] = vmap_counts["compress_norm_scale_aggregate"]
+    kernels[3]["vmap_path_launches"] = vmap_counts["compress_norm_scale_aggregate"]
 
     profile_phase(torch, main_sc, args.out)
     profile_phase(torch, get_scenario(SLICE1_CELL), args.out)
+    profile_phase(torch, get_scenario(SHARD_RANDK_CELL), args.out)
     scan_breakdown_phase(torch)
     breakdown_phase(torch)
+    shard_breakdown_phase(torch)
 
+    print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -34,9 +34,12 @@ Partial availability (Appendix E) is the scalar ``fl.availability``.
   * fedavg: R local SGD steps with lr eta_l, update U_i = x^k - y_{i,R}
   * dsgd  : U_i = g_i (stochastic gradient of the local batch)
 
+With a mesh, :func:`make_engine` returns the mesh round of
+``fl/shard_round.py`` instead: the clients sharded over the ranks of a
+``torch.distributed`` process group, with explicit collectives.
+
 Not ported yet, each raising ``NotImplementedError``: a server optimizer
-(the optimizer slice), the mesh (the mesh slice), the observability step
-``make_step(diag=True)``.
+(the optimizer slice) and the observability step ``make_step(diag=True)``.
 """
 
 from __future__ import annotations
@@ -75,6 +78,24 @@ class RoundMetrics(NamedTuple):
     selected_clients: torch.Tensor
     deadline_misses: torch.Tensor
     dropouts: torch.Tensor
+
+
+def round_metrics(plan: ocs.SamplingPlan, loss: torch.Tensor) -> RoundMetrics:
+    """The round's :class:`RoundMetrics` from its plan and mean loss."""
+    zero = torch.zeros((), dtype=torch.int32, device=loss.device)
+    return RoundMetrics(
+        loss=loss,
+        alpha=plan.alpha,
+        gamma=plan.gamma,
+        expected_clients=plan.expected_clients,
+        sent_clients=torch.sum(plan.mask),
+        probs=plan.probs,
+        norms=plan.norms,
+        mask=plan.mask,
+        selected_clients=torch.sum(plan.selected).to(torch.int32),
+        deadline_misses=zero,
+        dropouts=zero,
+    )
 
 
 def client_compression_material(updates, keys: torch.Tensor, fl: FLConfig) -> tuple:
@@ -149,16 +170,27 @@ def make_engine(loss_fn: Callable, fl: FLConfig, server_opt=None, *,
                 mesh=None, device=None) -> Callable:
     """Round-step factory: the entry point callers should use.
 
-    Returns ``round_step(params, opt_state, batch, weights, key)`` for the
-    single-device :class:`RoundEngine` configured by ``fl.round_engine`` x
-    ``fl.agg_backend``: Alg. 2 (or Eq. 7) probabilities from the clients'
-    update norms, then Eq. 2's aggregate.  ``device=None`` means CUDA and
-    raises when there is none (pass ``device='cpu'``).  A mesh is not ported
-    yet.
+    Returns ``round_step(params, opt_state, batch, weights, key)``:
+
+    * ``mesh=None`` — the single-device :class:`RoundEngine` configured by
+      ``fl.round_engine`` x ``fl.agg_backend`` on ``device`` (``None`` means
+      CUDA and raises when there is none; pass ``device='cpu'``);
+    * a :class:`~repro_torch.fl.mesh.ClientMesh` — the mesh round of
+      ``fl/shard_round.py`` on this rank (its device is the mesh's): clients
+      sharded over the ranks, norms all-gathered (Alg. 2), Eq. 2's partial
+      all-reduced.  It models the master step as plain ``lr_global`` SGD, so
+      a ``server_opt`` raises ``ValueError`` there.
+
+    Either way: Alg. 2 (or Eq. 7) probabilities from the clients' update
+    norms, then Eq. 2's aggregate.
     """
-    if mesh is not None:
-        raise _not_ported("the mesh (shard) round", "mesh")
-    return RoundEngine(loss_fn, fl, server_opt, device=device).make_step()
+    if mesh is None:
+        return RoundEngine(loss_fn, fl, server_opt, device=device).make_step()
+    if server_opt is not None:
+        raise ValueError("server_opt is not supported on the shard_map path")
+    from repro_torch.fl.shard_round import make_shard_map_round
+
+    return make_shard_map_round(loss_fn, fl, mesh)
 
 
 class RoundEngine:
@@ -250,22 +282,6 @@ class RoundEngine:
         new_params = {k: params[k] - lr * aggregate[k].to(params[k].dtype) for k in params}
         return new_params, opt_state
 
-    def _metrics(self, plan: ocs.SamplingPlan, losses) -> RoundMetrics:
-        zero = torch.zeros((), dtype=torch.int32, device=losses.device)
-        return RoundMetrics(
-            loss=torch.mean(losses),
-            alpha=plan.alpha,
-            gamma=plan.gamma,
-            expected_clients=plan.expected_clients,
-            sent_clients=torch.sum(plan.mask),
-            probs=plan.probs,
-            norms=plan.norms,
-            mask=plan.mask,
-            selected_clients=torch.sum(plan.selected).to(torch.int32),
-            deadline_misses=zero,
-            dropouts=zero,
-        )
-
     def make_step(self, diag: bool = False) -> Callable:
         """The ``round_step`` for this engine's (memory, backend).  The
         observability variant ``diag=True`` is not ported yet."""
@@ -308,7 +324,7 @@ class RoundEngine:
             else:
                 aggregate = ocs.aggregate_updates(sendables, plan.scale, backend="jnp")
             new_params, new_opt = self._apply_server(params, opt_state, aggregate)
-            return new_params, new_opt, self._metrics(plan, losses)
+            return new_params, new_opt, round_metrics(plan, torch.mean(losses))
 
         return round_step
 
@@ -378,6 +394,6 @@ class RoundEngine:
                 agg_flat = agg_flat + part
             aggregate = kops.client_matrix_to_tree(agg_flat, params, strip_client_axis=False)
             new_params, new_opt = self._apply_server(params, opt_state, aggregate)
-            return new_params, new_opt, self._metrics(plan, torch.cat(loss_parts))
+            return new_params, new_opt, round_metrics(plan, torch.mean(torch.cat(loss_parts)))
 
         return round_step

@@ -7,6 +7,9 @@ PyTorch version, with the public wrappers in ``ops``:
 * norm_aggregate — per-client squared norms, and the fused norm + Eq. 2
   aggregate with and without in-stream compression (replace
   ``repro/kernels/client_norm.py`` and ``repro/kernels/norm_aggregate.py``);
+* sharded_aggregate — a rank's half of Eq. 2 on the mesh round, with and
+  without in-stream compression (replaces
+  ``repro/kernels/sharded_aggregate.py``);
 * update_cache — the scan engine's bounded update cache and its per-group
   post-plan contraction on either backend.
 

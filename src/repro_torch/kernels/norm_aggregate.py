@@ -99,7 +99,7 @@ def _check_matrix(name: str, x: torch.Tensor, dev, shape, dtypes) -> None:
         raise ValueError(f"{name} must start on a {COLS_PER_THREAD}-element boundary")
 
 
-def _check(updates: torch.Tensor, scale=None, mats=()) -> tuple:
+def _check(updates: torch.Tensor, scale=None, mats=(), max_clients=MAX_CLIENTS) -> tuple:
     """Validate the inputs for the kernel; returns ``(C, D)``."""
     if updates.device.type != "cuda":
         raise ValueError(f"updates must lie on a CUDA device, got {updates.device}")
@@ -110,9 +110,9 @@ def _check(updates: torch.Tensor, scale=None, mats=()) -> tuple:
         raise ValueError(
             f"D must be a multiple of {COLS_PER_THREAD} (the ops wrappers pad it), got D={d}"
         )
-    if not 0 < c <= MAX_CLIENTS or d >= 2**31:
+    if not 0 < c <= max_clients or d >= 2**31:
         raise ValueError(
-            f"shape beyond the kernel's limits: C={c} (1 to {MAX_CLIENTS}), D={d} (below 2**31)"
+            f"shape beyond the kernel's limits: C={c} (1 to {max_clients}), D={d} (below 2**31)"
         )
     _check_matrix("updates", updates, updates.device, (c, d), tuple(_SUFFIX))
     if scale is not None:
@@ -146,6 +146,39 @@ def _raise_on(rc: int, name: str) -> None:
 
 def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
+
+
+def _check_compressor(kind: str, mats) -> tuple:
+    """Validate the compressor kind and its number of material matrices."""
+    # imported here: core.compression imports this package
+    from repro_torch.core.compression import MATERIAL_ARITY
+
+    if kind not in KINDS:
+        raise ValueError(f"unknown compressor {kind!r}; want one of {tuple(KINDS)}")
+    mats = tuple(mats)
+    if len(mats) != MATERIAL_ARITY[kind]:
+        raise ValueError(
+            f"compressor {kind!r} takes {MATERIAL_ARITY[kind]} material matrices, "
+            f"got {len(mats)}"
+        )
+    return mats
+
+
+def _levels(kind: str, param: float) -> tuple:
+    """QSGD's ``(levels, 1 / levels)`` as the kernel takes them (zeros for
+    the other kinds)."""
+    levels = float(int(param)) if kind == "qsgd" else 0.0
+    if kind == "qsgd" and levels < 1:
+        raise ValueError(f"qsgd needs at least one level, got {param}")
+    # torch's CUDA division by a Python scalar multiplies by its float32
+    # reciprocal; the kernel does the same with this one
+    inv_levels = float(np.float32(1.0) / np.float32(levels)) if levels else 0.0
+    return levels, inv_levels
+
+
+def _material_ptrs(mats: tuple) -> list:
+    """The kernel's two material pointers (null where the kind takes fewer)."""
+    return [m.data_ptr() for m in mats] + [0] * (2 - len(mats))
 
 
 def client_sqnorms_cuda(updates: torch.Tensor) -> torch.Tensor:
@@ -202,17 +235,7 @@ def compress_norm_scale_aggregate_cuda(updates: torch.Tensor, scale: torch.Tenso
 
     CUDA tensors run the kernel (or raise); CPU tensors run the plain version.
     """
-    # imported here: core.compression imports this package
-    from repro_torch.core.compression import MATERIAL_ARITY
-
-    if kind not in KINDS:
-        raise ValueError(f"unknown compressor {kind!r}; want one of {tuple(KINDS)}")
-    mats = tuple(mats)
-    if len(mats) != MATERIAL_ARITY[kind]:
-        raise ValueError(
-            f"compressor {kind!r} takes {MATERIAL_ARITY[kind]} material matrices, "
-            f"got {len(mats)}"
-        )
+    mats = _check_compressor(kind, mats)
     if _on_cpu(updates, scale, *mats):
         return compress_norm_scale_aggregate_ref(updates, scale, mats, kind, param)
     c, d = _check(updates, scale, mats)
@@ -221,13 +244,8 @@ def compress_norm_scale_aggregate_cuda(updates: torch.Tensor, scale: torch.Tenso
     agg = torch.empty((d,), dtype=torch.float32, device=dev)
     if d == 0:
         return sq.zero_(), agg
-    levels = float(int(param)) if kind == "qsgd" else 0.0
-    if kind == "qsgd" and levels < 1:
-        raise ValueError(f"qsgd needs at least one level, got {param}")
-    # torch's CUDA division by a Python scalar multiplies by its float32
-    # reciprocal; the kernel does the same with this one
-    inv_levels = float(np.float32(1.0) / np.float32(levels)) if levels else 0.0
-    ptrs = [m.data_ptr() for m in mats] + [0] * (2 - len(mats))
+    levels, inv_levels = _levels(kind, param)
+    ptrs = _material_ptrs(mats)
     partials = _scratch(c, d, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _kernel_fn("compress_norm_scale_aggregate", updates.dtype)(

@@ -15,6 +15,11 @@ kernel; a CPU tensor runs its plain version.
 * ``compress_norm_scale_aggregate`` — the same on ``C(U)``, compressed in the
   tile stream from the raw updates and their material (material matrices
   are zero-padded with the updates: zero in, zero out for every kind).
+* ``shard_masked_aggregate`` / ``tree_shard_masked_aggregate`` and
+  ``shard_compress_aggregate`` / ``tree_shard_compress_aggregate`` — the
+  mesh round's Eq. 2: a rank's partial over its own client block, then one
+  ``all_reduce`` over the mesh; ``sharded_masked_aggregate`` — the same from
+  the global matrix, each rank taking its block.
 """
 
 from __future__ import annotations
@@ -27,6 +32,10 @@ from repro_torch.kernels.norm_aggregate import (
     client_sqnorms_cuda,
     compress_norm_scale_aggregate_cuda,
     norm_scale_aggregate_cuda,
+)
+from repro_torch.kernels.sharded_aggregate import (
+    sharded_compress_aggregate_cuda,
+    sharded_masked_aggregate_cuda,
 )
 
 
@@ -158,3 +167,74 @@ def tree_masked_aggregate(updates_tree, scale: torch.Tensor):
     agg = masked_scale_aggregate(flat, scale)
     return client_matrix_to_tree(agg, updates_tree, strip_client_axis=True,
                                  keep_dtype=True)
+
+
+def shard_masked_aggregate(updates: torch.Tensor, scale: torch.Tensor,
+                           mesh=None) -> torch.Tensor:
+    """A rank's ``(k, D)``, ``(k,)`` -> the ``(D,)`` f32 aggregate summed
+    over the mesh.
+
+    The mesh form of Eq. 2: the kernel contracts the rank's own client block
+    in one pass, then one ``all_reduce`` over ``mesh`` (a
+    :class:`~repro_torch.fl.mesh.ClientMesh`) completes ``sum_i scale_i U_i``
+    — one partial sum per rank, no ``(n, D)`` matrix anywhere.
+    ``mesh=None`` skips the sum.  D pads with zeros to the kernel's tile; the
+    client axis needs no padding (the kernel's last client block may be
+    short).
+    """
+    d = updates.shape[1]
+    out = sharded_masked_aggregate_cuda(_pad_cols(updates, (-d) % TILE), scale)[:d]
+    return out if mesh is None else mesh.all_reduce(out)
+
+
+def tree_shard_masked_aggregate(updates_tree, scale: torch.Tensor, mesh=None):
+    """:func:`shard_masked_aggregate` over a rank's tree of ``(k, ...)``
+    leaves: the block's client-major matrix, the kernel, one ``all_reduce``,
+    and the ``(D,)`` result split back to the leaf shapes (cast to each
+    leaf's dtype)."""
+    agg = shard_masked_aggregate(tree_to_client_matrix(updates_tree), scale, mesh)
+    return client_matrix_to_tree(agg, updates_tree, strip_client_axis=True,
+                                 keep_dtype=True)
+
+
+def shard_compress_aggregate(updates: torch.Tensor, scale: torch.Tensor, mats: tuple,
+                             kind: str, param: float, mesh=None) -> tuple:
+    """A rank's raw ``(k, D)`` block + material -> ``((k,) sq norms of
+    C(U), (D,) f32 aggregate of C(U) summed over the mesh)``, compression
+    fused into the kernel's tile stream.  ``mesh=None`` skips the sum.  D
+    pads with zeros on the updates and the material."""
+    d = updates.shape[1]
+    pad = (-d) % TILE
+    sq, out = sharded_compress_aggregate_cuda(
+        _pad_cols(updates, pad), scale, tuple(_pad_cols(m, pad) for m in mats),
+        kind, param,
+    )
+    out = out[:d]
+    return sq, (out if mesh is None else mesh.all_reduce(out))
+
+
+def tree_shard_compress_aggregate(updates_tree, scale: torch.Tensor, mats: tuple,
+                                  kind: str, param: float, mesh=None):
+    """:func:`shard_compress_aggregate` over a rank's tree of raw ``(k, ...)``
+    leaves and its material trees.  The squared norms the kernel emits are
+    discarded: the plan's norms come from the eager ``ocs.client_norms``, so
+    masks never depend on a kernel."""
+    _, agg = shard_compress_aggregate(
+        tree_to_client_matrix(updates_tree), scale,
+        tuple(tree_to_client_matrix(m) for m in mats), kind, param, mesh,
+    )
+    return client_matrix_to_tree(agg, updates_tree, strip_client_axis=True,
+                                 keep_dtype=True)
+
+
+def sharded_masked_aggregate(updates: torch.Tensor, scale: torch.Tensor, mesh) -> torch.Tensor:
+    """The global ``(n, D)``, ``(n,)`` -> the ``(D,)`` f32 aggregate, on every
+    rank of ``mesh``: each rank contracts only its own ``(n / world_size, D)``
+    block and one ``all_reduce`` sums the partials.  ``n`` must divide by the
+    world size."""
+    n = updates.shape[0]
+    if n % mesh.world_size:
+        raise ValueError(f"n={n} clients must divide by the mesh's {mesh.world_size} ranks")
+    k = n // mesh.world_size
+    lo = mesh.rank * k
+    return shard_masked_aggregate(updates[lo:lo + k], scale[lo:lo + k], mesh)

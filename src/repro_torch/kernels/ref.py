@@ -7,3 +7,7 @@ from repro_torch.kernels.norm_aggregate import (  # noqa: F401
     compress_norm_scale_aggregate_ref,
     norm_scale_aggregate_ref,
 )
+from repro_torch.kernels.sharded_aggregate import (  # noqa: F401
+    sharded_compress_aggregate_ref,
+    sharded_masked_aggregate_ref,
+)

@@ -13,11 +13,19 @@ Every run fills a :class:`SimLedger` (schema 3, the reference's artifact
 contract: ``validate_ledger`` accepts the same documents as the reference's);
 its uplink series bills compressed updates at the compressor's size.
 
+With a ``mesh`` (a :class:`~repro_torch.fl.mesh.ClientMesh`,
+:func:`build_client_mesh`) the loop runs the mesh round of
+``fl/shard_round.py`` on every rank: each rank replays the same numpy
+generator, so every rank draws the reference's cohorts and batches, and
+uploads only its block of the cohort.  The ledger is the same on every rank.
+
 Not ported yet: the ``'prefetch'`` and ``'scan'`` modes, telemetry
-(``obs``), checkpoint/resume, the client-state layer (``system``) and the
-mesh; each raises ``NotImplementedError``.  Until prefetch lands,
-``run_simulation`` and ``run_scenario`` default to ``mode='host'`` (the
-reference defaults to ``'prefetch'``).
+(``obs``), checkpoint/resume and the client-state layer (``system``); each
+raises ``NotImplementedError`` (``'scan'`` with a mesh raises
+``ValueError``, as in the reference: the mesh round cannot run inside a
+block of rounds).  Until prefetch lands, ``run_simulation`` and
+``run_scenario`` default to ``mode='host'`` (the reference defaults to
+``'prefetch'``).
 """
 
 from __future__ import annotations
@@ -30,11 +38,14 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import rng as trng
 from repro_torch._device import resolve_device
-from repro_torch.fl.engine import RoundEngine
+from repro_torch.fl.engine import make_engine
+from repro_torch.fl.mesh import ClientMesh, local_client_mesh
 from repro_torch.fl.round import client_weights, round_bits_duplex
+from repro_torch.fl.shard_round import validate_shard_config
 from repro_torch.kernels.ops import tree_leaves
 from repro_torch.sim.scenarios import get_scenario
 
@@ -182,14 +193,51 @@ def validate_ledger(doc: dict) -> None:
         raise ValueError("ledger lacks throughput fields")
 
 
-def _reject_unported(mode, **given):
+def build_client_mesh(fl, world_size: int | None = None, device=None) -> ClientMesh:
+    """The 1-D client mesh (axis ``fl.client_axis``) over this process's
+    ranks: the reference's ``build_client_mesh``.
+
+    With a process group already initialised (a rank of
+    :func:`~repro_torch.fl.mesh.spawn_mesh`, or of a launcher), a mesh over
+    it on ``device``.  With none, a world of one rank in this process (a
+    ``FileStore`` in a temporary directory, NCCL on CUDA, gloo on the CPU),
+    so one card runs the mesh code path — the reference's mesh always spans
+    at least one device.  The config is checked first
+    (:func:`~repro_torch.fl.shard_round.validate_shard_config`: ``ValueError``
+    when the world's size does not divide ``fl.n_clients``, among others),
+    so a rejected config opens no process group.  The caller closes the mesh
+    (:meth:`~repro_torch.fl.mesh.ClientMesh.close`).
+    """
+    size = dist.get_world_size() if dist.is_initialized() else 1
+    if world_size is not None and world_size != size:
+        raise ValueError(
+            f"this process's world has {size} ranks, not world_size={world_size}: "
+            f"start one process per rank (repro_torch.fl.mesh.spawn_mesh)"
+        )
+    validate_shard_config(fl, size)
+    if dist.is_initialized():
+        return ClientMesh(dist.group.WORLD, device, fl.client_axis)
+    return local_client_mesh(device, axis_name=fl.client_axis)
+
+
+def _check_mode(mode, on_mesh: bool) -> None:
     if mode not in MODES:
         raise ValueError(f"unknown sim mode {mode!r}; want one of {MODES}")
+    if mode == "scan" and on_mesh:
+        raise ValueError(
+            "sim mode 'scan' does not support a mesh: the shard_map round cannot run "
+            "inside the scan-over-rounds block — use mode='host' or mode='prefetch' "
+            "with the mesh, or drop the mesh to keep scan-over-rounds"
+        )
     if mode != "host":
         raise NotImplementedError(
             f"sim mode {mode!r} is not ported yet: it lands with the driver-modes "
             f"slice of the port (use mode='host')"
         )
+
+
+def _reject_unported(mode, mesh, **given):
+    _check_mode(mode, mesh is not None)
     for name, value in given.items():
         if value is not None:
             raise NotImplementedError(f"run_simulation({name}=...) is not ported yet")
@@ -231,9 +279,15 @@ def run_simulation(
     waits for it.  ``init_fn(key)`` gets
     ``fold_in(PRNGKey(seed), 1)``.  ``fl.weights == 'data_size'`` takes each
     cohort's slice of ``dataset.sizes()``, normalised per round.
-    ``artifact`` (a path) serialises the ledger on completion.
+
+    With a ``mesh`` (call it on every rank) the round is the mesh round, on
+    the mesh's device: every rank draws the whole cohort and uploads its
+    block of the batch and the weights.  The ledger is the same on every
+    rank (``wall_ms`` is the slowest rank's) and records
+    ``workload["mesh_axis_size"]``.  ``artifact`` (a path) serialises the
+    ledger on completion (rank 0 only).
     """
-    _reject_unported(mode, server_opt=server_opt, mesh=mesh, system=system,
+    _reject_unported(mode, mesh, server_opt=server_opt, system=system,
                      obs=obs, checkpoint=checkpoint, resume=resume)
     if fl.n_clients > dataset.n_clients:
         raise ValueError(
@@ -241,8 +295,17 @@ def run_simulation(
             f"pool of {dataset.n_clients} clients: each round draws the cohort "
             f"without replacement, so n_clients must be <= the pool size"
         )
-    dev = resolve_device(device)
-    round_step = RoundEngine(loss_fn, fl, device=dev).make_step()
+    if mesh is None:
+        dev = resolve_device(device)
+        lo, k_local = 0, fl.n_clients
+    else:
+        dev = mesh.device
+        if device is not None and resolve_device(device).type != dev.type:
+            raise ValueError(f"device={device!r}, but the mesh's rank lies on {dev}")
+        k_local = fl.n_clients // mesh.world_size
+        lo = mesh.rank * k_local
+    # the round step (and its config check) before any draw
+    round_step = make_engine(loss_fn, fl, mesh=mesh, device=dev)
 
     rng = np.random.default_rng(seed)
     key = trng.PRNGKey(seed, device=dev)
@@ -263,11 +326,13 @@ def run_simulation(
     for k in range(rounds):
         t_round = time.perf_counter()
         clients = rng.choice(dataset.n_clients, size=fl.n_clients, replace=False)
-        w = cohort_weights(clients)
+        w = cohort_weights(clients)[lo:lo + k_local]
         batch = dataset.sample_round_batches(
             rng, clients, fl.local_steps, batch_size, local_epoch
         )
-        batch = {bk: torch.as_tensor(v, device=dev) for bk, v in batch.items()}
+        # this rank's block of the cohort (the whole cohort without a mesh)
+        batch = {bk: torch.as_tensor(v[lo:lo + k_local], device=dev)
+                 for bk, v in batch.items()}
         kk = trng.fold_in(key, 1000 + k)
         params, opt_state, metrics = round_step(params, opt_state, batch, w, kk)
         dev_metrics.append(metrics)
@@ -279,6 +344,13 @@ def run_simulation(
         wall_ms.append((time.perf_counter() - t_round) * 1e3)
     _sync(dev)
     t_end = time.perf_counter()
+    wall_s = t_end - t_start
+    steady_s = t_end - t_first if t_first is not None else 0.0
+    if mesh is not None:
+        # a mesh round ends when its slowest rank does; every rank records that
+        times = mesh.all_max(torch.tensor(wall_ms + [wall_s, steady_s],
+                                          dtype=torch.float64, device=dev)).tolist()
+        wall_ms, wall_s, steady_s = times[:rounds], times[rounds], times[rounds + 1]
 
     ledger = SimLedger(
         mode=mode,
@@ -292,6 +364,7 @@ def run_simulation(
             "seed": seed,
             "local_epoch": bool(local_epoch),
             "backend_platform": dev.type,
+            **({"mesh_axis_size": mesh.world_size} if mesh is not None else {}),
         },
     )
 
@@ -320,13 +393,13 @@ def run_simulation(
         ledger.wall_ms.append(float(wall_ms[i]))
     ledger.masks = list(masks)
     ledger.norms = list(rows("norms").astype(np.float32))
-    ledger.wall_s = t_end - t_start
+    ledger.wall_s = wall_s
     steady = rounds - 1
-    if t_first is not None and steady > 0 and t_end > t_first:
-        ledger.rounds_per_sec = steady / (t_end - t_first)
+    if steady > 0 and steady_s > 0:
+        ledger.rounds_per_sec = steady / steady_s
     else:
-        ledger.rounds_per_sec = rounds / max(t_end - t_start, 1e-9)
-    if artifact:
+        ledger.rounds_per_sec = rounds / max(wall_s, 1e-9)
+    if artifact and (mesh is None or mesh.rank == 0):
         ledger.write(artifact)
     return params, ledger
 
@@ -351,19 +424,31 @@ def run_scenario(
     Builds the scenario's dataset and model (``reduced=True`` shrinks both),
     then delegates to :func:`run_simulation`.  ``init_fn`` replaces the
     model's own initialiser (the parity tests pass the reference's weights
-    through it).  Returns ``(params, SimLedger)``.
+    through it).  ``Scenario.sharded`` cells (and an explicit ``mesh``) run
+    the mesh round; a sharded cell without a ``mesh`` builds one with
+    :func:`build_client_mesh` and closes it after the run.  Returns
+    ``(params, SimLedger)``.
     """
-    device = resolve_device(device)
     sc = get_scenario(scenario) if isinstance(scenario, str) else scenario
     if reduced:
         sc = sc.reduced()
+    _check_mode(mode, mesh is not None or sc.sharded)
+    if mesh is None:
+        device = resolve_device(device)
     ds = sc.build_dataset(reduced=reduced)
     model_init, loss_fn, _ = sc.build_model(ds)
-    return run_simulation(
-        ds, init_fn or model_init, loss_fn, sc.fl,
-        rounds if rounds is not None else sc.rounds,
-        batch_size=sc.batch_size, mode=mode,
-        seed=sc.seed if seed is None else seed, mesh=mesh, system=sc.system,
-        scenario_name=sc.name, artifact=artifact, obs=obs,
-        checkpoint=checkpoint, resume=resume, device=device,
-    )
+    own_mesh = mesh is None and sc.sharded
+    if own_mesh:
+        mesh = build_client_mesh(sc.fl, device=device)
+    try:
+        return run_simulation(
+            ds, init_fn or model_init, loss_fn, sc.fl,
+            rounds if rounds is not None else sc.rounds,
+            batch_size=sc.batch_size, mode=mode,
+            seed=sc.seed if seed is None else seed, mesh=mesh, system=sc.system,
+            scenario_name=sc.name, artifact=artifact, obs=obs,
+            checkpoint=checkpoint, resume=resume, device=device,
+        )
+    finally:
+        if own_mesh:
+            mesh.close()

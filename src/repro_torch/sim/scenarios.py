@@ -1,10 +1,10 @@
 """Scenario registry: the cells of the paper's Sec. 4 grid that the port runs.
 
 A copy of the reference's registry (``repro/sim/scenarios.py``) restricted
-to what the port can run so far — the MLP cells on the vmap and scan engines,
-with or without compression, without the client-state layer or a mesh — with
-field values identical to the reference's, so one name means one run in both
-packages:
+to what the port can run so far — the MLP cells on the vmap and scan engines
+and on the mesh round, with or without compression, without the client-state
+layer — with field values identical to the reference's, so one name means
+one run in both packages:
 
 * ``femnist{1,2,3}-fedavg-{full,aocs,uniform}`` (Sec. 4.2, Figs. 3-5)
 * ``femnist1-dsgd-{optimal,uniform}`` (Sec. 4.1)
@@ -13,9 +13,12 @@ packages:
 * ``femnist1-fedavg-aocs-randk`` (Sec. 6 future work: rand-k x OCS)
 * ``femnist1-fedavg-aocs-scan`` (the single-pass scan engine)
 * ``femnist1-fedavg-aocs-pallas`` (the Eq. 2 aggregate on the CUDA kernel)
+* ``femnist1-fedavg-aocs-shard``, ``-shard-randk``, ``-shard-q0.7-natural``
+  (the mesh round, ``sharded=True``)
 
-Any other name raises ``KeyError``: a reference cell not ported yet, or an
-unknown one.
+Any other name raises ``KeyError``: a reference cell not ported yet (among
+the sharded ones, the straggler, threshold and cyclic cells, which need the
+client-state layer and the sampler zoo), or an unknown one.
 """
 
 from __future__ import annotations
@@ -32,8 +35,10 @@ class Scenario:
 
     ``dataset`` names a synthetic factory (``femnist1|femnist2|femnist3``,
     ``cifar``); ``dataset_kw`` overrides its defaults; ``paper`` records the
-    section/figure the cell reproduces.  ``sharded`` and ``system`` keep the
-    reference's fields and are always ``False``/``None`` in this slice.
+    section/figure the cell reproduces.  ``sharded`` cells run the mesh round
+    (``run_scenario`` builds a mesh with ``build_client_mesh`` when none is
+    given).  ``system`` keeps the reference's field and is always ``None`` in
+    this slice.
     """
 
     name: str
@@ -186,6 +191,28 @@ def _build_grid():
         dataset="femnist1",
         fl=_fl(agg_backend="pallas"),
         paper="Sec. 4.2 grid cell on the fused pallas aggregate",
+    ))
+    # the mesh round: clients sharded over the ranks, explicit collectives
+    register(Scenario(
+        name="femnist1-fedavg-aocs-shard",
+        dataset="femnist1",
+        fl=_fl(agg_backend="pallas"),
+        sharded=True,
+        paper="Sec. 4.2 grid cell on the shard_map round (per-shard kernel + one psum)",
+    ))
+    register(Scenario(
+        name="femnist1-fedavg-aocs-shard-randk",
+        dataset="femnist1",
+        fl=_fl(agg_backend="pallas", compression="randk", compression_param=0.1),
+        sharded=True,
+        paper="Sec. 6 future work (rand-k x OCS) on the shard_map round",
+    ))
+    register(Scenario(
+        name="femnist1-fedavg-aocs-shard-q0.7-natural",
+        dataset="femnist1",
+        fl=_fl(availability=0.7, compression="natural"),
+        sharded=True,
+        paper="Appendix E x natural compression on the shard_map round",
     ))
 
 

@@ -107,17 +107,18 @@ def test_one_round_matches_reference(algorithm, backend, availability):
 
 
 def test_unported_axes_raise():
-    # the scan engine and compression are ported (tests/test_torch_scan_engine.py);
-    # a server optimizer, the mesh, the diag step, the sampler zoo and an
-    # availability trace are not
+    # the scan engine and compression are ported (tests/test_torch_scan_engine.py),
+    # and the mesh round (tests/test_torch_shard_round.py), which rejects a
+    # server optimizer for good, as the reference does; a server optimizer,
+    # the diag step, the sampler zoo and an availability trace are not ported
     kw, _, _, _, tloss = _setup("fedavg")
     for sampler in ("clustered", "cyclic", "threshold"):
         with pytest.raises(NotImplementedError, match="not ported"):
             engine.RoundEngine(tloss, FLConfig(**kw, sampler=sampler), device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         engine.RoundEngine(tloss, FLConfig(**kw), server_opt=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        engine.make_engine(tloss, FLConfig(**kw), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="server_opt is not supported on the shard_map path"):
+        engine.make_engine(tloss, FLConfig(**kw), server_opt=object(), mesh=object())
     for memory in ("vmap", "scan"):
         with pytest.raises(NotImplementedError, match="not ported"):
             engine.RoundEngine(tloss, FLConfig(**kw, round_engine=memory, scan_group=4),

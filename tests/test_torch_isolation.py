@@ -1,7 +1,8 @@
 """The port stands alone: no file of ``src/repro_torch``, not
 ``chip_smoke.py`` and not the card-only ``tests/test_torch_cuda.py`` imports
 ``jax`` or the JAX package ``repro`` (the GPU machine has no JAX), and a
-reduced port scenario runs in a fresh interpreter without loading jax."""
+reduced port scenario (on one device, and on the mesh round) runs in a fresh
+interpreter without loading jax."""
 
 import ast
 import subprocess
@@ -35,10 +36,18 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_port_runs_without_loading_jax():
+    _run_without_jax("femnist1-fedavg-aocs-pallas")
+
+
+def test_mesh_round_runs_without_loading_jax():
+    _run_without_jax("femnist1-fedavg-aocs-shard-randk")
+
+
+def _run_without_jax(cell):
     code = (
         "import sys\n"
         "from repro_torch.sim.driver import run_scenario, validate_ledger\n"
-        "_, led = run_scenario('femnist1-fedavg-aocs-pallas', reduced=True, rounds=2,"
+        f"_, led = run_scenario({cell!r}, reduced=True, rounds=2,"
         " device='cpu')\n"
         "validate_ledger(led.to_json())\n"
         "assert 'jax' not in sys.modules and 'repro' not in sys.modules, "

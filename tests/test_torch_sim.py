@@ -9,7 +9,10 @@ the port on the CPU from the reference's initial parameters
   sum-order differences between torch's and XLA's CPU kernels);
 * the port's ledger passes both packages' ``validate_ledger``;
 * the port's registry cells equal the reference's field for field;
-* with ``device=None`` the port raises when there is no CUDA device.
+* with ``device=None`` the port raises when there is no CUDA device;
+* a sharded cell (the mesh round, at one rank here) draws the masks and
+  bills the uplink bits of the same cell unsharded and of the reference's
+  run, and its parameters equal the unsharded run's bitwise.
 """
 
 import dataclasses
@@ -72,14 +75,18 @@ def test_registry_cells_equal_reference():
         "femnist1-dsgd-optimal", "femnist1-dsgd-uniform", "cifar-fedavg-aocs",
         "femnist1-fedavg-aocs-q0.7", "femnist1-fedavg-aocs-pallas",
         "femnist1-fedavg-aocs-randk", "femnist1-fedavg-aocs-scan",
+        "femnist1-fedavg-aocs-shard", "femnist1-fedavg-aocs-shard-randk",
+        "femnist1-fedavg-aocs-shard-q0.7-natural",
     ])
     for name in scenarios.list_scenarios():
         assert dataclasses.asdict(scenarios.get_scenario(name)) == dataclasses.asdict(
             j_scenarios.get_scenario(name))
         assert dataclasses.asdict(scenarios.get_scenario(name).reduced()) == dataclasses.asdict(
             j_scenarios.get_scenario(name).reduced())
-    with pytest.raises(KeyError, match="not ported yet"):
-        scenarios.get_scenario("femnist1-fedavg-aocs-straggler-scan")
+    for name in ("femnist1-fedavg-aocs-straggler-scan", "femnist1-fedavg-aocs-straggler-shard",
+                 "femnist1-fedavg-threshold-shard", "femnist1-fedavg-cyclic-shard"):
+        with pytest.raises(KeyError, match="not ported yet"):
+            scenarios.get_scenario(name)
 
 
 @pytest.mark.parametrize("dataset", ("femnist2", "cifar"))
@@ -105,8 +112,56 @@ def test_default_device_needs_cuda():
 
 
 def test_unported_modes_and_options_raise():
+    # the mesh is ported (tests/test_torch_shard_round.py and below)
     for kw in (dict(mode="prefetch"), dict(mode="scan"), dict(obs=object()),
-               dict(checkpoint="x"), dict(resume="x"), dict(mesh=object())):
+               dict(checkpoint="x"), dict(resume="x")):
         with pytest.raises(NotImplementedError, match="not ported"):
             driver.run_scenario("femnist1-fedavg-aocs", reduced=True, rounds=1,
                                 device="cpu", **kw)
+
+
+SHARD_CELL = "femnist1-fedavg-aocs-shard-randk"
+
+
+def test_sharded_cell_matches_unsharded_cell_and_reference():
+    sc = j_scenarios.get_scenario(SHARD_CELL).reduced()
+    ds = sc.build_dataset(reduced=True)
+    init, _, _ = sc.build_model(ds)
+    p0 = jax.device_get(init(jax.random.fold_in(jax.random.PRNGKey(sc.seed), 1)))
+    init_t = lambda key: params_from_jax(p0, key.device)
+    _, lj = j_driver.run_scenario(SHARD_CELL, reduced=True, mode="host", rounds=2)
+    pt, lt = driver.run_scenario(SHARD_CELL, reduced=True, rounds=2, device="cpu",
+                                 init_fn=init_t)
+    unsharded = scenarios.get_scenario(SHARD_CELL).with_(sharded=False)
+    pu, lu = driver.run_scenario(unsharded, reduced=True, rounds=2, device="cpu",
+                                 init_fn=init_t)
+    assert not torch.distributed.is_initialized()      # the run closed its mesh
+    doc = lt.to_json(include_masks=True)
+    driver.validate_ledger(doc)
+    j_driver.validate_ledger(doc)
+    assert lt.workload["mesh_axis_size"] == lj.workload["mesh_axis_size"] == 1
+    assert "mesh_axis_size" not in lu.workload
+    for other in (lu, lj):
+        assert len(other.masks) == len(lt.masks) == 2
+        for a, b in zip(lt.masks, other.masks):
+            np.testing.assert_array_equal(a, np.asarray(b))
+        assert lt.uplink_bits == other.uplink_bits and lt.sent == other.sent
+    np.testing.assert_allclose(lt.loss, lj.loss, rtol=1e-4)
+    # one rank: the mesh round is the vmap engine's round, bitwise
+    assert lt.loss == lu.loss
+    for k in pt:
+        assert torch.equal(pt[k], pu[k])
+
+
+def test_sharded_cell_rejects_scan_mode():
+    with pytest.raises(ValueError, match="mesh"):
+        driver.run_scenario(SHARD_CELL, reduced=True, rounds=1, mode="scan", device="cpu")
+    sc = scenarios.get_scenario(SHARD_CELL).reduced()
+    ds = sc.build_dataset(reduced=True)
+    init, loss, _ = sc.build_model(ds)
+    mesh = driver.build_client_mesh(sc.fl, device="cpu")
+    try:
+        with pytest.raises(ValueError, match="mesh"):
+            driver.run_simulation(ds, init, loss, sc.fl, 1, mode="scan", mesh=mesh)
+    finally:
+        mesh.close()
