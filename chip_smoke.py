@@ -15,7 +15,9 @@ nvcc (one process per source, all at once), then:
   the bitwise contracts between them, and times each at its path shapes
   (the mesh kernels also at a large local block of 1,024 clients) beside
   that plain version, a library call where one computes the same function,
-  and its memory bound;
+  and its bound; flash attention over S x head dim x (window, prefix), the
+  SSD scan over S x chunk x (P, N), and both at the serve paths' shapes
+  (flash attention's library yardstick is PyTorch's fused flash backend);
 * path phases, each with every kernel count set to 0 just before and read
   just after:
 
@@ -46,6 +48,17 @@ nvcc (one process per source, all at once), then:
   the first round's mask equal to the world-size-1 run's and the parameters
   within 1e-5 of it; its times are those of 4 ranks sharing one card, not of
   4 GPUs;
+* the serving path of the fourth slice, ``repro_torch.launch.serve.serve``,
+  at full width with random weights from a seeded generator on the card:
+  zamba2-2.7b (54 layers, d 2,560, bf16; batch 2, prompt 4,096, gen 32),
+  whose prefill runs the flash-attention kernel 9 times and the SSD-scan
+  kernel 45 times, and mamba2-130m (gen 16; 24 SSD-scan launches); each
+  checks its launches (none in decode), that a second run gives the same
+  tokens, the first Mamba2 block and the first shared-attention call against
+  the same blocks with the eager cores (within bf16 rounding), the kernel
+  prefill's last logits against the same prefill with the eager cores, and
+  takes profiler passes; then the reduced zamba2 in f32 at
+  prompt 2,100 (both kernels, and the SSD's padding) against the CPU;
 * a profiler pass and a per-layer breakdown of the main path, of the first
   slice's path and of the mesh round, which say where a round's time goes.
 
@@ -86,6 +99,7 @@ PROFILE_ROUNDS = 3
 BREAKDOWN_ROUNDS = 6
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 TIMING_REPS = 100
 SPIN_CYCLES = 200_000         # ~100 us of device spin at H100 clocks
 SWEEP_C = (1, 3, 4, 32, 33, 200)
@@ -95,6 +109,51 @@ SWEEP_D = (1, 7, 4097, 58430)
 # level count whose reciprocal is inexact too
 COMPRESSORS = (("randk", 0.1), ("qsgd", 8.0), ("qsgd", 5.0), ("natural", 0.0))
 RTOL, ATOL = 1e-5, 1e-6
+# kernel 7 (flash attention), elementwise |err| <= atol + rtol |want|: f32
+# inputs N(0, 1) at the reference's own atol; bf16 inputs N(0, 1/4), where the
+# kernel and the plain version both accumulate in f32 and round the output
+# once to bf16, so they differ by at most one bf16 unit in the last place,
+# <= 2^-7 |want| < 1e-2 |want| (the outputs shrink as 1/sqrt(row) at long S,
+# so a bound that does not scale with |want| would pass a kernel that dropped
+# the late rows)
+ATTN_SWEEP_S = (1, 7, 128, 200, 257, 2048)
+ATTN_MASKS = ((None, 0), (48, 0), (None, 40))
+ATTN_TOL = {"float32": (3e-5, 0.0), "bfloat16": (1e-5, 1e-2)}     # (atol, rtol)
+ATTN_PATH = (64, 4096, 80)      # zamba2-2.7b prefill: (batch 2 x 32 heads, S, head dim)
+ATTN_PATH_HEADS = 32            # the library yardstick takes (batch, heads, S, head dim)
+# the yardstick's output against the kernel's, only to show that it computes
+# the same function: its flash backend rounds the probabilities to bf16
+# (2^-9 relative each) before the second product, an error of up to
+# 2^-9 max |v| (~5e-3 at these inputs) on top of the output's own rounding
+ATTN_LIBRARY_TOL = (1e-2, 1e-2)
+ATTN_PATH_CHECK_ROWS = 8        # rows held against the (S, S) plain version
+# kernel 8 (SSD scan): the sequential recurrence (or the eager chunked core)
+# and the kernel reassociate sums of up to Q * N terms of f32 products
+SSD_SWEEP_S = (32, 100, 128, 300)
+SSD_SWEEP_CHUNK = (16, 64, 128)
+SSD_SWEEP_PN = ((16, 8), (64, 64), (64, 128))
+SSD_ATOL, SSD_RTOL = 1e-4, 1e-4
+# (batch, heads, S, P, N) of the serve paths: zamba2-2.7b, mamba2-130m
+SSD_PATHS = ((2, 80, 4096, 64, 64), (2, 24, 4096, 64, 128))
+# the serve paths: full width, random weights from a seeded generator on the card
+SERVE_BATCH, SERVE_PROMPT = 2, 4096
+SERVE_PATHS = (               # (arch, generated tokens, launches per prefill)
+    ("zamba2-2.7b", 32, {"flash_attention": 9, "ssd_scan": 45}),
+    ("mamba2-130m", 16, {"ssd_scan": 24}),
+)
+# the first Mamba2 block and the first shared-attention call, kernel core
+# against eager core on the same bf16 input: the cores' f32 sums differ only
+# in order, so the blocks' bf16 outputs may differ by the roundings that this
+# flips: max |diff| <= two bf16 units at the largest output (2^-6 max |out|),
+# and rms(diff) <= the size of one bf16 rounding of every element
+# (2^-8 rms(out))
+SERVE_BLOCK_MAX, SERVE_BLOCK_RMS = 2.0 ** -6, 2.0 ** -8
+# the kernel prefill's last-position logits against the same prefill with the
+# eager cores, bf16: max |diff| <= this share of max |logit| (the blocks'
+# rounding differences above travel through the later blocks)
+SERVE_LOGIT_RTOL = 5e-2
+REDUCED_ARCH, REDUCED_PROMPT, REDUCED_GEN = "zamba2-2.7b-reduced", 2100, 8
+REDUCED_LOGIT_ATOL = 1e-4     # f32, TF32 off: the card against the CPU
 
 
 def card_line() -> str:
@@ -107,9 +166,11 @@ def card_line() -> str:
 
 def counters():
     """Every kernel wrapper's launch counter, by kernel name."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import masked_aggregate as ma
     from repro_torch.kernels import norm_aggregate as na
     from repro_torch.kernels import sharded_aggregate as sa
+    from repro_torch.kernels import ssd_scan as ss
 
     return {
         "masked_scale_aggregate": ma.masked_scale_aggregate_cuda,
@@ -118,6 +179,8 @@ def counters():
         "compress_norm_scale_aggregate": na.compress_norm_scale_aggregate_cuda,
         "sharded_masked_aggregate": sa.sharded_masked_aggregate_cuda,
         "sharded_compress_aggregate": sa.sharded_compress_aggregate_cuda,
+        "flash_attention": fa.flash_attention_cuda,
+        "ssd_scan": ss.ssd_scan_cuda,
     }
 
 
@@ -154,11 +217,12 @@ def time_ms(fn, torch, flush=None, reps=TIMING_REPS) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: int, flops: int) -> tuple:
+def bound(nbytes: int, flops: int, flops_per_s: float = F32_FLOPS_PER_S) -> tuple:
     """(bound ms, 'bytes' or 'operations') on an H100 SXM at its published
-    rates: device memory 3.35 TB/s, float32 67 TFLOP/s."""
+    rates: device memory 3.35 TB/s; float32 67 TFLOP/s, or the inputs' type's
+    rate given (bf16: 989 TFLOP/s)."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    ops_ms = flops / flops_per_s * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
@@ -614,6 +678,435 @@ def shard_kernel_phase(torch, dev, flush):
     return [entry("sharded_masked_aggregate", "src/repro/kernels/sharded_aggregate.py:68", 0),
             entry("sharded_compress_aggregate", "src/repro/kernels/sharded_aggregate.py:140",
                   3)]
+
+
+def _max_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+
+
+def attention_kernel_phase(torch, dev, flush):
+    """flash_attention: kernel vs plain over the sweep, then at the hybrid
+    model's prefill shape, and timings there."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cpu").manual_seed(7)
+
+    def qkv(bh, s, d, dtype):
+        scale = 1.0 if dtype == torch.float32 else 0.5
+        return [(torch.randn((bh, s, d), generator=gen) * scale).to(dev, dtype)
+                for _ in range(3)]
+
+    def check(name, got, want, dtype, tol=None):
+        atol, rtol = tol or ATTN_TOL[str(dtype).split(".")[1]]
+        err = (got.float() - want.float()).abs()
+        bad = err > atol + rtol * want.float().abs()
+        if got.shape != want.shape or got.dtype != dtype or bool(bad.any()):
+            raise AssertionError(
+                f"flash_attention {name} {dtype}: {int(bad.sum())} elements beyond atol "
+                f"{atol} + rtol {rtol} x |want| (max abs err {_max_err(got, want)}; output "
+                f"{tuple(got.shape)} {got.dtype})")
+        return _max_err(got, want)
+
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in ATTN_SWEEP_S:
+            for d in fa.HEAD_DIMS:
+                for window, prefix in ATTN_MASKS:
+                    q, k, v = qkv(2, s, d, dtype)
+                    got = ops.flash_attention(q, k, v, window=window, prefix=prefix)
+                    want = fa.flash_attention_ref(q, k, v, window=window, prefix=prefix)
+                    torch.cuda.synchronize()
+                    err = check(f"S={s} d={d} window={window} prefix={prefix}", got, want,
+                                dtype)
+                    worst[dtype] = max(worst.get(dtype, 0.0), err)
+    print(f"kernel check: flash_attention matches its plain version at S in "
+          f"{ATTN_SWEEP_S} x d in {fa.HEAD_DIMS} x (window, prefix) in {ATTN_MASKS}, "
+          f"elementwise |err| <= atol + rtol |want|: f32 ((atol, rtol) "
+          f"{ATTN_TOL['float32']}, max err {worst[torch.float32]}) and bf16 "
+          f"({ATTN_TOL['bfloat16']}, max err {worst[torch.bfloat16]})")
+
+    bh, s, d = ATTN_PATH
+    q, k, v = qkv(bh, s, d, torch.bfloat16)
+    got = fa.flash_attention_cuda(q, k, v)
+    again = fa.flash_attention_cuda(q, k, v)
+    r = ATTN_PATH_CHECK_ROWS
+    want = fa.flash_attention_ref(q[:r], k[:r], v[:r])
+    torch.cuda.synchronize()
+    err = check(f"at {ATTN_PATH}", got[:r], want, torch.bfloat16)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"flash_attention at {ATTN_PATH} bf16: output not finite")
+    if not torch.equal(got, again):
+        raise AssertionError("flash_attention is not deterministic run to run")
+    mag = want.float().abs()
+    print(f"kernel path shape flash_attention {ATTN_PATH} bf16: rows 0..{r - 1} against the "
+          f"plain version, max abs err {err} (|want| median {float(mag.median())}, at the "
+          f"last query {float(mag[:, -1].median())}, max {float(mag.max())}); bitwise equal "
+          f"across launches")
+
+    # the library yardstick: PyTorch's fused flash backend on (batch, heads, S, d)
+    # views of the same tensors; a fall-back to another backend raises
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    heads = ATTN_PATH_HEADS
+    q4, k4, v4 = (t.view(bh // heads, heads, s, d) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        lib = sdpa(q4, k4, v4, is_causal=True).view(bh, s, d)
+        torch.cuda.synchronize()
+        lib_err = check(f"(the library's) at {ATTN_PATH}", lib, got, torch.bfloat16,
+                        ATTN_LIBRARY_TOL)
+        library_ms = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True), torch, flush,
+                             reps=20)
+    kernel_ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v), torch, flush, reps=20)
+    plain_ms = time_ms(lambda: fa.flash_attention_ref(q, k, v), torch, flush, reps=5)
+    pairs = s * (s + 1) // 2                 # the (q, k) pairs the causal mask keeps
+    flops = 4 * d * bh * pairs               # q.k and p.v, 2 flops per multiply-add each
+    nbytes = 4 * bh * s * d * 2              # q, k, v read once, out written once
+    bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    print(f"kernel timing flash_attention {ATTN_PATH} bf16 (median, L2 flushed): kernel "
+          f"{kernel_ms} ms, plain {plain_ms} ms, scaled_dot_product_attention(is_causal) "
+          f"on ({bh // heads}, {heads}, {s}, {d}) views under SDPBackend.FLASH_ATTENTION "
+          f"{library_ms} ms (its output within (atol, rtol) {ATTN_LIBRARY_TOL} of the "
+          f"kernel's, max abs diff {lib_err}); kernel / library {kernel_ms / library_ms}; bound {bound_ms} ms "
+          f"({bound_by}: {flops} flops at 989 TFLOP/s, {nbytes} bytes at 3.35 TB/s)")
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77",
+        "shape": list(ATTN_PATH), "dtype": "bfloat16", "launches": None,
+        "max_abs_err": max(err, *worst.values()), "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+    }
+
+
+def _ssd_inputs(torch, gen, x_shape, bc_shape, dt_shape, dtype, dev):
+    """The reference's own SSD test recipe: x, B, C ~ N(0, 1/4); dt =
+    softplus(N(0, 1)) / 5; da = -dt exp(N(0, 1/100))."""
+    x = (torch.randn(x_shape, generator=gen) * 0.5).to(dev, dtype)
+    b = (torch.randn(bc_shape, generator=gen) * 0.5).to(dev, dtype)
+    c = (torch.randn(bc_shape, generator=gen) * 0.5).to(dev, dtype)
+    dt = torch.nn.functional.softplus(torch.randn(dt_shape, generator=gen)) * 0.2
+    da = -dt * torch.exp(torch.randn(dt_shape, generator=gen) * 0.1)
+    return x, b, c, dt.to(dev), da.to(dev)
+
+
+def _check_ssd(torch, name, got, want) -> float:
+    for g, w, what in zip(got, want, ("y", "state")):
+        err = (g - w).abs()
+        bad = err > SSD_ATOL + SSD_RTOL * w.abs()
+        if g.shape != w.shape or g.dtype != torch.float32 or bool(bad.any()):
+            raise AssertionError(f"{name} {what}: {int(bad.sum())} elements beyond atol "
+                                 f"{SSD_ATOL} + rtol {SSD_RTOL} (max abs err "
+                                 f"{float(err.max())}; shapes {tuple(g.shape)} {tuple(w.shape)})")
+    return max(_max_err(g, w) for g, w in zip(got, want))
+
+
+def ssd_kernel_phase(torch, dev, flush):
+    """ssd_scan: kernel vs the sequential recurrence over the sweep, the
+    model's wiring vs its eager chunked core at the serve paths' shapes, and
+    timings there."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import ssm
+
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in SSD_SWEEP_S:
+            for chunk in SSD_SWEEP_CHUNK:
+                for p, n in SSD_SWEEP_PN:
+                    x, b, c, dt, da = _ssd_inputs(torch, gen, (3, s, p), (3, s, n), (3, s),
+                                                  dtype, dev)
+                    got = ops.ssd_scan(x, b, c, dt, da, chunk=chunk)
+                    want = ss.ssd_scan_ref(x, b, c, dt, da)
+                    torch.cuda.synchronize()
+                    worst = max(worst, _check_ssd(
+                        torch, f"ssd_scan S={s} chunk={chunk} P={p} N={n} {dtype}", got, want))
+    print(f"kernel check: ssd_scan matches the sequential recurrence at S in {SSD_SWEEP_S} "
+          f"x chunk in {SSD_SWEEP_CHUNK} x (P, N) in {SSD_SWEEP_PN}, f32 and bf16 (atol "
+          f"{SSD_ATOL} + rtol {SSD_RTOL}; max abs err {worst})")
+
+    times = []
+    for bsz, h, s, p, n in SSD_PATHS:
+        xs, b, c, dt, da = _ssd_inputs(torch, gen, (bsz, s, h, p), (bsz, s, n), (bsz, s, h),
+                                       torch.bfloat16, dev)
+        got = ssm.ssd_chunked(xs, b, c, dt, da, 128)
+        want = ssm.ssd_chunked_eager(xs, b, c, dt, da, 128)
+        torch.cuda.synchronize()
+        err = _check_ssd(torch, f"ssd_chunked at ({bsz * h}, {s}, {p}, {n})", got, want)
+        # the kernel's own inputs, as the model's wiring hands them over
+        xk = xs.permute(0, 2, 1, 3).reshape(bsz * h, s, p)
+        bk = b[:, None].expand(bsz, h, s, n).reshape(bsz * h, s, n)
+        ck = c[:, None].expand(bsz, h, s, n).reshape(bsz * h, s, n)
+        dtk, dak = (t.permute(0, 2, 1).reshape(bsz * h, s) for t in (dt, da))
+        again = ss.ssd_scan_cuda(xk, bk, ck, dtk, dak, chunk=128)
+        first = ss.ssd_scan_cuda(xk, bk, ck, dtk, dak, chunk=128)
+        torch.cuda.synchronize()
+        if not all(torch.equal(u, w) for u, w in zip(first, again)):
+            raise AssertionError("ssd_scan is not deterministic run to run")
+        kernel_ms = time_ms(lambda: ss.ssd_scan_cuda(xk, bk, ck, dtk, dak, chunk=128), torch,
+                            flush, reps=20)
+        plain_ms = time_ms(lambda: ss.ssd_scan_ref(xk, bk, ck, dtk, dak), torch, flush,
+                           reps=3)
+        eager_ms = time_ms(lambda: ssm.ssd_chunked_eager(xs, b, c, dt, da, 128), torch,
+                           flush, reps=5)
+        wired_ms = time_ms(lambda: ssm.ssd_chunked(xs, b, c, dt, da, 128), torch, flush,
+                           reps=20)
+        q = 128
+        rows, nc = bsz * h, s // q
+        # the kernel's function on its inputs: B and C one row per head
+        flops = rows * nc * (q * (q + 1) * (n + p) + 4 * q * n * p)
+        nbytes = rows * s * (p + 2 * n) * 2 + rows * s * 4 * 2 + rows * s * p * 4 + rows * p * n * 4
+        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        # the model's SSD core on its inputs: the one B/C group read once per
+        # batch, and C B^T once per batch, not per head
+        model_flops = bsz * nc * q * (q + 1) * n + rows * nc * (q * (q + 1) * p + 4 * q * n * p)
+        model_bytes = (rows * s * p * 2 + bsz * s * 2 * n * 2 + rows * s * 4 * 2
+                       + rows * s * p * 4 + rows * p * n * 4)
+        model_bound_ms, model_bound_by = bound(model_bytes, model_flops, BF16_FLOPS_PER_S)
+        print(f"kernel path shape ssd_scan ({rows}, {s}, {p}, {n}) bf16, chunk {q}: the "
+              f"model's wiring matches its eager chunked core (max abs err {err}); "
+              f"bitwise equal across launches; timing (median, L2 flushed): kernel "
+              f"{kernel_ms} ms, plain (sequential recurrence) {plain_ms} ms, library none; "
+              f"bound {bound_ms} ms ({bound_by}: {flops} flops at 989 TFLOP/s, {nbytes} "
+              f"bytes at 3.35 TB/s); the model's core: through the kernel (ssd_chunked, "
+              f"the wiring's per-head copies included) {wired_ms} ms, eager chunked core "
+              f"{eager_ms} ms, eager / kernel-wired {eager_ms / wired_ms}; its bound "
+              f"{model_bound_ms} ms ({model_bound_by}: {model_flops} flops, {model_bytes} "
+              f"bytes)")
+        times.append({"shape": [rows, s, p, n], "ms": kernel_ms, "plain_ms": plain_ms,
+                      "eager_core_ms": eager_ms, "wired_ms": wired_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "model_bound_ms": model_bound_ms,
+                      "model_bound_by": model_bound_by, "max_abs_err": err})
+    first = times[0]
+    return {
+        "name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:78", "shape": first["shape"],
+        "dtype": "bfloat16", "launches": None,
+        "max_abs_err": max(worst, *(t["max_abs_err"] for t in times)),
+        "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+        "bound_by": first["bound_by"], "library_ms": None,
+        "eager_core_ms": first["eager_core_ms"], "wired_ms": first["wired_ms"],
+        "model_bound_ms": first["model_bound_ms"], "at_mamba2_130m": times[1],
+    }
+
+
+def _eager_cores():
+    """A context in which the model's two kernel call sites run their eager
+    forms on the card (``chunked_attention_eager``, ``ssd_chunked_eager``):
+    the plain version of the whole prefill, for comparison only."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    from repro_torch.models import layers, ssm
+
+    stack = ExitStack()
+    stack.enter_context(mock.patch.object(layers, "chunked_attention",
+                                          layers.chunked_attention_eager))
+    stack.enter_context(mock.patch.object(ssm, "ssd_chunked", ssm.ssd_chunked_eager))
+    return stack
+
+
+def _first_blocks(torch, cfg, params, tokens):
+    """The first Mamba2 block and, in the hybrid, the first call of the shared
+    attention block, each run through its kernel and through its eager core
+    on the same input: [(name, kernel output, eager output)]."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import _attn_ctx, _positions
+
+    stack = params["mamba"] if "mamba" in params else params["layers"]
+    out = []
+    with torch.inference_mode():
+        h = T.embed_tokens(params["embed"], tokens, cfg)
+        got, _ = T.mamba_block(T.layer(stack, 0), h, cfg)
+        with _eager_cores():
+            want, _ = T.mamba_block(T.layer(stack, 0), h, cfg)
+        out.append(("mamba block 0", got, want))
+        if "shared_attn" in params:
+            with _eager_cores():
+                for i in range(cfg.shared_attn_every - 1):
+                    h, _ = T.mamba_block(T.layer(stack, i), h, cfg)
+            bsz, seq, _ = h.shape
+            mask, ci = _attn_ctx(cfg, seq, device=h.device)
+            kw = {"positions": _positions(bsz, seq, h.device), "mask": mask,
+                  "ff_kind": "mlp", "chunked_info": ci}
+            got, _, _ = T.attn_block(params["shared_attn"], h, cfg, **kw)
+            with _eager_cores():
+                want, _, _ = T.attn_block(params["shared_attn"], h, cfg, **kw)
+            out.append(("shared attention block, first call", got, want))
+    return out
+
+
+def _bf16_ulps(torch, got, want):
+    """|got - want| in units of bf16's last place at |want|."""
+    w = want.float().abs().clamp_min(2.0 ** -126)
+    return (got.float() - want.float()).abs() / torch.exp2(torch.floor(torch.log2(w)) - 7)
+
+
+def _profile_serve(torch, dev, cfg, params, gen):
+    """(busy ms, wall ms, top device ops) of one serve call under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import serve
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, t = serve(cfg, SERVE_BATCH, SERVE_PROMPT, gen, device=dev, params=params)
+    rows = []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        rows.append((e.key, us / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in rows), t["prefill_ms"] + t["decode_ms"], rows, prof
+
+
+def serve_phase(torch, dev, arch, gen, per_prefill, out_dir):
+    """One serve path at full width on the card: set-up, a measured run with
+    the launch counts zeroed just before and read just after, a second run
+    with the same tokens, the kernel prefill against the eager-core prefill,
+    and profiler passes (prefill alone, then the whole call)."""
+    from repro_torch.configs import get
+    from repro_torch.kernels.ops import tree_leaves
+    from repro_torch.launch.serve import prompt_tokens, serve
+    from repro_torch.models import build_model
+
+    cfg = get(arch)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    toks0, _ = serve(cfg, SERVE_BATCH, SERVE_PROMPT, gen, device=dev, params=params)
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    n_params = sum(t.numel() for t in tree_leaves(params))
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    toks, t = serve(cfg, SERVE_BATCH, SERVE_PROMPT, gen, device=dev, params=params)
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    want = {name: per_prefill.get(name, 0) for name in counts}
+    if counts != want:
+        raise AssertionError(f"{arch} serve: launches {counts}, want {want} (one prefill, "
+                             f"none in decode)")
+    if toks.shape != (SERVE_BATCH, gen) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"{arch} serve: bad tokens {toks.shape}")
+    if not (toks == toks0).all():
+        raise AssertionError(f"{arch} serve: a second run gave other tokens")
+    steps = t["decode_steps"]
+    tok_s = steps * SERVE_BATCH / (t["decode_ms"] / 1e3)
+    print(f"path serve {arch}: full width ({cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.dtype}, {n_params} parameters; param_count() {cfg.param_count()} leaves out "
+          f"the conv and MLP biases), batch {SERVE_BATCH}, prompt "
+          f"{SERVE_PROMPT}, gen {gen}; launches in the run {counts}; a second run gave "
+          f"the same tokens; first tokens {toks[0][:8].tolist()}")
+    print(f"path serve {arch} timing: prefill {t['prefill_ms']} ms; decode {t['decode_ms']} "
+          f"ms for {steps} steps = {t['decode_ms'] / steps} ms per step, {tok_s} generated "
+          f"tokens/s; set-up (init + the first serve call) {setup_ms} ms; peak device "
+          f"memory {peak_gb} GB")
+
+    tokens = torch.as_tensor(prompt_tokens(cfg, SERVE_BATCH, SERVE_PROMPT), device=dev)
+    blocks = {}
+    for name, got, want in _first_blocks(torch, cfg, params, tokens):
+        diff = (got.float() - want.float()).abs()
+        ulps = _bf16_ulps(torch, got, want)
+        d_max, d_rms = float(diff.max()), float(diff.square().mean().sqrt())
+        w_max, w_rms = float(want.float().abs().max()), float(want.float().square().mean().sqrt())
+        print(f"path serve {arch} {name}: kernel core against eager core, bf16 output "
+              f"{tuple(got.shape)}: max abs diff {d_max} (bound {SERVE_BLOCK_MAX} x max |out| "
+              f"{w_max}), rms diff {d_rms} (bound {SERVE_BLOCK_RMS} x rms(out) {w_rms}); "
+              f"elements that differ {float((diff > 0).float().mean())}, by more than one "
+              f"bf16 unit at their own value {float((ulps > 1).float().mean())}")
+        if not (got.shape == want.shape and d_max <= SERVE_BLOCK_MAX * w_max
+                and d_rms <= SERVE_BLOCK_RMS * w_rms):
+            raise AssertionError(f"{arch} {name}: the kernel core's block output is not "
+                                 f"within bf16 rounding of the eager core's")
+        blocks[name] = {"max_abs_diff": d_max, "rms_diff": d_rms}
+    with torch.inference_mode():
+        got, _ = model.prefill(params, {"tokens": tokens}, SERVE_PROMPT + gen)
+        reset_counts()
+        with _eager_cores():
+            want_logits, _ = model.prefill(params, {"tokens": tokens}, SERVE_PROMPT + gen)
+        eager_counts = read_counts()
+    got, want_logits = got.float(), want_logits.float()
+    err = float((got - want_logits).abs().max())
+    scale = float(want_logits.abs().max())
+    agree = float((got[:, -1].argmax(-1) == want_logits[:, -1].argmax(-1)).float().mean())
+    if any(eager_counts.values()):
+        raise AssertionError(f"the eager-core prefill launched kernels: {eager_counts}")
+    if not bool(torch.isfinite(got).all()) or not err <= SERVE_LOGIT_RTOL * scale:
+        raise AssertionError(f"{arch}: kernel prefill logits differ from the eager cores' "
+                             f"by {err} (max |logit| {scale}, rtol {SERVE_LOGIT_RTOL})")
+    print(f"path serve {arch}: the kernel prefill's last-position logits against the "
+          f"eager-core prefill: max abs diff {err}, max |logit| {scale} (bound "
+          f"{SERVE_LOGIT_RTOL} x max |logit|), top-1 agreement {agree}")
+
+    busy_p, wall_p, rows_p, _ = _profile_serve(torch, dev, cfg, params, 1)
+    busy, wall, rows, prof = _profile_serve(torch, dev, cfg, params, gen)
+    if busy_p and busy:
+        idle_p, idle = 1 - busy_p / wall_p, 1 - busy / wall
+        print(f"profile serve {arch}: prefill alone (gen 1): wall {wall_p} ms, device busy "
+              f"{busy_p} ms, idle share {idle_p}; whole call (gen {gen}): wall {wall} ms, "
+              f"device busy {busy} ms, idle share {idle}; decode (the difference): wall "
+              f"{wall - wall_p} ms, busy {busy - busy_p} ms, idle share "
+              f"{1 - (busy - busy_p) / (wall - wall_p)}")
+    else:
+        idle_p = idle = None
+        print(f"profile serve {arch}: the profiler recorded no device time (not measured)")
+    for label, top in (("prefill", rows_p), ("whole call", rows)):
+        for key, ms, count in top[:8]:
+            print(f"profile serve {arch} {label}: {ms:10.3f} ms {count:6d}x  {key[:80]}")
+    if out_dir is not None:
+        prof.export_chrome_trace(str(out_dir / f"chip_smoke_trace_serve_{arch}.json.gz"))
+    return {"arch": arch, "counts": counts, "prefill_ms": t["prefill_ms"],
+            "decode_ms_per_step": t["decode_ms"] / steps, "tokens_per_s": tok_s,
+            "setup_ms": setup_ms, "peak_gb": peak_gb, "logit_max_abs_diff": err,
+            "first_blocks": blocks,
+            "idle_share": idle, "prefill_idle_share": idle_p}
+
+
+def serve_reduced_phase(torch, dev):
+    """The reduced hybrid in f32 on the card against the same run on the CPU,
+    at a prompt that runs both kernels (>= CHUNK_THRESHOLD) and pads the SSD
+    (not a chunk multiple): prefill logits within 1e-4, greedy tokens equal."""
+    from repro_torch.configs import get
+    from repro_torch.kernels.ops import tree_map
+    from repro_torch.launch.serve import prompt_tokens, serve
+    from repro_torch.models import build_model
+    from repro_torch.models.model import CHUNK_THRESHOLD
+
+    cfg = get(REDUCED_ARCH)
+    if REDUCED_PROMPT < CHUNK_THRESHOLD or REDUCED_PROMPT % cfg.ssm_chunk == 0:
+        raise AssertionError("the reduced prompt must reach the chunked attention and pad the SSD")
+    model = build_model(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(0), "cpu")
+    gpu_params = tree_map(lambda t: t.to(dev), cpu_params)
+    tokens = prompt_tokens(cfg, SERVE_BATCH, REDUCED_PROMPT)
+    outs = {}
+    for name, params, where in (("cpu", cpu_params, "cpu"), ("cuda", gpu_params, dev)):
+        reset_counts()
+        with torch.inference_mode():
+            logits, _ = model.prefill(params, {"tokens": torch.as_tensor(tokens, device=where)},
+                                      REDUCED_PROMPT + REDUCED_GEN)
+        counts = read_counts()
+        toks, _ = serve(cfg, SERVE_BATCH, REDUCED_PROMPT, REDUCED_GEN, device=where,
+                        params=params)
+        outs[name] = (logits.float().cpu(), toks, counts)
+    n_attn = cfg.num_layers // cfg.shared_attn_every
+    want = {k: 0 for k in outs["cuda"][2]}
+    want.update(flash_attention=n_attn, ssd_scan=cfg.num_layers - n_attn)
+    if outs["cuda"][2] != want or any(outs["cpu"][2].values()):
+        raise AssertionError(f"reduced prefill launches: card {outs['cuda'][2]} (want {want}), "
+                             f"CPU {outs['cpu'][2]} (want none)")
+    err = float((outs["cuda"][0] - outs["cpu"][0]).abs().max())
+    if not err <= REDUCED_LOGIT_ATOL or not (outs["cuda"][1] == outs["cpu"][1]).all():
+        raise AssertionError(f"{REDUCED_ARCH}: the card's prefill logits differ from the "
+                             f"CPU's by {err}, or the greedy tokens differ")
+    print(f"path serve {REDUCED_ARCH} (f32, TF32 off, prompt {REDUCED_PROMPT}, gen "
+          f"{REDUCED_GEN}): the card matches the CPU — prefill logits max abs diff {err} "
+          f"(atol {REDUCED_LOGIT_ATOL}), greedy tokens equal; card launches {outs['cuda'][2]}")
 
 
 def main_scenario():
@@ -1172,6 +1665,7 @@ def main() -> int:
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
     kernels = [kernel_phase(torch, dev, flush)] + norm_kernel_phase(torch, dev, flush)
     kernels += shard_kernel_phase(torch, dev, flush)
+    kernels += [attention_kernel_phase(torch, dev, flush), ssd_kernel_phase(torch, dev, flush)]
     del flush
 
     main_sc = main_scenario()
@@ -1205,6 +1699,10 @@ def main() -> int:
     same_run(torch, f"{SHARD_CELL} (world size 1) vs {SLICE1_CELL}",
              (shard_params, shard_ledger), (slice1_params, slice1_ledger))
     mesh4_phase(torch, args.out)
+    serves = {arch: serve_phase(torch, dev, arch, gen, per_prefill, args.out)
+              for arch, gen, per_prefill in SERVE_PATHS}
+    serve_reduced_phase(torch, dev)
+    zamba, mamba = (f"{arch} serve" for arch, _, _ in SERVE_PATHS)
     launches = {
         "masked_scale_aggregate": (slice1_counts, SLICE1_CELL),
         "client_sqnorms": (norm_counts, "ops.tree_client_norms"),
@@ -1212,12 +1710,16 @@ def main() -> int:
         "compress_norm_scale_aggregate": (counts, main_sc.name),
         "sharded_masked_aggregate": (shard_counts, SHARD_CELL),
         "sharded_compress_aggregate": (srk_counts, SHARD_RANDK_CELL),
+        "flash_attention": (serves["zamba2-2.7b"]["counts"], zamba),
+        "ssd_scan": (serves["zamba2-2.7b"]["counts"], zamba),
     }
     for k in kernels:
         run_counts, path = launches[k["name"]]
         k["launches"] = run_counts[k["name"]]
         k["path"] = path
     kernels[3]["vmap_path_launches"] = vmap_counts["compress_norm_scale_aggregate"]
+    kernels[7]["mamba2_130m_launches"] = serves["mamba2-130m"]["counts"]["ssd_scan"]
+    kernels[7]["mamba2_130m_path"] = mamba
 
     profile_phase(torch, main_sc, args.out)
     profile_phase(torch, get_scenario(SLICE1_CELL), args.out)

@@ -10,6 +10,11 @@ PyTorch version, with the public wrappers in ``ops``:
 * sharded_aggregate — a rank's half of Eq. 2 on the mesh round, with and
   without in-stream compression (replaces
   ``repro/kernels/sharded_aggregate.py``);
+* flash_attention — causal attention with an optional sliding window and
+  bidirectional prefix, online softmax over key tiles (replaces
+  ``repro/kernels/flash_attention.py``);
+* ssd_scan — the chunked Mamba2 SSD scan with its carried state (replaces
+  ``repro/kernels/ssd_scan.py``);
 * update_cache — the scan engine's bounded update cache and its per-group
   post-plan contraction on either backend.
 

@@ -21,7 +21,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("masked_aggregate", "norm_aggregate", "sharded_aggregate")
+SOURCES = (
+    "masked_aggregate", "norm_aggregate", "sharded_aggregate", "flash_attention", "ssd_scan",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

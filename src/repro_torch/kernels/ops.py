@@ -20,6 +20,10 @@ kernel; a CPU tensor runs its plain version.
   mesh round's Eq. 2: a rank's partial over its own client block, then one
   ``all_reduce`` over the mesh; ``sharded_masked_aggregate`` — the same from
   the global matrix, each rank taking its block.
+* ``flash_attention`` — ``(BH, S, d)`` causal attention with an optional
+  sliding window and bidirectional prefix (the hybrid model's prefill).
+* ``ssd_scan`` — the chunked Mamba2 SSD scan; S is padded to a chunk
+  multiple with ``dt = da = 0`` identity steps and unpadded on return.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.masked_aggregate import TILE, masked_scale_aggregate_cuda
 from repro_torch.kernels.norm_aggregate import (
     client_sqnorms_cuda,
@@ -37,6 +42,7 @@ from repro_torch.kernels.sharded_aggregate import (
     sharded_compress_aggregate_cuda,
     sharded_masked_aggregate_cuda,
 )
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
 
 def tree_leaves(tree) -> list:
@@ -238,3 +244,24 @@ def sharded_masked_aggregate(updates: torch.Tensor, scale: torch.Tensor, mesh) -
     k = n // mesh.world_size
     lo = mesh.rank * k
     return shard_masked_aggregate(updates[lo:lo + k], scale[lo:lo + k], mesh)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window=None,
+                    prefix: int = 0) -> torch.Tensor:
+    """(BH, S, d) causal flash attention (optional window / prefix-LM), kv
+    already head-repeated; the kernel masks the ragged end of S itself."""
+    return flash_attention_cuda(q, k, v, window=window, prefix=prefix)
+
+
+def ssd_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, dt: torch.Tensor,
+             da: torch.Tensor, *, chunk: int = 128) -> tuple:
+    """Chunked SSD scan (Mamba2).  x (BH,S,P), b and c (BH,S,N), dt and da
+    (BH,S) -> (y (BH,S,P) f32, final state (BH,P,N) f32).  S is padded to a
+    chunk multiple with dt = da = 0 steps, which leave the state unchanged."""
+    s = x.shape[1]
+    pad = (-s) % chunk
+    if pad:
+        x, b, c = (F.pad(t, (0, 0, 0, pad)) for t in (x, b, c))
+        dt, da = (F.pad(t, (0, pad)) for t in (dt, da))
+    y, state = ssd_scan_cuda(x, b, c, dt, da, chunk=chunk)
+    return y[:, :s], state

@@ -1,0 +1,248 @@
+"""Public model API — the port of ``repro/models/model.py``:
+``build_model(cfg)`` returns a :class:`Model` with
+
+  init(gen, device)                        -> params
+  forward(params, batch)                   -> (logits, aux)   # full sequence
+  loss(params, batch)                      -> (scalar, metrics)
+  prefill(params, batch, cache_len)        -> (last_logits, cache)
+  decode_step(params, tokens, cache, pos)  -> (logits, cache)
+  init_cache(batch_size, cache_len, device) -> cache
+
+``batch`` is a dict with ``tokens`` (and ``targets`` for the loss), (B, S)
+integers.  The port builds the ``ssm`` family (mamba2) and the ``hybrid``
+family (zamba2: a Mamba2 backbone with one weight-shared attention block
+every ``shared_attn_every`` layers); the decoder family (dense, MoE, VLM
+prefix) and the encoder-decoder family (whisper) raise
+``NotImplementedError``.  Stacked layers are looped over in Python; there is
+no training step (and so no rematerialisation) yet.
+
+``init`` draws from a ``torch.Generator`` (on its own device) and places the
+parameters on ``device`` cast to ``cfg.dtype``, as the reference's ``_cast``
+does.  ``decode_step`` writes the step into ``cache`` in place and returns
+it (the reference returns an updated copy).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import kvcache as KV
+from repro_torch.models import transformer as T
+from repro_torch.models.layers import causal_mask, decode_mask
+
+# sequences at/above this length use the chunked (flash-style) attention path
+# and never materialise an (S, S) mask or score matrix
+CHUNK_THRESHOLD = 2048
+
+DECODER_TODO = ("the decoder family (dense, MoE, VLM prefix) is not ported yet "
+                "(ROADMAP queue 1: llama3-8b dense first)")
+ENCDEC_TODO = ("the encoder-decoder family (whisper) is not ported yet "
+               "(ROADMAP queue 1, after the decoder family)")
+
+
+def _cast(tree, dtype, device):
+    """f32 leaves to ``dtype``, every leaf to ``device`` (the reference's
+    ``_cast``, with the placement)."""
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype, device) for k, v in tree.items()}
+    leaf = tree.to(device)
+    return leaf.to(dtype) if leaf.dtype == torch.float32 else leaf
+
+
+def cross_entropy(logits, targets, mask=None):
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, targets[..., None].long(), dim=-1)[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _attn_ctx(cfg: ModelConfig, seq: int, prefix: int = 0, device=None):
+    """(mask, chunked_info) for causal self-attention over ``seq`` tokens."""
+    if seq >= CHUNK_THRESHOLD:
+        return None, (cfg.sliding_window, prefix)
+    return causal_mask(seq, cfg.sliding_window, prefix, device), None
+
+
+def _positions(bsz: int, seq: int, device) -> torch.Tensor:
+    return torch.arange(seq, device=device).expand(bsz, seq)
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    init: Callable
+    forward: Callable
+    loss: Callable
+    prefill: Callable
+    decode_step: Callable
+    init_cache: Callable
+
+
+def _ce_loss(forward):
+    def loss(p, batch):
+        logits, _ = forward(p, batch)
+        ce = cross_entropy(logits, batch["targets"], batch.get("loss_mask"))
+        return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
+
+    return loss
+
+
+def _fit_kv(k: torch.Tensor, seq: int, buf_len: int) -> torch.Tensor:
+    """The last ``buf_len`` of ``seq`` keys, ring-aligned, or the keys padded
+    to ``buf_len`` (the reference's prefill placement)."""
+    if seq >= buf_len:
+        shift = (seq - buf_len) % buf_len
+        return torch.roll(k[:, -buf_len:], shift, dims=1)
+    return torch.nn.functional.pad(k, (0, 0, 0, 0, 0, buf_len - seq))
+
+
+# ---------------------------------------------------------------------------
+# ssm family (mamba2)
+
+
+def _build_ssm(cfg: ModelConfig) -> Model:
+    nl = cfg.num_layers
+    dtype = getattr(torch, cfg.dtype)
+
+    def init(gen: torch.Generator, device=None):
+        p = {
+            "embed": T.init_embed(gen, cfg),
+            "layers": T._stacked(nl, lambda: T.init_mamba_block(gen, cfg)),
+        }
+        return _cast(p, dtype, device if device is not None else gen.device)
+
+    def _layers(p, h, collect_state=False):
+        states = []
+        for i in range(nl):
+            h, state = T.mamba_block(T.layer(p["layers"], i), h, cfg)
+            if collect_state:
+                states.append(state)
+        return h, states
+
+    def forward(p, batch):
+        h = T.embed_tokens(p["embed"], batch["tokens"], cfg)
+        h, _ = _layers(p, h)
+        return T.lm_logits(p["embed"], h, cfg), torch.zeros((), device=h.device)
+
+    def init_cache(batch_size, cache_len, device=None):
+        return {"ssm": KV.init_ssm(cfg, nl, batch_size, device)}
+
+    def prefill(p, batch, cache_len):
+        h = T.embed_tokens(p["embed"], batch["tokens"], cfg)
+        h, states = _layers(p, h, collect_state=True)
+        logits = T.lm_logits(p["embed"], h[:, -1:, :], cfg)
+        return logits, {"ssm": {"state": torch.stack([s for s, _ in states]),
+                                "conv": torch.stack([c for _, c in states])}}
+
+    def decode_step(p, tokens, cache, pos):
+        h = T.embed_tokens(p["embed"], tokens, cfg)
+        st, cv = cache["ssm"]["state"], cache["ssm"]["conv"]
+        for i in range(nl):
+            h, (st2, cv2) = T.mamba_block_decode(T.layer(p["layers"], i), h, (st[i], cv[i]), cfg)
+            st[i].copy_(st2)
+            cv[i].copy_(cv2)
+        return T.lm_logits(p["embed"], h, cfg), cache
+
+    return Model(cfg, init, forward, _ce_loss(forward), prefill, decode_step, init_cache)
+
+
+# ---------------------------------------------------------------------------
+# hybrid family (zamba2: mamba backbone + shared attention block)
+
+
+def _build_hybrid(cfg: ModelConfig) -> Model:
+    every = cfg.shared_attn_every
+    if every < 2 or cfg.num_layers % every:
+        raise ValueError(f"shared_attn_every={every} must be >= 2 and divide "
+                         f"num_layers={cfg.num_layers}")
+    n_cycles = cfg.num_layers // every
+    per_cycle = every - 1          # mamba layers per cycle; the last slot is the shared attn
+    n_mamba = n_cycles * per_cycle
+    dtype = getattr(torch, cfg.dtype)
+
+    def init(gen: torch.Generator, device=None):
+        p = {
+            "embed": T.init_embed(gen, cfg),
+            "mamba": T._stacked(n_mamba, lambda: T.init_mamba_block(gen, cfg)),
+            "shared_attn": T.init_attn_block(gen, cfg, "mlp"),
+        }
+        return _cast(p, dtype, device if device is not None else gen.device)
+
+    def forward(p, batch):
+        h = T.embed_tokens(p["embed"], batch["tokens"], cfg)
+        bsz, seq, _ = h.shape
+        positions = _positions(bsz, seq, h.device)
+        mask, ci = _attn_ctx(cfg, seq, device=h.device)
+        for c in range(n_cycles):
+            for j in range(per_cycle):
+                h, _ = T.mamba_block(T.layer(p["mamba"], c * per_cycle + j), h, cfg)
+            h, _, _ = T.attn_block(p["shared_attn"], h, cfg, positions=positions, mask=mask,
+                                   ff_kind="mlp", chunked_info=ci)
+        return T.lm_logits(p["embed"], h, cfg), torch.zeros((), device=h.device)
+
+    def init_cache(batch_size, cache_len, device=None):
+        return {
+            "ssm": KV.init_ssm(cfg, n_mamba, batch_size, device),
+            "kv": KV.init_kv(cfg, n_cycles, batch_size, cache_len, dtype, device),
+        }
+
+    def prefill(p, batch, cache_len):
+        h = T.embed_tokens(p["embed"], batch["tokens"], cfg)
+        bsz, seq, _ = h.shape
+        positions = _positions(bsz, seq, h.device)
+        mask, ci = _attn_ctx(cfg, seq, device=h.device)
+        buf_len = KV.kv_buffer_len(cfg, cache_len)
+        states, ks, vs = [], [], []
+        for c in range(n_cycles):
+            for j in range(per_cycle):
+                h, st = T.mamba_block(T.layer(p["mamba"], c * per_cycle + j), h, cfg)
+                states.append(st)
+            h, (k, v), _ = T.attn_block(p["shared_attn"], h, cfg, positions=positions,
+                                        mask=mask, ff_kind="mlp", cache=(), chunked_info=ci)
+            ks.append(_fit_kv(k, seq, buf_len).to(dtype))
+            vs.append(_fit_kv(v, seq, buf_len).to(dtype))
+        logits = T.lm_logits(p["embed"], h[:, -1:, :], cfg)
+        return logits, {
+            "ssm": {"state": torch.stack([s for s, _ in states]),
+                    "conv": torch.stack([c for _, c in states])},
+            "kv": {"k": torch.stack(ks), "v": torch.stack(vs)},
+        }
+
+    def decode_step(p, tokens, cache, pos):
+        h = T.embed_tokens(p["embed"], tokens, cfg)
+        bsz = h.shape[0]
+        positions = torch.full((bsz, 1), pos, dtype=torch.int64, device=h.device)
+        k_all, v_all = cache["kv"]["k"], cache["kv"]["v"]
+        mask = decode_mask(k_all.shape[2], pos, cfg.sliding_window, h.device)
+        st, cv = cache["ssm"]["state"], cache["ssm"]["conv"]
+        for c in range(n_cycles):
+            for j in range(per_cycle):
+                i = c * per_cycle + j
+                h, (st2, cv2) = T.mamba_block_decode(T.layer(p["mamba"], i), h,
+                                                     (st[i], cv[i]), cfg)
+                st[i].copy_(st2)
+                cv[i].copy_(cv2)
+            h, _, _ = T.attn_block(p["shared_attn"], h, cfg, positions=positions, mask=mask,
+                                   ff_kind="mlp", cache=(k_all[c], v_all[c]), cache_index=pos)
+        return T.lm_logits(p["embed"], h, cfg), cache
+
+    return Model(cfg, init, forward, _ce_loss(forward), prefill, decode_step, init_cache)
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    kinds = set(cfg.layer_kinds())
+    if cfg.encoder_layers:
+        raise NotImplementedError(ENCDEC_TODO)
+    if kinds == {"mamba2"}:
+        return _build_ssm(cfg)
+    if "mamba2" in kinds:
+        return _build_hybrid(cfg)
+    raise NotImplementedError(DECODER_TODO)

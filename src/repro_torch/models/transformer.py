@@ -1,0 +1,113 @@
+"""Layer bodies and the embedding/head — the port of
+``repro/models/transformer.py`` with its names and parameter layout.
+Stacked layers are one tensor per leaf with the layer on the leading axis
+(:func:`_stacked`); the models loop over them in Python (:func:`layer`).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ops import tree_map
+from repro_torch.models import ssm as S
+from repro_torch.models.layers import (
+    _dense_init,
+    apply_attention,
+    apply_mlp,
+    apply_norm,
+    init_attention,
+    init_mlp,
+    init_norm,
+)
+
+MOE_TODO = ("the MoE feed-forward (models/moe.py) is not ported yet "
+            "(ROADMAP queue 1: the decoder family, then MoE)")
+
+
+def _stacked(n: int, init_fn):
+    """``n`` draws of ``init_fn()`` stacked leaf by leaf on a leading axis."""
+    def walk(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: walk([t[k] for t in nodes]) for k in nodes[0]}
+        return torch.stack(nodes)
+
+    return walk([init_fn() for _ in range(n)])
+
+
+def layer(tree, i: int):
+    """Layer ``i`` of a stacked tree (views, no copy)."""
+    return tree_map(lambda x: x[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# layer bodies
+
+
+def init_attn_block(gen: torch.Generator, cfg: ModelConfig, ff_kind: str):
+    """An attention + MLP block (the reference's, without the cross-attention
+    of the encoder-decoder family, which the port does not build yet)."""
+    if ff_kind == "moe":
+        raise NotImplementedError(MOE_TODO)
+    dev = gen.device
+    return {
+        "norm1": init_norm(cfg, cfg.d_model, dev),
+        "attn": init_attention(gen, cfg),
+        "norm2": init_norm(cfg, cfg.d_model, dev),
+        "ff": init_mlp(gen, cfg),
+    }
+
+
+def attn_block(p, h, cfg: ModelConfig, *, positions, mask, ff_kind: str, cache=None,
+               cache_index=None, chunked_info=None):
+    if ff_kind == "moe":
+        raise NotImplementedError(MOE_TODO)
+    a, new_cache = apply_attention(
+        p["attn"], apply_norm(p["norm1"], h, cfg), cfg, positions=positions, mask=mask,
+        cache=cache, cache_index=cache_index, chunked_info=chunked_info,
+    )
+    h = h + a
+    f = apply_mlp(p["ff"], apply_norm(p["norm2"], h, cfg), cfg)
+    return h + f, new_cache, torch.zeros((), device=h.device)
+
+
+def init_mamba_block(gen: torch.Generator, cfg: ModelConfig):
+    return {"norm": init_norm(cfg, cfg.d_model, gen.device), "mamba": S.init_mamba2(gen, cfg)}
+
+
+def mamba_block(p, h, cfg: ModelConfig):
+    y, state = S.apply_mamba2(p["mamba"], apply_norm(p["norm"], h, cfg), cfg)
+    return h + y, state
+
+
+def mamba_block_decode(p, h, state, cfg: ModelConfig):
+    y, new_state = S.decode_mamba2(p["mamba"], apply_norm(p["norm"], h, cfg), state, cfg)
+    return h + y, new_state
+
+
+# ---------------------------------------------------------------------------
+# embedding / head
+
+
+def init_embed(gen: torch.Generator, cfg: ModelConfig):
+    p = {"embedding": torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                                  device=gen.device) * 0.02,
+         "final_norm": init_norm(cfg, cfg.d_model, gen.device)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = _dense_init(gen, (cfg.d_model, cfg.vocab_size))
+    return p
+
+
+def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = p["embedding"][tokens].to(getattr(torch, cfg.dtype))
+    if cfg.scale_embeddings:
+        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
+    return h
+
+
+def lm_logits(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = apply_norm(p["final_norm"], h, cfg)
+    w = p["lm_head"] if not cfg.tie_embeddings else p["embedding"].T.to(h.dtype)
+    return h @ w

@@ -18,6 +18,17 @@ mesh round's kernels: at ``k <= BLOCK_CLIENTS`` the sharded aggregate is
 ``masked_scale_aggregate``'s and the sharded compress aggregate is the
 compress kernel's; the sharded compress kernel's norms are the compress
 kernel's at every ``k``; ``kind='none'`` is the sharded aggregate.
+
+Flash attention (kernel 7) against its plain version, elementwise
+``|err| <= atol + rtol |want|``: f32 inputs N(0, 1) at atol 3e-5 (the
+reference's bound); bf16 inputs N(0, 1/4) at atol 1e-5 + rtol 1e-2 (both
+accumulate in f32 and round the output once to bf16, so they differ by at
+most one bf16 unit in the last place, <= 2^-7 |want|).  The
+SSD scan (kernel 8) against the sequential recurrence: atol 1e-4 + rtol
+1e-4 (the two reassociate sums of up to Q * N f32 products).  The models'
+kernel routes (``chunked_attention``, ``ssd_chunked``) against their eager
+forms on the card, and the reduced hybrid's prefill on the card against the
+CPU's (f32, TF32 off) at atol 1e-4.
 """
 
 import numpy as np
@@ -30,6 +41,8 @@ from repro_torch.kernels import masked_aggregate as ma
 from repro_torch.kernels import norm_aggregate as na
 from repro_torch.kernels import ops
 from repro_torch.kernels import sharded_aggregate as sa
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd_scan as ss
 
 COMPRESSORS = (("randk", 0.1), ("qsgd", 8.0), ("qsgd", 5.0), ("natural", 0.0))
 
@@ -222,3 +235,145 @@ def test_sharded_kernel_wrappers_reject(cuda):
         sa.sharded_masked_aggregate_cuda(good, s.cpu())
     with pytest.raises(ValueError):
         sa.sharded_compress_aggregate_cuda(good, s, (good,), "qsgd", 8.0)   # arity
+
+
+def _attn_close(got, want, dtype) -> bool:
+    atol, rtol = (3e-5, 0.0) if dtype == torch.float32 else (1e-5, 1e-2)
+    want = want.float()
+    return bool(((got.float() - want).abs() <= atol + rtol * want.abs()).all())
+
+
+def _qkv(shape, seed, dtype, device):
+    r = np.random.default_rng(seed)
+    scale = 1.0 if dtype == torch.float32 else 0.5
+    return [torch.from_numpy((r.normal(size=shape) * scale).astype(np.float32)).to(device, dtype)
+            for _ in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,prefix", ((None, 0), (48, 0), (None, 40), (30, 100)))
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("s", (1, 7, 128, 257, 1000))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
+def test_flash_attention_kernel_matches_plain(cuda, dtype, s, d, window, prefix):
+    q, k, v = _qkv((3, s, d), s * 1000 + d, dtype, cuda)
+    before = fa.flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, window=window, prefix=prefix)
+    again = ops.flash_attention(q, k, v, window=window, prefix=prefix)
+    want = fa.flash_attention_ref(q, k, v, window=window, prefix=prefix)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == before + 2
+    assert got.shape == q.shape and got.dtype == dtype
+    assert _attn_close(got, want, dtype)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_flash_attention_wrapper_rejects(cuda):
+    good = torch.zeros((2, 16, 64), device=cuda)
+    for bad in (
+        torch.zeros((2, 64, 16), device=cuda).transpose(1, 2),    # not contiguous
+        torch.zeros((2, 16, 48), device=cuda),                    # head dim not instantiated
+        torch.zeros((2, 16, 64), device=cuda, dtype=torch.float16),
+        torch.zeros((2, 17, 64), device=cuda),                    # shapes disagree
+    ):
+        with pytest.raises((ValueError, TypeError)):
+            fa.flash_attention_cuda(bad, good, good)
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(good, good, good, window=0)
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(good, good.cpu(), good)
+
+
+def _ssd(bh, s, p, n, seed, dtype, device):
+    r = np.random.default_rng(seed)
+    x = torch.from_numpy((r.normal(size=(bh, s, p)) * 0.5).astype(np.float32)).to(device, dtype)
+    b = torch.from_numpy((r.normal(size=(bh, s, n)) * 0.5).astype(np.float32)).to(device, dtype)
+    c = torch.from_numpy((r.normal(size=(bh, s, n)) * 0.5).astype(np.float32)).to(device, dtype)
+    dt = torch.from_numpy((np.logaddexp(r.normal(size=(bh, s)), 0) * 0.2).astype(np.float32))
+    da = -dt * torch.exp(torch.from_numpy(r.normal(size=(bh, s)).astype(np.float32)) * 0.1)
+    return x, b, c, dt.to(device), da.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,n", ((16, 8), (64, 64), (64, 128)))
+@pytest.mark.parametrize("chunk", (16, 64, 128))
+@pytest.mark.parametrize("s", (32, 100, 300))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
+def test_ssd_scan_kernel_matches_plain(cuda, dtype, s, chunk, p, n):
+    x, b, c, dt, da = _ssd(3, s, p, n, s + chunk + p + n, dtype, cuda)
+    before = ss.ssd_scan_cuda.launches
+    y, st = ops.ssd_scan(x, b, c, dt, da, chunk=chunk)
+    y2, st2 = ops.ssd_scan(x, b, c, dt, da, chunk=chunk)
+    y_r, st_r = ss.ssd_scan_ref(x, b, c, dt, da)
+    torch.cuda.synchronize()
+    assert ss.ssd_scan_cuda.launches == before + 2
+    for got, want in ((y, y_r), (st, st_r)):
+        assert got.shape == want.shape and got.dtype == torch.float32
+        assert bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all())
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_wrapper_rejects(cuda):
+    x, b, c, dt, da = _ssd(2, 32, 16, 8, 0, torch.float32, cuda)
+    for args in (
+        (x, b, c, dt, da, 12),                        # S not a chunk multiple
+        (x, b, c, dt.to(torch.bfloat16), da, 16),     # dt dtype
+        (x.to(torch.bfloat16), b, c, dt, da, 16),     # x, b, c dtypes differ
+        (x[:, :, :14].contiguous(), b, c, dt, da, 16),   # P not a multiple of 4
+        (x.transpose(0, 1).contiguous().transpose(0, 1), b, c, dt, da, 16),   # strides
+        (x, b.cpu(), c, dt, da, 16),
+    ):
+        with pytest.raises((ValueError, TypeError)):
+            ss.ssd_scan_cuda(*args[:5], chunk=args[5])
+    big = torch.zeros((1, 128, 128), device=cuda)
+    big_bc = torch.zeros((1, 128, 128), device=cuda)
+    z = torch.zeros((1, 128), device=cuda)
+    with pytest.raises(ValueError):                   # shared memory beyond 227 KB
+        ss.ssd_scan_cuda(big, big_bc, big_bc, z, z, chunk=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
+def test_model_kernel_routes_match_their_eager_forms(cuda, dtype):
+    from repro_torch.models import layers, ssm
+
+    q, k, v = _qkv((2, 600, 4, 80), 1, dtype, cuda)
+    got = layers.chunked_attention(q, k, v, window=200)
+    want = layers.chunked_attention_eager(q, k, v, window=200)
+    assert got.dtype == dtype and _attn_close(got, want, dtype)
+    r = np.random.default_rng(2)
+    bsz, seq, h, p, n = 2, 384, 6, 64, 64
+    xs = torch.from_numpy((r.normal(size=(bsz, seq, h, p)) * 0.5).astype(np.float32))
+    bm, cm = (torch.from_numpy((r.normal(size=(bsz, seq, n)) * 0.5).astype(np.float32))
+              for _ in range(2))
+    dt = torch.from_numpy((np.logaddexp(r.normal(size=(bsz, seq, h)), 0) * 0.2
+                           ).astype(np.float32)).to(cuda)
+    xs, bm, cm = (t.to(cuda, dtype) for t in (xs, bm, cm))
+    y, st = ssm.ssd_chunked(xs, bm, cm, dt, -dt, 128)
+    y_e, st_e = ssm.ssd_chunked_eager(xs, bm, cm, dt, -dt, 128)
+    for got, want in ((y, y_e), (st, st_e)):
+        assert bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all())
+
+
+@pytest.mark.cuda
+def test_reduced_hybrid_prefill_on_the_card_equals_the_cpu(cuda):
+    from repro_torch.configs import get
+    from repro_torch.kernels.ops import tree_map
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get("zamba2-2.7b-reduced")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 2100)))
+    with torch.inference_mode():
+        want, _ = model.prefill(params, {"tokens": toks}, 2108)
+        before = (fa.flash_attention_cuda.launches, ss.ssd_scan_cuda.launches)
+        got, _ = model.prefill(tree_map(lambda t: t.to(cuda), params),
+                               {"tokens": toks.to(cuda)}, 2108)
+    assert (fa.flash_attention_cuda.launches - before[0],
+            ss.ssd_scan_cuda.launches - before[1]) == (1, 5)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4

@@ -1,0 +1,69 @@
+"""The port's serving driver (``repro_torch.launch.serve``) against the
+reference's: ``serve(..., device="cpu")`` gives the greedy tokens of the
+reference's serving steps (``repro/launch/serve.py::main``) on the same
+(converted) parameters of ``zamba2-2.7b-reduced``, at prompt 40 and at 2,100
+(>= ``CHUNK_THRESHOLD``: the chunked attention and the SSD's padding); its
+command line runs on the CPU, and the flags of modules the port has not yet
+(``--restore``, ``--metrics-port``) raise ``NotImplementedError``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.configs import get as j_get
+from repro.models import build_model as j_build
+from repro_torch.configs import get
+from repro_torch.convert import params_from_jax
+from repro_torch.launch import serve as serve_mod
+
+
+def _pair(arch):
+    j_cfg, cfg = j_get(arch), get(arch)
+    jm = j_build(j_cfg, remat=False)
+    jp = jm.init(jax.random.PRNGKey(0))
+    return cfg, jm, jp, params_from_jax(jax.device_get(jp))
+
+
+def _reference_serve(jm, jp, cfg, b, s, gen):
+    """The reference's serving steps (``repro/launch/serve.py::main``) on the
+    given parameters: prompt from default_rng(0), cache_len = s + gen, greedy
+    argmax, decode position s + prefix + i."""
+    rng = np.random.default_rng(0)
+    cache_len = s + gen
+    batch = {"tokens": jnp.asarray(rng.integers(0, cfg.vocab_size, (b, s)), jnp.int32)}
+    prefill = jax.jit(lambda p, bb: jm.prefill(p, bb, cache_len))
+    decode = jax.jit(jm.decode_step)
+    logits, cache = prefill(jp, batch)
+    tok = jnp.argmax(logits[:, -1], axis=-1)[:, None].astype(jnp.int32)
+    out = [tok]
+    prefix = cfg.prefix_tokens or 0
+    for i in range(gen - 1):
+        logits, cache = decode(jp, tok, cache, jnp.asarray(s + prefix + i))
+        tok = jnp.argmax(logits[:, -1], axis=-1)[:, None].astype(jnp.int32)
+        out.append(tok)
+    return np.asarray(jnp.concatenate(out, axis=1))
+
+
+@pytest.mark.parametrize("s,gen", ((40, 8), (2100, 4)))
+def test_serve_gives_the_references_greedy_tokens(s, gen):
+    cfg, jm, jp, tp = _pair("zamba2-2.7b-reduced")
+    want = _reference_serve(jm, jp, cfg, 2, s, gen)
+    toks, timings = serve_mod.serve(cfg, 2, s, gen, device="cpu", params=tp)
+    assert toks.shape == (2, gen) and np.array_equal(toks, want)
+    assert timings["decode_steps"] == gen - 1
+    assert timings["prefill_ms"] > 0 and timings["decode_ms"] > 0
+
+
+def test_serve_main_on_the_cpu(capsys):
+    toks = serve_mod.main(["--arch", "mamba2-130m-reduced", "--batch", "2", "--prompt-len",
+                           "16", "--gen", "3", "--device", "cpu"])
+    assert toks.shape == (2, 3)
+    assert "[serve] prefill 2x16" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flag", (["--restore", "ckpt"], ["--metrics-port", "0"]))
+def test_serve_flags_of_unported_modules_raise(flag):
+    with pytest.raises(NotImplementedError):
+        serve_mod.main(["--arch", "mamba2-130m-reduced", "--device", "cpu", *flag])
