@@ -18,6 +18,10 @@ nvcc (one process per source, all at once), then:
   and its bound; flash attention over S x head dim x (window, prefix), the
   SSD scan over S x chunk x (P, N), and both at the serve paths' shapes
   (flash attention's library yardstick is PyTorch's fused flash backend);
+  the tensor-core instructions in the SASS of flash attention's bf16
+  instances, its strided (batch, S, heads, d) views bitwise equal to the
+  copied (batch x heads, S, d) rows, and kernel 1 bitwise equal to kernel
+  3's aggregate at the first slice's shape;
 * path phases, each with every kernel count set to 0 just before and read
   just after:
 
@@ -57,7 +61,8 @@ nvcc (one process per source, all at once), then:
   tokens, the first Mamba2 block and the first shared-attention call against
   the same blocks with the eager cores (within bf16 rounding), the kernel
   prefill's last logits against the same prefill with the eager cores, and
-  takes profiler passes; then the reduced zamba2 in f32 at
+  takes profiler passes (zamba2's prefill also with the earlier attention
+  wiring, which copied q, k, v and out); then the reduced zamba2 in f32 at
   prompt 2,100 (both kernels, and the SSD's padding) against the CPU;
 * a profiler pass and a per-layer breakdown of the main path, of the first
   slice's path and of the mesh round, which say where a round's time goes.
@@ -299,8 +304,13 @@ def kernel_phase(torch, dev, flush):
         pass
     else:
         raise AssertionError("the wrapper took a non-contiguous matrix")
+    _, agg3 = ops.norm_scale_aggregate(upad, s)
+    torch.cuda.synchronize()
+    if not torch.equal(got, agg3):
+        raise AssertionError("masked_scale_aggregate differs from the aggregate half of "
+                             "norm_scale_aggregate at the main shape")
     print(f"kernel main shape {tuple(upad.shape)} f32: max abs err {max_err}, "
-          f"bitwise equal across launches")
+          f"bitwise equal across launches and to norm_scale_aggregate's aggregate")
 
     kernel_ms = time_ms(lambda: ma.masked_scale_aggregate_cuda(upad, s), torch, flush)
     plain_ms = time_ms(lambda: ma.masked_scale_aggregate_ref(upad, s), torch, flush)
@@ -311,9 +321,9 @@ def kernel_phase(torch, dev, flush):
     flops = 2 * cp * dp
     bound_ms, bound_by = bound(nbytes, flops)
     print(f"kernel timing (median of {TIMING_REPS}, L2 flushed): kernel {kernel_ms} ms, "
-          f"plain {plain_ms} ms, torch.matmul {library_ms} ms; kernel with "
-          f"L2-resident input {kernel_hot_ms} ms; bound {bound_ms} ms "
-          f"({nbytes} bytes at 3.35 TB/s; {flops} flops)")
+          f"plain {plain_ms} ms, torch.matmul {library_ms} ms (kernel / library "
+          f"{kernel_ms / library_ms}); kernel with L2-resident input {kernel_hot_ms} ms; "
+          f"bound {bound_ms} ms ({nbytes} bytes at 3.35 TB/s; {flops} flops); {card_line()}")
     return {
         "name": "masked_scale_aggregate",
         "route": "cuda",
@@ -684,12 +694,55 @@ def _max_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
 
 
-def attention_kernel_phase(torch, dev, flush):
-    """flash_attention: kernel vs plain over the sweep, then at the hybrid
-    model's prefill shape, and timings there."""
-    from repro_torch.kernels import flash_attention as fa
+def tensor_core_counts() -> dict:
+    """{head dim: tensor-core instructions (HGMMA + HMMA)} of each bf16
+    instance of the built flash-attention library, by ``cuobjdump -sass``."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts = {}
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0]
+        found = re.search(r"flash_attention_wgmma_kernelILi(\d+)E", name)
+        if found:
+            counts[int(found.group(1))] = fn.count("HGMMA") + fn.count("HMMA")
+    return counts
+
+
+def copied_heads(q, k, v, *, window=None, prefix=0):
+    """The earlier wiring of ``layers.flash_attention_heads``: (B, S, H, hd)
+    copied to the kernel's (B*H, S, hd) rows, and the output's view back,
+    which the block's reshape copies again.  For comparison only."""
     from repro_torch.kernels import ops
 
+    b, s, h, hd = q.shape
+
+    def rows(t):
+        return t.permute(0, 2, 1, 3).reshape(b * h, s, hd)
+
+    out = ops.flash_attention(rows(q), rows(k), rows(v), window=window, prefix=prefix)
+    return out.reshape(b, h, s, hd).permute(0, 2, 1, 3)
+
+
+def attention_kernel_phase(torch, dev, flush):
+    """flash_attention: the tensor-core instructions of its bf16 instances,
+    kernel vs plain over the sweep, then at the hybrid model's prefill shape
+    (the model's strided views bitwise equal to the copied rows), and
+    timings there."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+
+    tc = tensor_core_counts()
+    if sorted(tc) != sorted(fa.HEAD_DIMS) or not all(tc.values()):
+        raise AssertionError(f"flash_attention's bf16 instances lack tensor-core instructions "
+                             f"in their SASS: {tc} (head dim: HGMMA + HMMA)")
+    print(f"kernel sass: flash_attention bf16 instances, tensor-core instructions (HGMMA + "
+          f"HMMA) by head dim: {tc}")
     gen = torch.Generator(device="cpu").manual_seed(7)
 
     def qkv(bh, s, d, dtype):
@@ -744,12 +797,36 @@ def attention_kernel_phase(torch, dev, flush):
           f"last query {float(mag[:, -1].median())}, max {float(mag.max())}); bitwise equal "
           f"across launches")
 
+    # the model's wiring: (batch, S, heads, d) strided views of one projection
+    # buffer, read in place, bitwise the kernel on the copied (BH, S, d) rows
+    heads = ATTN_PATH_HEADS
+    nb = bh // heads
+    buf = (torch.randn((nb, s, 3, heads, d), generator=gen) * 0.5).to(dev, torch.bfloat16)
+    qs, ks, vs = buf[:, :, 0], buf[:, :, 1], buf[:, :, 2]
+
+    def rows(t):
+        return t.permute(0, 2, 1, 3).reshape(bh, s, d)
+
+    strided = layers.flash_attention_heads(qs, ks, vs)
+    copied = ops.flash_attention(rows(qs), rows(ks), rows(vs))
+    torch.cuda.synchronize()
+    if strided.shape != (nb, s, heads, d) or not torch.equal(rows(strided), copied):
+        raise AssertionError(f"flash_attention_heads on strided ({nb}, {s}, {heads}, {d}) "
+                             f"views differs from ops.flash_attention on the copied rows")
+    strided_ms = time_ms(lambda: layers.flash_attention_heads(qs, ks, vs), torch, flush,
+                         reps=20)
+    copied_ms = time_ms(lambda: copied_heads(qs, ks, vs).reshape(nb, s, heads * d), torch,
+                        flush, reps=20)
+    print(f"kernel path shape flash_attention_heads on strided ({nb}, {s}, {heads}, {d}) bf16 "
+          f"views (strides {qs.stride()}): bitwise equal to ops.flash_attention on the copied "
+          f"({bh}, {s}, {d}) rows; timing (median, L2 flushed): in place {strided_ms} ms, the "
+          f"earlier wiring with its q/k/v/out copies {copied_ms} ms; {card_line()}")
+
     # the library yardstick: PyTorch's fused flash backend on (batch, heads, S, d)
     # views of the same tensors; a fall-back to another backend raises
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    heads = ATTN_PATH_HEADS
-    q4, k4, v4 = (t.view(bh // heads, heads, s, d) for t in (q, k, v))
+    q4, k4, v4 = (t.view(nb, heads, s, d) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
         lib = sdpa(q4, k4, v4, is_causal=True).view(bh, s, d)
@@ -768,8 +845,9 @@ def attention_kernel_phase(torch, dev, flush):
           f"{kernel_ms} ms, plain {plain_ms} ms, scaled_dot_product_attention(is_causal) "
           f"on ({bh // heads}, {heads}, {s}, {d}) views under SDPBackend.FLASH_ATTENTION "
           f"{library_ms} ms (its output within (atol, rtol) {ATTN_LIBRARY_TOL} of the "
-          f"kernel's, max abs diff {lib_err}); kernel / library {kernel_ms / library_ms}; bound {bound_ms} ms "
-          f"({bound_by}: {flops} flops at 989 TFLOP/s, {nbytes} bytes at 3.35 TB/s)")
+          f"kernel's, max abs diff {lib_err}); kernel / library {kernel_ms / library_ms}; bound "
+          f"{bound_ms} ms ({bound_by}: {flops} flops at 989 TFLOP/s, {nbytes} bytes at 3.35 "
+          f"TB/s); {card_line()}")
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -777,6 +855,8 @@ def attention_kernel_phase(torch, dev, flush):
         "shape": list(ATTN_PATH), "dtype": "bfloat16", "launches": None,
         "max_abs_err": max(err, *worst.values()), "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "strided_ms": strided_ms, "copied_wiring_ms": copied_ms,
+        "tensor_core_instructions": tc,
     }
 
 
@@ -1058,12 +1138,30 @@ def serve_phase(torch, dev, arch, gen, per_prefill, out_dir):
     for label, top in (("prefill", rows_p), ("whole call", rows)):
         for key, ms, count in top[:8]:
             print(f"profile serve {arch} {label}: {ms:10.3f} ms {count:6d}x  {key[:80]}")
+    copies = None
+    if per_prefill.get("flash_attention"):
+        # the prefill again with the earlier attention wiring (q, k, v copied
+        # to (B*H, S, hd) rows and the output copied back), by kernel
+        from unittest import mock
+
+        from repro_torch.models import layers
+
+        with mock.patch.object(layers, "flash_attention_heads", copied_heads):
+            busy_c, wall_c, rows_c, _ = _profile_serve(torch, dev, cfg, params, 1)
+        copies = {"prefill_wall_ms": wall_c, "prefill_busy_ms": busy_c}
+        print(f"profile serve {arch} prefill alone (gen 1), {card_line()}: attention on strided "
+              f"views, wall {wall_p} ms, device busy {busy_p} ms; with the earlier q/k/v/out "
+              f"copies, wall {wall_c} ms, device busy {busy_c} ms")
+        for label, top in (("in place", rows_p), ("with copies", rows_c)):
+            for key, ms, count in top[:12]:
+                print(f"profile serve {arch} prefill {label}: {ms:10.3f} ms {count:6d}x  "
+                      f"{key[:80]}")
     if out_dir is not None:
         prof.export_chrome_trace(str(out_dir / f"chip_smoke_trace_serve_{arch}.json.gz"))
     return {"arch": arch, "counts": counts, "prefill_ms": t["prefill_ms"],
             "decode_ms_per_step": t["decode_ms"] / steps, "tokens_per_s": tok_s,
             "setup_ms": setup_ms, "peak_gb": peak_gb, "logit_max_abs_diff": err,
-            "first_blocks": blocks,
+            "first_blocks": blocks, "prefill_busy_ms": busy_p, "with_copies": copies,
             "idle_share": idle, "prefill_idle_share": idle_p}
 
 

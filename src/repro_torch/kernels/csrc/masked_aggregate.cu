@@ -8,17 +8,24 @@
 //
 // Bound on an H100 SXM: device memory.  The kernel reads C*D elements of U
 // and C + D floats more, and does 2*C*D flops: at the main path's
-// (32, 58430) f32 that is 7.7 MB, 2.3 us at 3.35 TB/s, against 0.06 us of
-// f32 arithmetic at 67 TFLOP/s.  At that size a launch costs more than the
-// bytes, so the kernel's time is launch latency; the design keeps one read of
-// U and no scaled (C, D) intermediate, and stays simple.
+// (32, 58880) f32 that is 7.8 MB, 2.32 us at 3.35 TB/s, against 0.06 us of
+// f32 arithmetic at 67 TFLOP/s.  So its time is how many bytes are in
+// flight: one read of U, no scaled (C, D) intermediate, and enough loads
+// outstanding to cover the memory's latency.
 //
-// Design: a 1-D grid over D, in the tile layout of ocs_tile.cuh.  Each thread
-// owns kCols adjacent columns (one 16-byte load of f32, or 8 bytes of bf16,
-// per client), loops over the clients i = 0..C-1 in order and accumulates in
-// f32 registers (ocs::agg_step, shared with norm_aggregate.cu, whose
-// aggregate is therefore bitwise this one); scale is staged once per block in
-// shared memory.  Every output element is written by
+// Design: a 1-D grid over D, in the tile layout of ocs_tile.cuh.  Each
+// thread owns kCols adjacent columns (one 16-byte load of f32, or 8 bytes of
+// bf16, per client).  A thread issues the loads of a block of kClientBlock =
+// 32 clients into registers before it folds any of them, so the whole client
+// axis of the main path is in flight at once (one memory latency, where the
+// earlier loop's unroll of 8 waited four), and folds the blocks in order.
+// The CTA keeps the tile's 128 threads: at D = 58,880 that is 115 CTAs on
+// 132 SMs; 32- and 64-thread CTAs (460 and 230 CTAs, the same fold)
+// measured slower on the H100 with the L2 flushed.  The fold is
+// unchanged: each column sums the clients i = 0..C-1 in order with
+// ocs::agg_step into f32 registers, the step shared with norm_aggregate.cu
+// and sharded_aggregate.cu, so this aggregate is bitwise theirs.  scale is
+// staged once per CTA in shared memory.  Every output element is written by
 // exactly one thread, with no atomics and a fixed summation order, so the
 // result is deterministic run to run — the reference's bitwise contracts
 // (resume, cross-mode parity) need that from every kernel feeding params.
@@ -35,6 +42,8 @@ namespace {
 using ocs::kCols;
 using ocs::kThreads;
 
+constexpr int kClientBlock = 32;
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 masked_scale_aggregate_kernel(const T* __restrict__ u,
@@ -49,10 +58,16 @@ masked_scale_aggregate_kernel(const T* __restrict__ u,
   if (col >= d) return;
   const T* p = u + col;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 8
-  for (int i = 0; i < c; ++i) {
-    const float s = s_scale[i];
-    ocs::agg_step(acc, s, ocs::load_cols(p + static_cast<long long>(i) * d));
+  for (int i0 = 0; i0 < c; i0 += kClientBlock) {
+    float4 x[kClientBlock];
+#pragma unroll
+    for (int j = 0; j < kClientBlock; ++j) {
+      if (i0 + j < c) x[j] = ocs::load_cols(p + static_cast<long long>(i0 + j) * d);
+    }
+#pragma unroll
+    for (int j = 0; j < kClientBlock; ++j) {
+      if (i0 + j < c) ocs::agg_step(acc, s_scale[i0 + j], x[j]);
+    }
   }
   *reinterpret_cast<float4*>(out + col) = acc;
 }

@@ -5,8 +5,8 @@ kernel ``repro/kernels/masked_aggregate.py::masked_scale_aggregate_pallas``.
 It streams the client-major ``(C, D)`` update matrix once, contracts the
 client axis in f32 registers in a fixed order (deterministic, no atomics),
 and writes the ``(D,)`` f32 aggregate.  On an H100 it is bound by device
-memory — ``C*D*4`` bytes read, ``D*4`` written — and at the main path's
-(32, 58430) that bound (2.3 us) is below a launch's latency.
+memory — ``C*D*4`` bytes read, ``D*4`` written, 2.32 us at the main path's
+(32, 58880) — so each thread keeps the loads of 32 clients in flight.
 
 :func:`masked_scale_aggregate_cuda` launches the kernel for CUDA tensors and
 raises on anything it cannot take; for CPU tensors it returns the plain

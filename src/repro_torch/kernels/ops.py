@@ -21,7 +21,8 @@ kernel; a CPU tensor runs its plain version.
   ``all_reduce`` over the mesh; ``sharded_masked_aggregate`` — the same from
   the global matrix, each rank taking its block.
 * ``flash_attention`` — ``(BH, S, d)`` causal attention with an optional
-  sliding window and bidirectional prefix (the hybrid model's prefill).
+  sliding window and bidirectional prefix; also ``(B, S, H, d)`` strided
+  views, as the hybrid model's prefill passes them.
 * ``ssd_scan`` — the chunked Mamba2 SSD scan; S is padded to a chunk
   multiple with ``dt = da = 0`` identity steps and unpadded on return.
 """
@@ -249,7 +250,9 @@ def sharded_masked_aggregate(updates: torch.Tensor, scale: torch.Tensor, mesh) -
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window=None,
                     prefix: int = 0) -> torch.Tensor:
     """(BH, S, d) causal flash attention (optional window / prefix-LM), kv
-    already head-repeated; the kernel masks the ragged end of S itself."""
+    already head-repeated; the kernel masks the ragged end of S itself.  The
+    same on (B, S, H, d) views with any 16-byte strides (d contiguous), which
+    the kernel reads in place."""
     return flash_attention_cuda(q, k, v, window=window, prefix=prefix)
 
 

@@ -125,17 +125,10 @@ def chunked_attention(q, k, v, *, window=None, prefix=0, block_q=512, block_k=51
 
 
 def flash_attention_heads(q, k, v, *, window=None, prefix=0):
-    """(B, S, H, hd) attention through ``ops.flash_attention`` on the kernel's
-    ``(B*H, S, hd)`` layout (one copy each way), as the reference's own test
-    wires its Pallas kernel (``tests/test_kernels.py::
-    test_flash_matches_model_chunked_attention``)."""
-    b, s, h, hd = q.shape
-
-    def rows(t):
-        return t.permute(0, 2, 1, 3).reshape(b * h, s, hd)
-
-    out = ops.flash_attention(rows(q), rows(k), rows(v), window=window, prefix=prefix)
-    return out.reshape(b, h, s, hd).permute(0, 2, 1, 3)
+    """(B, S, H, hd) attention through ``ops.flash_attention``, which reads
+    the views as they are given (strides for batch, sequence and head) and
+    writes a contiguous ``(B, S, H, hd)`` output: no ``(B*H, S, hd)`` copies."""
+    return ops.flash_attention(q, k, v, window=window, prefix=prefix)
 
 
 def chunked_attention_eager(q, k, v, *, window=None, prefix=0, block_q=512, block_k=512):

@@ -23,7 +23,8 @@ Flash attention (kernel 7) against its plain version, elementwise
 ``|err| <= atol + rtol |want|``: f32 inputs N(0, 1) at atol 3e-5 (the
 reference's bound); bf16 inputs N(0, 1/4) at atol 1e-5 + rtol 1e-2 (both
 accumulate in f32 and round the output once to bf16, so they differ by at
-most one bf16 unit in the last place, <= 2^-7 |want|).  The
+most one bf16 unit in the last place, <= 2^-7 |want|), on contiguous rows
+and on strided (B, S, H, d) views, which are bitwise the copied rows.  The
 SSD scan (kernel 8) against the sequential recurrence: atol 1e-4 + rtol
 1e-4 (the two reassociate sums of up to Q * N f32 products).  The models'
 kernel routes (``chunked_attention``, ``ssd_chunked``) against their eager
@@ -276,6 +277,9 @@ def test_flash_attention_wrapper_rejects(cuda):
         torch.zeros((2, 16, 48), device=cuda),                    # head dim not instantiated
         torch.zeros((2, 16, 64), device=cuda, dtype=torch.float16),
         torch.zeros((2, 17, 64), device=cuda),                    # shapes disagree
+        torch.zeros((2, 16, 128), device=cuda)[..., ::2],         # head-dim stride 2
+        torch.zeros((2, 16, 66), device=cuda)[..., :64],          # sequence stride 66
+        torch.zeros((2 * 16 * 64 + 1,), device=cuda)[1:].view(2, 16, 64),   # misaligned
     ):
         with pytest.raises((ValueError, TypeError)):
             fa.flash_attention_cuda(bad, good, good)
@@ -283,6 +287,65 @@ def test_flash_attention_wrapper_rejects(cuda):
         fa.flash_attention_cuda(good, good, good, window=0)
     with pytest.raises(ValueError):
         fa.flash_attention_cuda(good, good.cpu(), good)
+
+
+def _strided_qkv(b, s, h, d, seed, dtype, device):
+    """q, k, v as non-contiguous (B, S, H, d) views of one (B, S, 3, H, d)
+    buffer, as a fused projection would give them."""
+    r = np.random.default_rng(seed)
+    scale = 1.0 if dtype == torch.float32 else 0.5
+    buf = torch.from_numpy((r.normal(size=(b, s, 3, h, d)) * scale).astype(np.float32))
+    buf = buf.to(device, dtype)
+    return buf[:, :, 0], buf[:, :, 1], buf[:, :, 2]
+
+
+def _rows(t):
+    b, s, h, d = t.shape
+    return t.permute(0, 2, 1, 3).reshape(b * h, s, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,prefix", ((None, 0), (48, 0), (None, 40), (30, 100)))
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("s", (7, 257, 1000))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
+def test_flash_attention_strided_views_match_plain_and_copied_rows(cuda, dtype, s, d, window,
+                                                                   prefix):
+    q, k, v = _strided_qkv(2, s, 3, d, s + d, dtype, cuda)
+    before = fa.flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, window=window, prefix=prefix)
+    rows = ops.flash_attention(_rows(q), _rows(k), _rows(v), window=window, prefix=prefix)
+    want = fa.flash_attention_ref(_rows(q), _rows(k), _rows(v), window=window, prefix=prefix)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == before + 2
+    assert got.shape == q.shape and got.dtype == dtype and got.is_contiguous()
+    assert _attn_close(_rows(got), want, dtype)
+    assert torch.equal(_rows(got), rows)      # the strides change no bit
+
+
+@pytest.mark.cuda
+def test_flash_attention_heads_on_views_is_bitwise_the_copied_rows(cuda):
+    from repro_torch.models import layers
+
+    q, k, v = _strided_qkv(2, 2048, 8, 80, 5, torch.bfloat16, cuda)
+    got = layers.flash_attention_heads(q, k, v)
+    want = ops.flash_attention(_rows(q).contiguous(), _rows(k).contiguous(),
+                               _rows(v).contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(_rows(got), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
+@pytest.mark.parametrize("d", (4097, 58430))
+@pytest.mark.parametrize("c", (33, 200, 1000))     # beyond one client block of 32
+def test_masked_scale_aggregate_beyond_a_client_block_is_kernel_3s(cuda, c, d, dtype):
+    u, s = _inputs(c, d, c + d, dtype, cuda)
+    agg1 = ops.masked_scale_aggregate(u, s)
+    _, agg3 = ops.norm_scale_aggregate(u, s)
+    torch.cuda.synchronize()
+    assert _agg_close(agg1, ma.masked_scale_aggregate_ref(u, s), u, s)
+    assert torch.equal(agg1, agg3)
 
 
 def _ssd(bh, s, p, n, seed, dtype, device):
