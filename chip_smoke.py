@@ -21,7 +21,13 @@ nvcc (one process per source, all at once), then:
   the tensor-core instructions in the SASS of flash attention's bf16
   instances, its strided (batch, S, heads, d) views bitwise equal to the
   copied (batch x heads, S, d) rows, and kernel 1 bitwise equal to kernel
-  3's aggregate at the first slice's shape;
+  3's aggregate at the first slice's shape; the SSD scan's tensor-core
+  instructions in its bf16 passes, its entry on the model's strided
+  (batch, S, heads, P) and (batch, S, groups, N) views at one group and at
+  a group per head (bitwise the per-row route on materialized per-head
+  copies, and run to run), each pass's share of its time at the serve
+  paths' shapes, its bound with and without the passes' scratch traffic,
+  and the model's core through it against the eager chunked core;
 * path phases, each with every kernel count set to 0 just before and read
   just after:
 
@@ -140,6 +146,8 @@ SSD_SWEEP_PN = ((16, 8), (64, 64), (64, 128))
 SSD_ATOL, SSD_RTOL = 1e-4, 1e-4
 # (batch, heads, S, P, N) of the serve paths: zamba2-2.7b, mamba2-130m
 SSD_PATHS = ((2, 80, 4096, 64, 64), (2, 24, 4096, 64, 128))
+# (batch, S, heads, P, N) of the view entry's check at G = 1 and G = H
+SSD_VIEW_CHECK = (2, 512, 6, 64, 64)
 # the serve paths: full width, random weights from a seeded generator on the card
 SERVE_BATCH, SERVE_PROMPT = 2, 4096
 SERVE_PATHS = (               # (arch, generated tokens, launches per prefill)
@@ -662,7 +670,8 @@ def shard_kernel_phase(torch, dev, flush):
                       torch, flush))
         print(f"kernel timing sharded_masked_aggregate at ({c}, {dp}) f32 (median of "
               f"{TIMING_REPS}, L2 flushed): kernel {t5[0]} ms, plain {t5[1]} ms, "
-              f"torch.matmul {t5[2]} ms; bound {b5[0]} ms ({b5[1]}); max abs err {err5}")
+              f"torch.matmul {t5[2]} ms, kernel / torch.matmul {t5[0] / t5[2]}; bound "
+              f"{b5[0]} ms ({b5[1]}); max abs err {err5}; {card_line()}")
         print(f"kernel timing sharded_compress_aggregate randk at ({c}, {dp}) f32 (median "
               f"of {TIMING_REPS}, L2 flushed): kernel {t6[0]} ms, plain {t6[1]} ms, "
               f"library none; bound {b6[0]} ms ({b6[1]}); max abs err {err6}")
@@ -694,22 +703,25 @@ def _max_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
 
 
-def tensor_core_counts() -> dict:
-    """{head dim: tensor-core instructions (HGMMA + HMMA)} of each bf16
-    instance of the built flash-attention library, by ``cuobjdump -sass``."""
+def tensor_core_counts(source="flash_attention",
+                       pattern=r"flash_attention_wgmma_kernelILi(\d+)E", key=int) -> dict:
+    """{key: tensor-core instructions (HGMMA + HMMA)} of each function of the
+    built ``source`` library whose name matches ``pattern`` (its first group
+    is the key), by ``cuobjdump -sass``: by default the bf16 instances of
+    flash attention, by head dim."""
     import re
 
     from repro_torch.kernels import _build
 
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path("flash_attention"))],
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(source))],
                           capture_output=True, text=True, timeout=300, check=True).stdout
     counts = {}
     for fn in sass.split("Function : ")[1:]:
         name = fn.split("\n", 1)[0]
-        found = re.search(r"flash_attention_wgmma_kernelILi(\d+)E", name)
+        found = re.search(pattern, name)
         if found:
-            counts[int(found.group(1))] = fn.count("HGMMA") + fn.count("HMMA")
+            counts[key(found.group(1))] = fn.count("HGMMA") + fn.count("HMMA")
     return counts
 
 
@@ -882,14 +894,93 @@ def _check_ssd(torch, name, got, want) -> float:
     return max(_max_err(g, w) for g, w in zip(got, want))
 
 
+def _ssd_views(torch, gen, bsz, s, h, p, n, g, dtype, dev):
+    """The model's layout: x (B,S,H,P) and B, C (B,S,G,N) as strided views of
+    one (B, S, H*P + 2*G*N) projection buffer, as ``apply_mamba2`` cuts them
+    (the reference's recipe: N(0, 1/4)); dt, da (B,S,H) f32 as in
+    :func:`_ssd_inputs`."""
+    buf = (torch.randn((bsz, s, h * p + 2 * g * n), generator=gen) * 0.5).to(dev, dtype)
+    xs = buf[..., :h * p].reshape(bsz, s, h, p)
+    b = buf[..., h * p:h * p + g * n].reshape(bsz, s, g, n)
+    c = buf[..., h * p + g * n:].reshape(bsz, s, g, n)
+    dt = torch.nn.functional.softplus(torch.randn((bsz, s, h), generator=gen)) * 0.2
+    da = -dt * torch.exp(torch.randn((bsz, s, h), generator=gen) * 0.1)
+    return xs, b, c, dt.to(dev), da.to(dev)
+
+
+def _ssd_rows(xs, b, c, dt, da):
+    """The per-row interface's inputs, materialized: per-head (B*H, S, P) and
+    (B*H, S, N) copies and (B*H, S) dt, da (the earlier wiring)."""
+    bsz, s, h, _ = xs.shape
+
+    def rows(t):
+        return t.expand(bsz, s, h, t.shape[-1]).permute(0, 2, 1, 3).reshape(
+            bsz * h, s, -1).contiguous()
+
+    def per_head(t):
+        return t.permute(0, 2, 1).reshape(bsz * h, s).contiguous()
+
+    return rows(xs), rows(b), rows(c), per_head(dt), per_head(da)
+
+
+def _copied_ssd_wiring(xs, b, c, dt, da, chunk):
+    """The earlier wiring of ``ssm.ssd_scan_heads``: per-head copies of x, B,
+    C, dt, da, the per-row kernel, and y permuted back (which the block's
+    ``y + D x`` then copied).  For comparison only."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    bsz, s, h, p = xs.shape
+    y, state = ss.ssd_scan_cuda(*_ssd_rows(xs, b, c, dt, da), chunk=chunk)
+    return (y.reshape(bsz, h, s, p).permute(0, 2, 1, 3).contiguous(),
+            state.reshape(bsz, h, p, state.shape[-1]))
+
+
+SSD_PASSES = ("ssd_chunk_state_bf16", "ssd_state_pass", "ssd_chunk_out_bf16")
+
+
+def _ssd_pass_times(torch, fn, flush, reps=5) -> dict:
+    """{pass kernel: mean device us per call} of ``fn`` under the profiler, L2
+    flushed before each call (read as :func:`_profile_serve` reads kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        for name in SSD_PASSES:
+            if name + "(" in ev.key or name + "<" in ev.key:    # pass 2 is a template
+                out[name] = out.get(name, 0.0) + us / reps
+    if sorted(out) != sorted(SSD_PASSES):
+        raise AssertionError(f"the profiler saw the SSD passes {sorted(out)}, want {SSD_PASSES}")
+    return out
+
+
 def ssd_kernel_phase(torch, dev, flush):
-    """ssd_scan: kernel vs the sequential recurrence over the sweep, the
-    model's wiring vs its eager chunked core at the serve paths' shapes, and
-    timings there."""
+    """ssd_scan: the tensor-core instructions of its bf16 passes; the kernel
+    vs the sequential recurrence over the sweep (per-row interface); the
+    model's strided views at G = 1 and G = H against the plain version and
+    the eager chunked core, bitwise the per-row route on materialized
+    copies and bitwise run to run; timings at the serve paths' shapes, with
+    each pass's share and the bounds."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.models import ssm
 
+    tc = tensor_core_counts("ssd_scan", r"(ssd_chunk_\w+?_bf16)", str)
+    if sorted(tc) != sorted(SSD_PASSES[::2]) or not all(tc.values()):
+        raise AssertionError(f"the SSD scan's bf16 passes lack tensor-core instructions in "
+                             f"their SASS: {tc}")
+    print(f"kernel sass: ssd_scan bf16 passes, tensor-core instructions (HMMA + HGMMA): {tc}")
     gen = torch.Generator(device="cpu").manual_seed(8)
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -907,58 +998,98 @@ def ssd_kernel_phase(torch, dev, flush):
           f"x chunk in {SSD_SWEEP_CHUNK} x (P, N) in {SSD_SWEEP_PN}, f32 and bf16 (atol "
           f"{SSD_ATOL} + rtol {SSD_RTOL}; max abs err {worst})")
 
+    # the view entry at G = 1 and G = H: the plain version, the per-row route
+    # on materialized copies (bitwise), and run to run (bitwise)
+    for dtype in (torch.float32, torch.bfloat16):
+        for g in (1, SSD_VIEW_CHECK[2]):
+            bsz, s, h, p, n = SSD_VIEW_CHECK
+            xs, b, c, dt, da = _ssd_views(torch, gen, bsz, s, h, p, n, g, dtype, dev)
+            got = ss.ssd_scan_heads_cuda(xs, b, c, dt, da, chunk=128)
+            again = ss.ssd_scan_heads_cuda(xs, b, c, dt, da, chunk=128)
+            rows = ss.ssd_scan_cuda(*_ssd_rows(xs, b, c, dt, da), chunk=128)
+            want = ss.ssd_scan_heads_ref(xs, b, c, dt, da)
+            torch.cuda.synchronize()
+            worst = max(worst, _check_ssd(torch, f"ssd_scan_heads G={g} {dtype}", got, want))
+            if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+                raise AssertionError(f"ssd_scan_heads G={g} {dtype} is not bitwise run to run")
+            if not (torch.equal(got[0].permute(0, 2, 1, 3).reshape(rows[0].shape), rows[0])
+                    and torch.equal(got[1].reshape(rows[1].shape), rows[1])):
+                raise AssertionError(f"ssd_scan_heads G={g} {dtype} on views differs from the "
+                                     f"per-row route on materialized copies")
+    print(f"kernel check: ssd_scan_heads on strided {SSD_VIEW_CHECK} views at G = 1 and G = H, "
+          f"f32 and bf16: within atol {SSD_ATOL} + rtol {SSD_RTOL} of the sequential "
+          f"recurrence, bitwise run to run, and bitwise the per-row route on materialized "
+          f"per-head copies")
+
     times = []
     for bsz, h, s, p, n in SSD_PATHS:
-        xs, b, c, dt, da = _ssd_inputs(torch, gen, (bsz, s, h, p), (bsz, s, n), (bsz, s, h),
-                                       torch.bfloat16, dev)
-        got = ssm.ssd_chunked(xs, b, c, dt, da, 128)
-        want = ssm.ssd_chunked_eager(xs, b, c, dt, da, 128)
+        q, nc, rows_n = 128, s // 128, bsz * h
+        xs, b4, c4, dt, da = _ssd_views(torch, gen, bsz, s, h, p, n, 1, torch.bfloat16, dev)
+        b, c = b4[:, :, 0], c4[:, :, 0]                  # the model's (B, S, N) group
+        got = ssm.ssd_chunked(xs, b, c, dt, da, q)
+        again = ssm.ssd_chunked(xs, b, c, dt, da, q)
+        want = ssm.ssd_chunked_eager(xs, b, c, dt, da, q)
+        copied = _copied_ssd_wiring(xs, b4, c4, dt, da, q)
         torch.cuda.synchronize()
-        err = _check_ssd(torch, f"ssd_chunked at ({bsz * h}, {s}, {p}, {n})", got, want)
-        # the kernel's own inputs, as the model's wiring hands them over
-        xk = xs.permute(0, 2, 1, 3).reshape(bsz * h, s, p)
-        bk = b[:, None].expand(bsz, h, s, n).reshape(bsz * h, s, n)
-        ck = c[:, None].expand(bsz, h, s, n).reshape(bsz * h, s, n)
-        dtk, dak = (t.permute(0, 2, 1).reshape(bsz * h, s) for t in (dt, da))
-        again = ss.ssd_scan_cuda(xk, bk, ck, dtk, dak, chunk=128)
-        first = ss.ssd_scan_cuda(xk, bk, ck, dtk, dak, chunk=128)
-        torch.cuda.synchronize()
-        if not all(torch.equal(u, w) for u, w in zip(first, again)):
-            raise AssertionError("ssd_scan is not deterministic run to run")
-        kernel_ms = time_ms(lambda: ss.ssd_scan_cuda(xk, bk, ck, dtk, dak, chunk=128), torch,
-                            flush, reps=20)
-        plain_ms = time_ms(lambda: ss.ssd_scan_ref(xk, bk, ck, dtk, dak), torch, flush,
-                           reps=3)
-        eager_ms = time_ms(lambda: ssm.ssd_chunked_eager(xs, b, c, dt, da, 128), torch,
-                           flush, reps=5)
-        wired_ms = time_ms(lambda: ssm.ssd_chunked(xs, b, c, dt, da, 128), torch, flush,
-                           reps=20)
-        q = 128
-        rows, nc = bsz * h, s // q
-        # the kernel's function on its inputs: B and C one row per head
-        flops = rows * nc * (q * (q + 1) * (n + p) + 4 * q * n * p)
-        nbytes = rows * s * (p + 2 * n) * 2 + rows * s * 4 * 2 + rows * s * p * 4 + rows * p * n * 4
+        tag = f"({bsz}, {s}, {h}, {p}) x ({bsz}, {s}, 1, {n})"
+        err = _check_ssd(torch, f"ssd_chunked at {tag}", got, want)
+        if not all(torch.equal(u, w) for u, w in zip(got, again)):
+            raise AssertionError(f"ssd_chunked at {tag} is not bitwise run to run")
+        if not all(torch.equal(u, w) for u, w in zip(got, copied)):
+            raise AssertionError(f"ssd_chunked at {tag} on views differs from the per-row route "
+                                 f"on materialized copies")
+
+        def kernel():
+            return ss.ssd_scan_heads_cuda(xs, b4, c4, dt, da, chunk=q)
+
+        kernel_ms = time_ms(kernel, torch, flush, reps=20)
+        wired_ms = time_ms(lambda: ssm.ssd_chunked(xs, b, c, dt, da, q), torch, flush, reps=20)
+        copied_ms = time_ms(lambda: _copied_ssd_wiring(xs, b4, c4, dt, da, q), torch, flush,
+                            reps=20)
+        eager_ms = time_ms(lambda: ssm.ssd_chunked_eager(xs, b, c, dt, da, q), torch, flush,
+                           reps=5)
+        xr, br, cr, dtr, dar = _ssd_rows(xs, b4, c4, dt, da)
+        plain_ms = time_ms(lambda: ss.ssd_scan_ref(xr, br, cr, dtr, dar), torch, flush, reps=3)
+        passes = _ssd_pass_times(torch, kernel, flush)
+        total = sum(passes.values())
+        # the function on the model's views: x and y once, the one B/C group
+        # once per batch, C B^T once per (batch, chunk)
+        flops = bsz * nc * q * (q + 1) * n + rows_n * nc * (q * (q + 1) * p + 4 * q * n * p)
+        nbytes = (rows_n * s * p * 2 + bsz * s * 2 * n * 2 + rows_n * s * 4 * 2
+                  + rows_n * s * p * 4 + rows_n * p * n * 4)
         bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
-        # the model's SSD core on its inputs: the one B/C group read once per
-        # batch, and C B^T once per batch, not per head
-        model_flops = bsz * nc * q * (q + 1) * n + rows * nc * (q * (q + 1) * p + 4 * q * n * p)
-        model_bytes = (rows * s * p * 2 + bsz * s * 2 * n * 2 + rows * s * 4 * 2
-                       + rows * s * p * 4 + rows * p * n * 4)
-        model_bound_ms, model_bound_by = bound(model_bytes, model_flops, BF16_FLOPS_PER_S)
-        print(f"kernel path shape ssd_scan ({rows}, {s}, {p}, {n}) bf16, chunk {q}: the "
-              f"model's wiring matches its eager chunked core (max abs err {err}); "
-              f"bitwise equal across launches; timing (median, L2 flushed): kernel "
-              f"{kernel_ms} ms, plain (sequential recurrence) {plain_ms} ms, library none; "
-              f"bound {bound_ms} ms ({bound_by}: {flops} flops at 989 TFLOP/s, {nbytes} "
-              f"bytes at 3.35 TB/s); the model's core: through the kernel (ssd_chunked, "
-              f"the wiring's per-head copies included) {wired_ms} ms, eager chunked core "
-              f"{eager_ms} ms, eager / kernel-wired {eager_ms / wired_ms}; its bound "
-              f"{model_bound_ms} ms ({model_bound_by}: {model_flops} flops, {model_bytes} "
-              f"bytes)")
-        times.append({"shape": [rows, s, p, n], "ms": kernel_ms, "plain_ms": plain_ms,
-                      "eager_core_ms": eager_ms, "wired_ms": wired_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "model_bound_ms": model_bound_ms,
-                      "model_bound_by": model_bound_by, "max_abs_err": err})
+        # the three passes' own traffic: the (B, NC, H, P, N) f32 scratch
+        # written by pass 1, read and written by pass 2, read by pass 3 (and
+        # a_tot), and x, dt, da and B read by both pass 1 and pass 3
+        scratch = rows_n * nc * p * n * 4
+        pass_bytes = (nbytes + 4 * scratch + 3 * rows_n * nc * 4 + rows_n * s * p * 2
+                      + rows_n * s * 4 * 2 + bsz * s * n * 2)
+        pass_bound_ms, pass_bound_by = bound(pass_bytes, flops, BF16_FLOPS_PER_S)
+        # the per-row interface's function: B and C one row per head
+        row_flops = rows_n * nc * (q * (q + 1) * (n + p) + 4 * q * n * p)
+        row_bytes = (rows_n * s * (p + 2 * n) * 2 + rows_n * s * 4 * 2 + rows_n * s * p * 4
+                     + rows_n * p * n * 4)
+        row_bound_ms, _ = bound(row_bytes, row_flops, BF16_FLOPS_PER_S)
+        share = {k: v / total for k, v in passes.items()}
+        print(f"kernel path shape ssd_scan on the model's {tag} bf16 views, chunk {q}: "
+              f"within atol {SSD_ATOL} + rtol {SSD_RTOL} of the eager chunked core (max abs err "
+              f"{err}); bitwise run to run and bitwise the per-row route on materialized "
+              f"copies; timing (median, L2 flushed): kernel {kernel_ms} ms (CUDA events around "
+              f"the call, the wrapper's host work past the flush included), plain (sequential "
+              f"recurrence on the rows) {plain_ms} ms, library none; device time by the "
+              f"profiler {total / 1e3} ms, passes (us per call) {passes}, shares {share}; bound {bound_ms} ms ({bound_by}: {flops} flops "
+              f"at 989 TFLOP/s, {nbytes} bytes at 3.35 TB/s), with the passes' scratch "
+              f"traffic {pass_bound_ms} ms ({pass_bytes} bytes), the per-row interface's "
+              f"{row_bound_ms} ms; the model's core: ssd_chunked (the kernel on the views) "
+              f"{wired_ms} ms, the earlier wiring with its per-head copies {copied_ms} ms, "
+              f"the eager chunked core {eager_ms} ms, eager / ssd_chunked "
+              f"{eager_ms / wired_ms}; {card_line()}")
+        times.append({"shape": [bsz, s, h, p, n], "ms": kernel_ms, "device_ms": total / 1e3,
+                      "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "passes_bound_ms": pass_bound_ms, "rows_interface_bound_ms": row_bound_ms,
+                      "pass_us": passes, "wired_ms": wired_ms, "copied_wiring_ms": copied_ms,
+                      "eager_core_ms": eager_ms, "max_abs_err": err})
     first = times[0]
     return {
         "name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -966,9 +1097,12 @@ def ssd_kernel_phase(torch, dev, flush):
         "dtype": "bfloat16", "launches": None,
         "max_abs_err": max(worst, *(t["max_abs_err"] for t in times)),
         "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
-        "bound_by": first["bound_by"], "library_ms": None,
+        "bound_by": first["bound_by"], "library_ms": None, "device_ms": first["device_ms"],
+        "passes_bound_ms": first["passes_bound_ms"],
+        "rows_interface_bound_ms": first["rows_interface_bound_ms"], "pass_us": first["pass_us"],
         "eager_core_ms": first["eager_core_ms"], "wired_ms": first["wired_ms"],
-        "model_bound_ms": first["model_bound_ms"], "at_mamba2_130m": times[1],
+        "copied_wiring_ms": first["copied_wiring_ms"], "tensor_core_instructions": tc,
+        "at_mamba2_130m": times[1],
     }
 
 

@@ -16,9 +16,10 @@
 // Design: a 1-D grid over D, in the tile layout of ocs_tile.cuh.  Each
 // thread owns kCols adjacent columns (one 16-byte load of f32, or 8 bytes of
 // bf16, per client).  A thread issues the loads of a block of kClientBlock =
-// 32 clients into registers before it folds any of them, so the whole client
-// axis of the main path is in flight at once (one memory latency, where the
-// earlier loop's unroll of 8 waited four), and folds the blocks in order.
+// 32 clients into registers before it folds any of them (ocs::fold_clients,
+// shared with sharded_aggregate.cu), so the whole client axis of the main
+// path is in flight at once (one memory latency, where the earlier loop's
+// unroll of 8 waited four), and folds the blocks in order.
 // The CTA keeps the tile's 128 threads: at D = 58,880 that is 115 CTAs on
 // 132 SMs; 32- and 64-thread CTAs (460 and 230 CTAs, the same fold)
 // measured slower on the H100 with the L2 flushed.  The fold is
@@ -42,8 +43,6 @@ namespace {
 using ocs::kCols;
 using ocs::kThreads;
 
-constexpr int kClientBlock = 32;
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 masked_scale_aggregate_kernel(const T* __restrict__ u,
@@ -56,19 +55,8 @@ masked_scale_aggregate_kernel(const T* __restrict__ u,
   const long long col =
       (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * kCols;
   if (col >= d) return;
-  const T* p = u + col;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int i0 = 0; i0 < c; i0 += kClientBlock) {
-    float4 x[kClientBlock];
-#pragma unroll
-    for (int j = 0; j < kClientBlock; ++j) {
-      if (i0 + j < c) x[j] = ocs::load_cols(p + static_cast<long long>(i0 + j) * d);
-    }
-#pragma unroll
-    for (int j = 0; j < kClientBlock; ++j) {
-      if (i0 + j < c) ocs::agg_step(acc, s_scale[i0 + j], x[j]);
-    }
-  }
+  ocs::fold_clients(acc, u + col, d, s_scale, c);
   *reinterpret_cast<float4*>(out + col) = acc;
 }
 

@@ -1,5 +1,6 @@
 // Tile layout, reductions and the in-stream compressor shared by the port's
-// client-matrix kernels (masked_aggregate.cu, norm_aggregate.cu).
+// client-matrix kernels (masked_aggregate.cu, norm_aggregate.cu,
+// sharded_aggregate.cu).
 //
 // Layout: U is a contiguous client-major (C, D) matrix.  A CTA of kThreads
 // threads covers kThreads * kCols adjacent columns (the tile); each thread owns
@@ -10,6 +11,8 @@
 // * aggregate (over C): the column's owning thread sums the clients in order
 //   i = 0..C-1 with fmaf into an f32 register (agg_step), so every kernel
 //   that uses it gives bitwise the same aggregate for the same tile values;
+//   fold_clients runs that fold with the loads of kClientBlock clients in
+//   registers before any of them is folded;
 // * squared norm (over D, so across CTAs): each thread squares its kCols
 //   values (col_sqnorm), a warp sums its 32 threads with a shuffle tree
 //   (warp_sum), lane 0 writes one partial per (client, CTA, warp), and a
@@ -36,6 +39,7 @@ namespace ocs {
 constexpr int kThreads = 128;
 constexpr int kCols = 4;
 constexpr int kWarps = kThreads / 32;
+constexpr int kClientBlock = 32;   // clients whose loads fold_clients keeps in flight
 
 // compressor kinds, as passed through the C interface
 constexpr int kNone = 0;
@@ -64,6 +68,27 @@ __device__ __forceinline__ void agg_step(float4& acc, float s, const float4& x) 
   acc.y = fmaf(s, x.y, acc.y);
   acc.z = fmaf(s, x.z, acc.z);
   acc.w = fmaf(s, x.w, acc.w);
+}
+
+// acc += scale[i] * U[i, cols] for i = 0..c-1 in order (agg_step), where p
+// points at client 0's columns and `stride` is the client stride.  The loads
+// of a block of kClientBlock clients are issued into registers before any of
+// them is folded, so the block's memory latencies overlap (one latency for
+// the main path's 32 clients, where an unroll of 8 waited four times).
+template <typename T>
+__device__ __forceinline__ void fold_clients(float4& acc, const T* p, long long stride,
+                                             const float* scale, int c) {
+  for (int i0 = 0; i0 < c; i0 += kClientBlock) {
+    float4 x[kClientBlock];
+#pragma unroll
+    for (int j = 0; j < kClientBlock; ++j) {
+      if (i0 + j < c) x[j] = load_cols(p + static_cast<long long>(i0 + j) * stride);
+    }
+#pragma unroll
+    for (int j = 0; j < kClientBlock; ++j) {
+      if (i0 + j < c) agg_step(acc, scale[i0 + j], x[j]);
+    }
+  }
 }
 
 // the thread's share of one client's squared norm

@@ -27,9 +27,11 @@
 // compress_norm_scale_aggregate: the norms are that kernel's, bitwise, at
 // every k.
 //
-// Loads: each thread issues the loads of kUnroll clients (updates and
-// material) before it folds any of them, so kUnroll clients' loads are in
-// flight at once; the fold keeps the client order.
+// Loads: the plain aggregate (sharded_masked_aggregate) folds its block
+// through ocs::fold_clients, kernel 1's register block: the loads of 32
+// clients are in flight before any is folded.  The compressed instances
+// issue the loads of kUnroll clients (updates and material) before they
+// fold any of them.  Every fold keeps the client order.
 //
 // Bound on an H100 SXM: device memory.  The kernels read the block (and its
 // material) once and write (D,) floats (and (k,) norms), against 2-5 flops
@@ -60,7 +62,7 @@ shard_tile_kernel(const T* __restrict__ u, const float* __restrict__ scale,
                   const float* __restrict__ m0, const float* __restrict__ m1,
                   float* __restrict__ partials, float* __restrict__ out, int c,
                   int d, float levels, float inv_levels) {
-  constexpr int kUnroll = Kind == kNone ? 8 : 4;
+  constexpr int kUnroll = Kind == kNone ? 8 : 4;   // the compressed instances
   __shared__ float s_scale[kBlockClients];
   const int lo = blockIdx.y * kBlockClients;
   const int nc = min(kBlockClients, c - lo);
@@ -75,33 +77,37 @@ shard_tile_kernel(const T* __restrict__ u, const float* __restrict__ scale,
   const int parts = gridDim.x * kWarps;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   float4 acc = zero;
-  for (int i0 = 0; i0 < nc; i0 += kUnroll) {
-    float4 x[kUnroll], a[kUnroll], b[kUnroll];
+  if constexpr (Kind == kNone && !kNorms) {
+    if (live) fold_clients(acc, u + static_cast<long long>(lo) * d + col, d, s_scale, nc);
+  } else {
+    for (int i0 = 0; i0 < nc; i0 += kUnroll) {
+      float4 x[kUnroll], a[kUnroll], b[kUnroll];
 #pragma unroll
-    for (int j = 0; j < kUnroll; ++j) {
-      x[j] = zero;
-      a[j] = zero;
-      b[j] = zero;
-      if (live && i0 + j < nc) {
-        const long long off = static_cast<long long>(lo + i0 + j) * d + col;
-        x[j] = load_cols(u + off);
-        if (Kind != kNone) a[j] = load_cols(m0 + off);
-        if (Kind == kQsgd) b[j] = load_cols(m1 + off);
+      for (int j = 0; j < kUnroll; ++j) {
+        x[j] = zero;
+        a[j] = zero;
+        b[j] = zero;
+        if (live && i0 + j < nc) {
+          const long long off = static_cast<long long>(lo + i0 + j) * d + col;
+          x[j] = load_cols(u + off);
+          if (Kind != kNone) a[j] = load_cols(m0 + off);
+          if (Kind == kQsgd) b[j] = load_cols(m1 + off);
+        }
       }
-    }
 #pragma unroll
-    for (int j = 0; j < kUnroll; ++j) {
-      if (i0 + j >= nc) break;               // the same for every thread
-      float4 xc = zero;
-      if (live) {
-        xc = compress4<Kind>(x[j], a[j], b[j], levels, inv_levels, u);
-        agg_step(acc, s_scale[i0 + j], xc);
-      }
-      if (kNorms) {
-        const float p = warp_sum(col_sqnorm(xc));
-        if (lane == 0) {
-          partials[static_cast<long long>(lo + i0 + j) * parts +
-                   blockIdx.x * kWarps + warp] = p;
+      for (int j = 0; j < kUnroll; ++j) {
+        if (i0 + j >= nc) break;               // the same for every thread
+        float4 xc = zero;
+        if (live) {
+          xc = compress4<Kind>(x[j], a[j], b[j], levels, inv_levels, u);
+          agg_step(acc, s_scale[i0 + j], xc);
+        }
+        if (kNorms) {
+          const float p = warp_sum(col_sqnorm(xc));
+          if (lane == 0) {
+            partials[static_cast<long long>(lo + i0 + j) * parts +
+                     blockIdx.x * kWarps + warp] = p;
+          }
         }
       }
     }

@@ -24,7 +24,9 @@ kernel; a CPU tensor runs its plain version.
   sliding window and bidirectional prefix; also ``(B, S, H, d)`` strided
   views, as the hybrid model's prefill passes them.
 * ``ssd_scan`` — the chunked Mamba2 SSD scan; S is padded to a chunk
-  multiple with ``dt = da = 0`` identity steps and unpadded on return.
+  multiple with ``dt = da = 0`` identity steps and unpadded on return;
+  ``ssd_scan_heads`` — the same on the model's ``(B, S, H, P)`` and
+  ``(B, S, G, N)`` views, read in place.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from repro_torch.kernels.sharded_aggregate import (
     sharded_compress_aggregate_cuda,
     sharded_masked_aggregate_cuda,
 )
-from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_heads_cuda
 
 
 def tree_leaves(tree) -> list:
@@ -268,3 +270,12 @@ def ssd_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, dt: torch.Tensor
         dt, da = (F.pad(t, (0, pad)) for t in (dt, da))
     y, state = ssd_scan_cuda(x, b, c, dt, da, chunk=chunk)
     return y[:, :s], state
+
+
+def ssd_scan_heads(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, dt: torch.Tensor,
+                   da: torch.Tensor, *, chunk: int = 128) -> tuple:
+    """The chunked SSD scan on the model's layout: x (B,S,H,P), b and c
+    (B,S,G,N) with G 1 or H, views with the last axis contiguous, which the
+    kernel reads in place; dt and da (B,S,H) f32; S a chunk multiple -> (y
+    (B,S,H,P) f32, final state (B,H,P,N) f32)."""
+    return ssd_scan_heads_cuda(x, b, c, dt, da, chunk=chunk)

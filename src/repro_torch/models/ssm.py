@@ -4,8 +4,8 @@
 Sequences are split into chunks of ``ssm_chunk``: within a chunk the
 attention-like masked form, across chunks the carried ``(B, H, P, N)``
 state.  The chunked core (:func:`ssd_chunked`) routes by device: a CUDA
-tensor runs the hand-written SSD scan kernel (``kernels/ops.py::ssd_scan``)
-on the per-head ``(B*H, S, P)`` layout, a CPU tensor the reference's two
+tensor runs the hand-written SSD scan kernel (``kernels/ops.py::ssd_scan_heads``)
+on the model's own views, a CPU tensor the reference's two
 eager forms (:func:`ssd_chunked_eager`: one pass over chunks when there are
 more than 64 of them, batched chunks otherwise).  Decode is the one-token
 recurrence, in eager torch.
@@ -82,23 +82,11 @@ def ssd_chunked(xs, bmat, cmat, dt, da, chunk: int) -> tuple:
 
 
 def ssd_scan_heads(xs, bmat, cmat, dt, da, chunk: int) -> tuple:
-    """The chunked SSD core through ``ops.ssd_scan``, wired as the
-    reference's own test wires its Pallas kernel (``tests/test_kernels.py::
-    test_ssd_kernel_matches_model_ssm``): per-head rows ``(B*H, S, P)``, the
-    one B/C group given to every head (materialized: the kernel reads a
-    ``(B*H, S, N)`` row per head), dt and da per head."""
-    bsz, seq, h, p = xs.shape
-    n = bmat.shape[-1]
-
-    def heads(t):                      # (B, S, N) -> (B*H, S, N), one copy per head
-        return t[:, None].expand(bsz, h, seq, n).reshape(bsz * h, seq, n)
-
-    def per_head(t):                   # (B, S, H) -> (B*H, S)
-        return t.permute(0, 2, 1).reshape(bsz * h, seq)
-
-    y, state = ops.ssd_scan(xs.permute(0, 2, 1, 3).reshape(bsz * h, seq, p), heads(bmat),
-                            heads(cmat), per_head(dt), per_head(da), chunk=chunk)
-    return y.reshape(bsz, h, seq, p).permute(0, 2, 1, 3), state.reshape(bsz, h, p, n)
+    """The chunked SSD core through ``ops.ssd_scan_heads``: the kernel reads
+    xs (B,S,H,P) and the one B/C group, as (B,S,1,N) views, in place, with dt
+    and da per head, and writes y in the model's (B,S,H,P) layout: no
+    per-head copy of B or C and no permute of x or y."""
+    return ops.ssd_scan_heads(xs, bmat.unsqueeze(2), cmat.unsqueeze(2), dt, da, chunk=chunk)
 
 
 def ssd_chunked_eager(xs, bmat, cmat, dt, da, chunk: int) -> tuple:

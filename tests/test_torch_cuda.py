@@ -26,7 +26,11 @@ accumulate in f32 and round the output once to bf16, so they differ by at
 most one bf16 unit in the last place, <= 2^-7 |want|), on contiguous rows
 and on strided (B, S, H, d) views, which are bitwise the copied rows.  The
 SSD scan (kernel 8) against the sequential recurrence: atol 1e-4 + rtol
-1e-4 (the two reassociate sums of up to Q * N f32 products).  The models'
+1e-4 (the two reassociate sums of up to Q * N f32 products); on the
+model's strided (B, S, H, P) and (B, S, G, N) views at G = 1 and G = H
+against the eager chunked core, bitwise the per-row route on materialized
+per-head copies and bitwise run to run; its bf16 passes carry tensor-core
+instructions (HMMA) in their SASS.  The models'
 kernel routes (``chunked_attention``, ``ssd_chunked``) against their eager
 forms on the card, and the reduced hybrid's prefill on the card against the
 CPU's (f32, TF32 off) at atol 1e-4.
@@ -174,7 +178,7 @@ def test_norm_kernel_wrappers_reject(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
 @pytest.mark.parametrize("d", (1, 7, 4097, 58430))
-@pytest.mark.parametrize("c", (1, 3, 8, 32, 33, 128, 129, 200))
+@pytest.mark.parametrize("c", (1, 3, 4, 8, 32, 33, 128, 129, 200))
 def test_sharded_aggregate_kernel_matches_plain_and_contracts(cuda, c, d, dtype):
     u, s = _inputs(c, d, c * 65537 + d, dtype, cuda)
     before = (sa.sharded_masked_aggregate_cuda.launches,
@@ -395,6 +399,97 @@ def test_ssd_scan_wrapper_rejects(cuda):
     z = torch.zeros((1, 128), device=cuda)
     with pytest.raises(ValueError):                   # shared memory beyond 227 KB
         ss.ssd_scan_cuda(big, big_bc, big_bc, z, z, chunk=128)
+
+
+def _ssd_views(bsz, s, h, p, n, g, seed, dtype, device):
+    """x (B,S,H,P) and B, C (B,S,G,N) as strided views of one projection
+    buffer, as apply_mamba2 cuts them; dt, da (B,S,H) f32."""
+    r = np.random.default_rng(seed)
+    buf = torch.from_numpy((r.normal(size=(bsz, s, h * p + 2 * g * n)) * 0.5).astype(np.float32))
+    buf = buf.to(device, dtype)
+    xs = buf[..., :h * p].reshape(bsz, s, h, p)
+    bm = buf[..., h * p:h * p + g * n].reshape(bsz, s, g, n)
+    cm = buf[..., h * p + g * n:].reshape(bsz, s, g, n)
+    dt = torch.from_numpy((np.logaddexp(r.normal(size=(bsz, s, h)), 0) * 0.2).astype(np.float32))
+    da = -dt * torch.from_numpy(np.exp(r.normal(size=(bsz, s, h)) * 0.1).astype(np.float32))
+    return xs, bm, cm, dt.to(device), da.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ((2, 384, 6, 64, 64, 128), (2, 256, 10, 64, 128, 128),
+                                   (3, 96, 5, 32, 16, 16), (1, 300, 2, 16, 8, 64)))
+@pytest.mark.parametrize("g", ("one", "heads"))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
+def test_ssd_scan_heads_on_views_matches_eager_and_rows(cuda, dtype, g, shape):
+    bsz, s, h, p, n, chunk = shape
+    s -= s % chunk
+    groups = 1 if g == "one" else h
+    xs, bm, cm, dt, da = _ssd_views(bsz, s, h, p, n, groups, s + h + groups, dtype, cuda)
+    before = ss.ssd_scan_cuda.launches
+    y, st = ops.ssd_scan_heads(xs, bm, cm, dt, da, chunk=chunk)
+    y2, st2 = ops.ssd_scan_heads(xs, bm, cm, dt, da, chunk=chunk)
+    if groups == 1:
+        from repro_torch.models import ssm
+
+        y_e, st_e = ssm.ssd_chunked_eager(xs, bm[:, :, 0], cm[:, :, 0], dt, da, chunk)
+    else:
+        y_e, st_e = ss.ssd_scan_heads_ref(xs, bm, cm, dt, da)
+
+    def rows(t):          # materialized per-head copies (the per-row entry's contract)
+        return t.expand(bsz, s, h, t.shape[-1]).permute(0, 2, 1, 3).reshape(bsz * h, s, -1
+                                                                             ).contiguous()
+
+    def per_head(t):
+        return t.permute(0, 2, 1).reshape(bsz * h, s).contiguous()
+
+    y_r, st_r = ss.ssd_scan_cuda(rows(xs), rows(bm), rows(cm), per_head(dt), per_head(da),
+                                 chunk=chunk)
+    torch.cuda.synchronize()
+    assert ss.ssd_scan_cuda.launches == before + 3
+    assert y.shape == (bsz, s, h, p) and st.shape == (bsz, h, p, n)
+    for got, want in ((y, y_e), (st, st_e)):
+        assert got.dtype == torch.float32
+        assert bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all())
+    assert torch.equal(y, y2) and torch.equal(st, st2)                  # run to run
+    assert torch.equal(rows(y), y_r) and torch.equal(st.reshape(bsz * h, p, n), st_r)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_heads_wrapper_rejects_before_a_launch(cuda):
+    xs, bm, cm, dt, da = _ssd_views(2, 64, 4, 16, 8, 1, 0, torch.bfloat16, cuda)
+    before = ss.ssd_scan_cuda.launches
+    for args, chunk in (
+        ((xs, bm, cm, dt, da), 48),                                   # S not a chunk multiple
+        ((xs, bm[..., ::2].expand(2, 64, 1, 4), cm[..., :4], dt, da), 16),   # N, last stride
+        ((xs, bm, cm.cpu(), dt, da), 16),                             # devices
+        ((xs.float(), bm, cm, dt, da), 16),                           # dtypes
+        ((torch.zeros((2, 64, 4, 128), device=cuda, dtype=torch.bfloat16), bm, cm, dt, da),
+         16),                                                         # bf16 P > 64
+    ):
+        with pytest.raises((ValueError, TypeError)):
+            ss.ssd_scan_heads_cuda(*args, chunk=chunk)
+    assert ss.ssd_scan_cuda.launches == before
+
+
+@pytest.mark.cuda
+def test_ssd_scan_bf16_passes_run_on_the_tensor_cores(cuda):
+    import re
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+
+    _build.load("ssd_scan")
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path("ssd_scan"))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts = {}
+    for fn in sass.split("Function : ")[1:]:
+        found = re.search(r"(ssd_chunk_\w+?_bf16)", fn.split("\n", 1)[0])
+        if found:
+            counts[found.group(1)] = fn.count("HMMA") + fn.count("HGMMA")
+    assert sorted(counts) == ["ssd_chunk_out_bf16", "ssd_chunk_state_bf16"]
+    assert all(counts.values()), counts
 
 
 @pytest.mark.cuda

@@ -11,9 +11,10 @@ The Mamba2 block (``ssm.apply_mamba2`` / ``decode_mamba2``) on converted
 reference parameters is held against the reference's at atol 1e-4, on both
 forms of the eager chunked core (``nc <= 64`` batched; ``nc > 64`` fused, at
 chunk 16 and S = 1,100), final and conv states included; and the kernel's
-per-head wiring (``ssm.ssd_scan_heads``) against the eager core.  The CUDA
-kernel itself is held against the plain version on the card by
-``tests/test_torch_cuda.py``.
+wiring (``ssm.ssd_scan_heads``, the model's views handed over as they are)
+against the eager core.  The view entry itself is held against the
+reference in ``tests/test_torch_ssd_views.py``; the CUDA kernel against the
+plain version on the card by ``tests/test_torch_cuda.py``.
 """
 
 import jax
@@ -112,9 +113,9 @@ def test_decode_from_init_state_matches_reference():
 
 @pytest.mark.parametrize("nc", (3, 66))               # both forms of the eager core
 def test_kernel_wiring_matches_the_eager_core(nc):
-    """``ssd_scan_heads`` (the CUDA branch's layout: per-head rows, the one
-    B/C group given to every head) through the plain version equals the
-    model's eager chunked core."""
+    """``ssd_scan_heads`` (the CUDA branch's wiring: x (B,S,H,P) and the one
+    B/C group as a (B,S,1,N) view, dt and da per head) through the plain
+    version equals the model's eager chunked core."""
     r = np.random.default_rng(nc)
     bsz, h, p, n, q = 2, 3, 8, 4, 16
     seq = nc * q
