@@ -15,7 +15,12 @@ nvcc (one process per source, all at once), then:
   the bitwise contracts between them, and times each at its path shapes
   (the mesh kernels also at a large local block of 1,024 clients) beside
   that plain version, a library call where one computes the same function,
-  and its bound; flash attention over S x head dim x (window, prefix), the
+  and its bound (the fused norm + aggregate kernels 3 and 4 on the unpadded
+  (C, 58430) matrices the engine passes, by CUDA events, by the profiler's
+  device time and as the whole ``ops`` call, beside the launch floor of
+  ``torch.cuda._sleep(1)``, with their device launches per call from a
+  profiler window around one call); flash attention over S x head dim x
+  (window, prefix), the
   SSD scan over S x chunk x (P, N), and both at the serve paths' shapes
   (flash attention's library yardstick is PyTorch's fused flash backend);
   the tensor-core instructions in the SASS of flash attention's bf16
@@ -70,7 +75,9 @@ nvcc (one process per source, all at once), then:
   takes profiler passes (zamba2's prefill also with the earlier attention
   wiring, which copied q, k, v and out); then the reduced zamba2 in f32 at
   prompt 2,100 (both kernels, and the SSD's padding) against the CPU;
-* a profiler pass and a per-layer breakdown of the main path, of the first
+* a profiler pass (device ops per round among its numbers) of the main
+  path, of the vmap + rand-k + pallas path, of the first slice's path and of
+  the mesh round, and a per-layer breakdown of the main path, of the first
   slice's path and of the mesh round, which say where a round's time goes.
 
 ``--out DIR`` writes the full-width ledgers and the profiles there.  The last
@@ -112,6 +119,7 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 TIMING_REPS = 100
+PROFILE_REPS = 20             # flushed calls per shape in a profiler window
 SPIN_CYCLES = 200_000         # ~100 us of device spin at H100 clocks
 SWEEP_C = (1, 3, 4, 32, 33, 200)
 SHARD_SWEEP_C = (1, 3, 4, 8, 32, 33, 200)    # 200 > the kernels' client block of 128
@@ -446,12 +454,11 @@ def norm_kernel_phase(torch, dev, flush):
           "== norm_scale_aggregate, compress == eager C(U) then norm_scale_aggregate, and "
           "every kernel launched twice gives equal results")
 
+    zeros4 = torch.zeros(4, device=dev)
     for bad in (torch.zeros((512, 4), device=dev).t(),                  # not contiguous
-                torch.zeros((4, 7), device=dev),                        # D not a multiple of 4
                 torch.zeros((4, 512), device=dev, dtype=torch.float16)):  # dtype
         for call in (lambda: na.client_sqnorms_cuda(bad),
-                     lambda: na.norm_scale_aggregate_cuda(bad, torch.zeros(bad.shape[0],
-                                                                           device=dev))):
+                     lambda: na.norm_scale_aggregate_cuda(bad, zeros4)):
             try:
                 call()
             except (ValueError, TypeError):
@@ -459,85 +466,277 @@ def norm_kernel_phase(torch, dev, flush):
             else:
                 raise AssertionError(f"a wrapper took {tuple(bad.shape)} {bad.dtype} "
                                      f"stride {bad.stride()}")
-    print("kernel check: the wrappers reject a non-contiguous matrix, D % 4 != 0 and float16")
+    # client_sqnorms needs D % 4 == 0 and aligned rows (ops pads for it); the
+    # fused pair takes both
+    for bad in (torch.zeros((4, 7), device=dev),
+                torch.zeros((4 * 512 + 1,), device=dev)[1:].view(4, 512)):
+        try:
+            na.client_sqnorms_cuda(bad)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"client_sqnorms took {tuple(bad.shape)} at a misaligned "
+                                 f"or odd width")
+        na.norm_scale_aggregate_cuda(bad, zeros4)
+    print("kernel check: the wrappers reject a non-contiguous matrix and float16; "
+          "client_sqnorms rejects D % 4 != 0 and misaligned rows, which the fused pair takes")
 
-    # timings at the path shapes, as the wrappers receive them (D padded)
+    # timings at the path shapes, on the unpadded matrices the engine passes
     d = 58430
-    dp = d + (-d) % ma.TILE
-    rows = []
+    floor_ms = time_ms(lambda: torch.cuda._sleep(1), torch, flush)
+    print(f"launch floor: torch.cuda._sleep(1) {floor_ms} ms by CUDA events (median of "
+          f"{TIMING_REPS}, L2 flushed); {card_line()}")
+    out = {}
 
-    def timed(name, c, kind, fn, plain, library, nbytes, flops, err):
+    def timed(name, c, kind, fn, path, plain, library, nbytes, flops, err):
         bound_ms, bound_by = bound(nbytes, flops)
         k_ms = time_ms(fn, torch, flush)
+        path_ms = time_ms(path, torch, flush)
         p_ms = time_ms(plain, torch, flush)
         l_ms = time_ms(library, torch, flush) if library is not None else None
-        print(f"kernel timing {name}{'' if kind is None else ' ' + kind} at ({c}, {dp}) f32 "
-              f"(median of {TIMING_REPS}, L2 flushed): kernel {k_ms} ms, plain {p_ms} ms, "
-              f"library {l_ms} ms; bound {bound_ms} ms ({nbytes} bytes, {flops} flops, "
-              f"{bound_by}); max abs err {err}")
-        rows.append((name, c, kind, k_ms, p_ms, l_ms, bound_ms, bound_by, err))
-        return k_ms, p_ms, l_ms, bound_ms, bound_by
+        print(f"kernel timing {name}{'' if kind is None else ' ' + kind} at ({c}, {d}) f32 "
+              f"(median of {TIMING_REPS}, L2 flushed): kernel {k_ms} ms by events, the ops "
+              f"call {path_ms} ms; plain {p_ms} ms, library {l_ms} ms; bound {bound_ms} ms "
+              f"({nbytes} bytes, {flops} flops, {bound_by}); launch floor {floor_ms} ms; max "
+              f"abs err {err}")
+        return {"ms": k_ms, "path_ms": path_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "floor_ms": floor_ms}
 
-    out = {}
+    # kernel 2 keeps its padded route: ops pads, two launches
+    dp = d + (-d) % ma.TILE
     u32 = torch.nn.functional.pad(inputs(32, d, torch.float32, False)[0],
                                   (0, dp - d)).contiguous()
     err = check_sq("client_sqnorms path shape", na.client_sqnorms_cuda(u32),
                    na.client_sqnorms_ref(u32), RTOL)
-    out["client_sqnorms"] = ((32, dp), err, timed(
-        "client_sqnorms", 32, None, lambda: na.client_sqnorms_cuda(u32),
-        lambda: na.client_sqnorms_ref(u32),
-        lambda: torch.einsum("cd,cd->c", u32, u32),
-        (32 * dp + 32) * 4, 2 * 32 * dp, err))
+    k2_ms = time_ms(lambda: na.client_sqnorms_cuda(u32), torch, flush)
+    out["client_sqnorms"] = ((32, dp), err, {
+        "ms": k2_ms, "plain_ms": time_ms(lambda: na.client_sqnorms_ref(u32), torch, flush),
+        "library_ms": time_ms(lambda: torch.einsum("cd,cd->c", u32, u32), torch, flush),
+        **dict(zip(("bound_ms", "bound_by"), bound((32 * dp + 32) * 4, 2 * 32 * dp))),
+    })
+    print(f"kernel timing client_sqnorms at (32, {dp}) f32: {out['client_sqnorms'][2]}")
 
     u4, s4 = inputs(4, d, torch.float32, False)
-    u4 = torch.nn.functional.pad(u4, (0, dp - d)).contiguous()
     sq, agg = na.norm_scale_aggregate_cuda(u4, s4)
     want_sq, want_agg = na.norm_scale_aggregate_ref(u4, s4)
     err = max(check_sq("norm_scale_aggregate path shape", sq, want_sq, RTOL),
               check_close("norm_scale_aggregate path shape", agg, want_agg, u4, s4, RTOL, ATOL))
-    out["norm_scale_aggregate"] = ((4, dp), err, timed(
+    shifted = shifted_copy(torch, u4)
+    sq_x, agg_x = na.norm_scale_aggregate_cuda(shifted, s4)
+    if not (torch.equal(sq, ops.client_sqnorms(u4)) and torch.equal(sq_x, sq)
+            and torch.equal(agg, ops.masked_scale_aggregate(u4, s4)) and torch.equal(agg_x, agg)):
+        raise AssertionError("norm_scale_aggregate at the path shape is not bitwise kernel 2's "
+                             "norms and kernel 1's aggregate, aligned and shifted")
+    out["norm_scale_aggregate"] = ((4, d), err, timed(
         "norm_scale_aggregate", 4, None, lambda: na.norm_scale_aggregate_cuda(u4, s4),
+        lambda: ops.norm_scale_aggregate(u4, s4),
         lambda: na.norm_scale_aggregate_ref(u4, s4), None,
-        (4 * dp + 4 + 4 + dp) * 4, 4 * 4 * dp, err))
+        (4 * d + 4 + 4 + d) * 4, 4 * 4 * d, err))
 
     for c in (4, 32):
         uc, sc = inputs(c, d, torch.float32, False)
-        uc = torch.nn.functional.pad(uc, (0, dp - d)).contiguous()
-        mats = tuple(torch.nn.functional.pad(m, (0, dp - d)).contiguous()
-                     for m in material(uc[:, :d], "randk", 0.1, seed=c))
+        # contiguous, as the engine's client matrices are
+        mats = tuple(m.contiguous() for m in material(uc, "randk", 0.1, seed=c))
         sq, agg = na.compress_norm_scale_aggregate_cuda(uc, sc, mats, "randk", 0.1)
         want_sq, want_agg = na.compress_norm_scale_aggregate_ref(uc, sc, mats, "randk", 0.1)
         err = max(check_sq("compress_norm_scale_aggregate path shape", sq, want_sq, RTOL),
                   check_close("compress_norm_scale_aggregate path shape", agg, want_agg,
                               uc * mats[0], sc, RTOL, ATOL))
-        res = timed(
+        sq_x, agg_x = na.compress_norm_scale_aggregate_cuda(
+            shifted_copy(torch, uc), sc, tuple(shifted_copy(torch, m) for m in mats),
+            "randk", 0.1)
+        sq6, agg6 = ops.shard_compress_aggregate(uc, sc, mats, "randk", 0.1)
+        if not (torch.equal(sq_x, sq) and torch.equal(agg_x, agg) and torch.equal(sq6, sq)
+                and torch.equal(agg6, agg)):
+            raise AssertionError(f"compress_norm_scale_aggregate at ({c}, {d}) is not bitwise "
+                                 f"kernel 6's, or differs shifted by one element")
+        out[f"compress_norm_scale_aggregate@{c}"] = ((c, d), err, timed(
             "compress_norm_scale_aggregate", c, "randk",
             lambda: na.compress_norm_scale_aggregate_cuda(uc, sc, mats, "randk", 0.1),
+            lambda: ops.compress_norm_scale_aggregate(uc, sc, mats, "randk", 0.1),
             lambda: na.compress_norm_scale_aggregate_ref(uc, sc, mats, "randk", 0.1), None,
-            (2 * c * dp + c + c + dp) * 4, 5 * c * dp, err)
-        out[f"compress_norm_scale_aggregate@{c}"] = ((c, dp), err, res)
+            (2 * c * d + c + c + d) * 4, 5 * c * d, err))
+    print("kernel check: at the path shapes kernels 3 and 4 are bitwise kernel 2's norms, "
+          "kernel 1's and kernel 6's aggregate, on aligned rows and shifted by one element")
 
-    def entry(name, replaces, key, launches=None):
-        shape, err, (k_ms, p_ms, l_ms, b_ms, b_by) = out[key]
+    # the profiler's launches per call and device time, from a process of
+    # its own (see norm_profile)
+    prof = profile_in_child("norm")
+    for key, names in prof["launches"].items():
+        print(f"kernel launches per call of {key} (profiler window around one call): "
+              f"{len(names)} ({names})")
+        if key.startswith(("ops.norm_scale_aggregate", "ops.compress_norm_scale_aggregate")) \
+                and len(names) != 1:
+            raise AssertionError(f"{key}: {len(names)} device kernels per call, want 1")
+    for key, res in prof["timing"].items():
+        out[key][2].update(res)
+        print(f"kernel device time {key} (profiler, mean of {PROFILE_REPS}, L2 flushed): "
+              f"{res['device_ms']} ms; {res['launches_per_call']} launches per call")
+
+    def entry(name, replaces, key):
+        shape, err, res = out[key]
         return {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/norm_aggregate.cu",
-            "replaces": replaces, "shape": list(shape), "launches": launches,
-            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": l_ms,
+            "replaces": replaces, "shape": list(shape), "launches": None,
+            "max_abs_err": err, **res,
         }
 
     vm = out["compress_norm_scale_aggregate@32"][2]
     k4 = entry("compress_norm_scale_aggregate", "src/repro/kernels/norm_aggregate.py:125",
                "compress_norm_scale_aggregate@4")
-    k4.update({"vmap_shape": [32, dp], "vmap_ms": vm[0], "vmap_plain_ms": vm[1],
-               "vmap_bound_ms": vm[3]})
+    k4.update({"vmap_shape": [32, d], "vmap_ms": vm["ms"], "vmap_device_ms": vm["device_ms"],
+               "vmap_path_ms": vm["path_ms"], "vmap_plain_ms": vm["plain_ms"],
+               "vmap_bound_ms": vm["bound_ms"]})
     return [
         entry("client_sqnorms", "src/repro/kernels/client_norm.py:34", "client_sqnorms"),
         entry("norm_scale_aggregate", "src/repro/kernels/norm_aggregate.py:62",
               "norm_scale_aggregate"),
         k4,
     ]
+
+
+def shifted_copy(torch, x):
+    """``x`` copied into a contiguous buffer one element past an aligned start."""
+    buf = torch.empty((x.numel() + 1,), dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def norm_profile(torch, dev) -> dict:
+    """The norm kernels under torch.profiler, in ONE window: each fused
+    kernel (all four kinds, f32 and bf16, at (32, 58430)) called once alone,
+    whose device kernels are its launches per call; then kernels 2-4 at the
+    path shapes, each called once alone and PROFILE_REPS times after an L2
+    flush, for their device time.  Run in a process of its own
+    (:func:`profile_in_child`)."""
+    from repro_torch import rng
+    from repro_torch.core.compression import client_material
+    from repro_torch.kernels import masked_aggregate as ma
+    from repro_torch.kernels import norm_aggregate as na
+    from repro_torch.kernels import ops
+
+    d = 58430
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+
+    def inputs(c, kind, param, dtype):
+        u = (torch.randn((c, d), generator=gen) * 1e-2).to(dev, dtype)
+        s = torch.rand((c,), generator=gen).to(dev)
+        keys = rng.split(rng.PRNGKey(c, device=dev), c)
+        mats = tuple(m["u"].contiguous() for m in client_material({"u": u}, keys, kind, param))
+        return u, s, mats
+
+    alone = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind, param in (("none", 0.0), ("randk", 0.1), ("qsgd", 8.0), ("natural", 0.0)):
+            u, s, mats = inputs(32, kind, param, dtype)
+            tag = f"{kind} {str(dtype).split('.')[-1]} (32, {d})"
+            alone[f"ops.compress_norm_scale_aggregate {tag}"] = (
+                lambda u=u, s=s, mats=mats, kind=kind, param=param:
+                ops.compress_norm_scale_aggregate(u, s, mats, kind, param))
+            if kind == "none":
+                alone[f"ops.norm_scale_aggregate {tag}"] = (
+                    lambda u=u, s=s: ops.norm_scale_aggregate(u, s))
+    dp = d + (-d) % ma.TILE
+    u32 = torch.nn.functional.pad(inputs(32, "none", 0.0, torch.float32)[0], (0, dp - d))
+    u4, s4, _ = inputs(4, "none", 0.0, torch.float32)
+    timed = {"client_sqnorms": lambda: na.client_sqnorms_cuda(u32),
+             "norm_scale_aggregate": lambda: ops.norm_scale_aggregate(u4, s4)}
+    for c in (4, 32):
+        uc, sc, mats = inputs(c, "randk", 0.1, torch.float32)
+        timed[f"compress_norm_scale_aggregate@{c}"] = (
+            lambda uc=uc, sc=sc, mats=mats:
+            ops.compress_norm_scale_aggregate(uc, sc, mats, "randk", 0.1))
+    counted = {}       # the wrappers' launch counts of one call
+    for key, call in alone.items():
+        before = na.norm_scale_aggregate_cuda.launches + \
+            na.compress_norm_scale_aggregate_cuda.launches
+        call()
+        counted[key] = (na.norm_scale_aggregate_cuda.launches
+                        + na.compress_norm_scale_aggregate_cuda.launches - before)
+    segments = list(alone.values())
+    for call in timed.values():
+        segments += [call] + [lambda call=call: (flush.zero_(), call())] * PROFILE_REPS
+    seen = profile_segments(torch, segments)
+    out = {"launches": {key: [k[:60] for k, _ in seg] for key, seg in zip(alone, seen)},
+           "counted": counted, "timing": {}}
+    seen = seen[len(alone):]
+    for n, key in enumerate(timed):
+        block = seen[n * (PROFILE_REPS + 1):(n + 1) * (PROFILE_REPS + 1)]
+        if any(sum("FillFunctor" in k for k, _ in r) != 1 for r in block[1:]):
+            raise AssertionError(f"{key}: a timed call's window lacks its flush")
+        out["timing"][key] = {
+            "launches_per_call": len(block[0]),
+            "device_ms": statistics.mean(
+                sum(us for k, us in r if "FillFunctor" not in k) for r in block[1:]) / 1e3,
+        }
+    return out
+
+
+def ssd_profile(torch, dev) -> dict:
+    """{str((B, S, H, P, N)): {pass: device us per call}} of kernel 8 on the
+    model's views at the serve paths' shapes (:func:`_ssd_pass_times`).
+    Run in a process of its own (:func:`profile_in_child`)."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+    out = {}
+    for bsz, h, s, p, n in SSD_PATHS:
+        xs, b4, c4, dt, da = _ssd_views(torch, gen, bsz, s, h, p, n, 1, torch.bfloat16, dev)
+        out[str((bsz, s, h, p, n))] = _ssd_pass_times(
+            torch, lambda: ss.ssd_scan_heads_cuda(xs, b4, c4, dt, da, chunk=128), flush)
+    return out
+
+
+def profile_in_child(name: str) -> dict:
+    """The JSON of ``chip_smoke.py --profile NAME`` (:func:`norm_profile` or
+    :func:`ssd_profile`), run in a process of its own.  On the H100 (torch
+    2.11) a torch.profiler window in a process that has run for a while can
+    lose device events (some windows see none, some a part; a host sleep in
+    the window does not help), while a young process's windows were whole in
+    every run: so the windows whose counts and device times a phase reports
+    run there."""
+    child = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--profile", name],
+                           capture_output=True, text=True, timeout=600, cwd=ROOT)
+    if child.returncode:
+        raise AssertionError(f"the {name} profiler pass failed:\n{child.stderr[-3000:]}")
+    return json.loads(child.stdout.strip().splitlines()[-1])
+
+
+def profile_segments(torch, segments, tries=3) -> list:
+    """[(kernel name, device us), ...] for each callable of ``segments``, run
+    in order in one torch.profiler window, a marker kernel
+    (``torch.cuda._sleep``) before each and one after the last: the window's
+    device kernels, in stream order, split at the markers.  On the H100 a
+    short window later in a process may lose device events (none, or a few
+    at a time); a window that did not see every marker is run again, up to
+    ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for seg in segments:
+        seg()
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for seg in segments:
+                torch.cuda._sleep(1)
+                seg()
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")),
+                        key=lambda e: e.time_range.start)
+        out = []
+        for e in events:
+            if "spin_kernel" in e.name:
+                out.append([])
+            elif out:
+                out[-1].append((e.name, e.time_range.elapsed_us()))
+        if len(out) == len(segments) + 1 and not out[-1]:
+            return out[:-1]
+    raise AssertionError(f"no profiler window of {tries} saw all {len(segments) + 1} markers")
 
 
 def shard_kernel_phase(torch, dev, flush):
@@ -940,26 +1139,13 @@ SSD_PASSES = ("ssd_chunk_state_bf16", "ssd_state_pass", "ssd_chunk_out_bf16")
 
 def _ssd_pass_times(torch, fn, flush, reps=5) -> dict:
     """{pass kernel: mean device us per call} of ``fn`` under the profiler, L2
-    flushed before each call (read as :func:`_profile_serve` reads kernels)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
+    flushed before each call (one window, see :func:`profile_segments`)."""
     out = {}
-    for ev in prof.key_averages():
-        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0)
-        for name in SSD_PASSES:
-            if name + "(" in ev.key or name + "<" in ev.key:    # pass 2 is a template
-                out[name] = out.get(name, 0.0) + us / reps
+    for seg in profile_segments(torch, [lambda: (flush.zero_(), fn())] * reps):
+        for key, us in seg:
+            for name in SSD_PASSES:
+                if name + "(" in key or name + "<" in key:    # pass 2 is a template
+                    out[name] = out.get(name, 0.0) + us / reps
     if sorted(out) != sorted(SSD_PASSES):
         raise AssertionError(f"the profiler saw the SSD passes {sorted(out)}, want {SSD_PASSES}")
     return out
@@ -1022,6 +1208,7 @@ def ssd_kernel_phase(torch, dev, flush):
           f"per-head copies")
 
     times = []
+    pass_times = profile_in_child("ssd")
     for bsz, h, s, p, n in SSD_PATHS:
         q, nc, rows_n = 128, s // 128, bsz * h
         xs, b4, c4, dt, da = _ssd_views(torch, gen, bsz, s, h, p, n, 1, torch.bfloat16, dev)
@@ -1050,7 +1237,7 @@ def ssd_kernel_phase(torch, dev, flush):
                            reps=5)
         xr, br, cr, dtr, dar = _ssd_rows(xs, b4, c4, dt, da)
         plain_ms = time_ms(lambda: ss.ssd_scan_ref(xr, br, cr, dtr, dar), torch, flush, reps=3)
-        passes = _ssd_pass_times(torch, kernel, flush)
+        passes = pass_times[str((bsz, s, h, p, n))]
         total = sum(passes.values())
         # the function on the model's views: x and y once, the one B/C group
         # once per batch, C B^T once per (batch, chunk)
@@ -1857,6 +2044,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
                     help="directory for the full-width ledgers and the profile traces")
+    ap.add_argument("--profile", choices=("norm", "ssd"), default=None,
+                    help="only print that profiler pass's JSON (the kernel phases run this)")
     args = ap.parse_args()
 
     import torch
@@ -1874,6 +2063,10 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    if args.profile is not None:
+        profile = {"norm": norm_profile, "ssd": ssd_profile}[args.profile]
+        print(json.dumps(profile(torch, dev)))
+        return 0
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"{torch.cuda.device_count()} visible")
@@ -1954,6 +2147,7 @@ def main() -> int:
     kernels[7]["mamba2_130m_path"] = mamba
 
     profile_phase(torch, main_sc, args.out)
+    profile_phase(torch, vmap_scenario(), args.out)
     profile_phase(torch, get_scenario(SLICE1_CELL), args.out)
     profile_phase(torch, get_scenario(SHARD_RANDK_CELL), args.out)
     scan_breakdown_phase(torch)

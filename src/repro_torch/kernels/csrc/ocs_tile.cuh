@@ -5,7 +5,8 @@
 // Layout: U is a contiguous client-major (C, D) matrix.  A CTA of kThreads
 // threads covers kThreads * kCols adjacent columns (the tile); each thread owns
 // kCols of them and reads one 16-byte (f32) or 8-byte (bf16) vector per
-// client.  The grid is 1-D over D.
+// client (norm_aggregate.cu's fused kernel: narrower vectors where the rows'
+// alignment asks, and zeros past D).  The grid is 1-D over D.
 //
 // Reductions, both with a fixed order and no atomics on values:
 // * aggregate (over C): the column's owning thread sums the clients in order
@@ -15,10 +16,12 @@
 //   registers before any of them is folded;
 // * squared norm (over D, so across CTAs): each thread squares its kCols
 //   values (col_sqnorm), a warp sums its 32 threads with a shuffle tree
-//   (warp_sum), lane 0 writes one partial per (client, CTA, warp), and a
-//   second kernel (finish_sqnorms) sums each client's partials in a fixed
-//   order.  Every norm-emitting kernel uses these same stages, so the norms
-//   agree bitwise between kernels for the same tile values.
+//   (warp_sum), lane 0 writes one partial per (client, CTA, warp), and each
+//   client's partials are summed in one fixed order: by a second kernel
+//   (finish_sqnorms), or inside the same launch by the CTA that finishes
+//   last (warp_finish_sqnorms, the same order in one warp).  Every
+//   norm-emitting kernel uses these same stages, so the norms agree bitwise
+//   between kernels for the same tile values.
 //
 // The compressor (compress4) is core/compression.py::apply_compression_flat
 // op for op.  Its arithmetic is written with __fmul_rn / __fdiv_rn /
@@ -182,6 +185,64 @@ finish_sqnorms(const float* __restrict__ partials, float* __restrict__ out,
   if (threadIdx.x == 0) out[blockIdx.x] = s[0];
 }
 
-inline int tile_blocks(int d) { return (d / kCols + kThreads - 1) / kThreads; }
+// One client's finish_sqnorms in one warp, for the in-launch finish.  Lane l
+// stands for finish_sqnorms's threads l + 32 q (q = 0..3): it sums partials
+// l + 32 q + kThreads j for j = 0, 1, ... in turn, as those threads do;
+// (q0 + q2) + (q1 + q3) is that tree's steps 64 and 32, and warp_sum's
+// steps 16..1 leave its s[0] in lane 0.  kClients clients (client k's
+// partials at p + k * stride) at once, kRows rows of kThreads partials each,
+// so that many loads are in flight; the loads go through L2 (__ldcg), since
+// other CTAs of the launch wrote the partials.  Lane 0 holds the sums; the
+// first `n` clients are live.
+template <int kClients, int kRows>
+__device__ __forceinline__ void warp_finish_sqnorms(float (&out)[kClients], const float* p,
+                                                    long long stride, int parts, int n,
+                                                    int lane) {
+  float v[kClients][4];
+#pragma unroll
+  for (int k = 0; k < kClients; ++k) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[k][q] = 0.f;
+  }
+  for (int j0 = 0; j0 < parts; j0 += kRows * kThreads) {
+    float w[kClients][kRows][4];
+#pragma unroll
+    for (int k = 0; k < kClients; ++k) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int j = j0 + r * kThreads + q * 32 + lane;
+          w[k][r][q] = k < n && j < parts
+                           ? __ldcg(p + k * stride + j) : 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kClients; ++k) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (j0 + r * kThreads + q * 32 + lane < parts) v[k][q] = __fadd_rn(v[k][q], w[k][r][q]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kClients; ++k) {
+    out[k] = __fadd_rn(__fadd_rn(v[k][0], v[k][2]), __fadd_rn(v[k][1], v[k][3]));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int k = 0; k < kClients; ++k) {
+      out[k] = __fadd_rn(out[k], __shfl_xor_sync(0xffffffffu, out[k], off));
+    }
+  }
+}
+
+// CTAs of a tile launch over d columns; the last one may be partly past d
+inline int tile_blocks(int d) { return (d + kThreads * kCols - 1) / (kThreads * kCols); }
 
 }  // namespace ocs

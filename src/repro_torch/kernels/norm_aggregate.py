@@ -19,9 +19,12 @@ ocs_tile.cuh``), with a fixed summation order and no atomics on values: the
 norms of the second equal the first's bitwise, its aggregate equals
 ``masked_scale_aggregate_cuda``'s, the third with ``kind='none'`` equals the
 second, and the third equals "compress eagerly on the card, then the second".
-On an H100 each is bound by device memory, and at the round's shapes by the
-latency of its two launches (the tile pass and the fixed-order sum of the
-per-CTA norm partials).
+On an H100 each is bound by device memory, and at the round's shapes by
+launch and memory latency.  The first runs two launches (the tile pass and
+the fixed-order sum of the per-CTA norm partials) on a matrix whose D is a
+multiple of 4.  The second and third run one launch on any ``(C, D)``: the
+CTA that finishes last sums the partials in the same order, which it knows
+from a ticket counter (see :func:`_ticket`).
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything it
 cannot take; for CPU tensors it returns the plain version beside it.  Its
@@ -40,6 +43,7 @@ from repro_torch.kernels.masked_aggregate import (
     COLS_PER_THREAD,
     MAX_CLIENTS,
     THREADS,
+    TILE,
     masked_scale_aggregate_ref,
 )
 
@@ -51,9 +55,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = {
     "client_sqnorms": [_P] * 3 + [_I] * 2 + [_P],
-    "norm_scale_aggregate": [_P] * 5 + [_I] * 2 + [_P],
-    "compress_norm_scale_aggregate": [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P],
+    "norm_scale_aggregate": [_P] * 6 + [_I] * 3 + [_P],
+    "compress_norm_scale_aggregate": [_P] * 8 + [_I] * 4 + [_F] * 2 + [_P],
 }
+_tickets: dict = {}
 
 
 def client_sqnorms_ref(updates: torch.Tensor) -> torch.Tensor:
@@ -86,7 +91,7 @@ def _kernel_fn(name: str, dtype):
     return fn
 
 
-def _check_matrix(name: str, x: torch.Tensor, dev, shape, dtypes) -> None:
+def _check_matrix(name: str, x: torch.Tensor, dev, shape, dtypes, any_width) -> None:
     if x.device != dev:
         raise ValueError(f"{name} must lie on {dev}, got {x.device}")
     if x.dtype not in dtypes:
@@ -95,18 +100,21 @@ def _check_matrix(name: str, x: torch.Tensor, dev, shape, dtypes) -> None:
         raise ValueError(f"want {name} of shape {shape}, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if x.data_ptr() % (COLS_PER_THREAD * x.element_size()):
+    if not any_width and x.data_ptr() % (COLS_PER_THREAD * x.element_size()):
         raise ValueError(f"{name} must start on a {COLS_PER_THREAD}-element boundary")
 
 
-def _check(updates: torch.Tensor, scale=None, mats=(), max_clients=MAX_CLIENTS) -> tuple:
-    """Validate the inputs for the kernel; returns ``(C, D)``."""
+def _check(updates: torch.Tensor, scale=None, mats=(), max_clients=MAX_CLIENTS,
+           any_width=False) -> tuple:
+    """Validate the inputs for the kernel; returns ``(C, D)``.  Without
+    ``any_width`` D must be a multiple of 4 and every matrix start on a
+    4-element boundary (the vector loads of the padded kernels)."""
     if updates.device.type != "cuda":
         raise ValueError(f"updates must lie on a CUDA device, got {updates.device}")
     if updates.dim() != 2:
         raise ValueError(f"want updates (C, D), got {tuple(updates.shape)}")
     c, d = updates.shape
-    if d % COLS_PER_THREAD:
+    if d % COLS_PER_THREAD and not any_width:
         raise ValueError(
             f"D must be a multiple of {COLS_PER_THREAD} (the ops wrappers pad it), got D={d}"
         )
@@ -114,11 +122,11 @@ def _check(updates: torch.Tensor, scale=None, mats=(), max_clients=MAX_CLIENTS) 
         raise ValueError(
             f"shape beyond the kernel's limits: C={c} (1 to {max_clients}), D={d} (below 2**31)"
         )
-    _check_matrix("updates", updates, updates.device, (c, d), tuple(_SUFFIX))
+    _check_matrix("updates", updates, updates.device, (c, d), tuple(_SUFFIX), any_width)
     if scale is not None:
         _check_vector(scale, updates.device, c)
     for j, m in enumerate(mats):
-        _check_matrix(f"material {j}", m, updates.device, (c, d), (torch.float32,))
+        _check_matrix(f"material {j}", m, updates.device, (c, d), (torch.float32,), any_width)
     return c, d
 
 
@@ -132,11 +140,33 @@ def _check_vector(scale: torch.Tensor, dev, c: int) -> None:
 
 
 def _scratch(c: int, d: int, dev) -> torch.Tensor:
-    """The per-(client, CTA, warp) norm partials; the caching allocator
-    hands this memory out again only to work queued after the kernels on
-    the same stream."""
-    blocks = (d // COLS_PER_THREAD + THREADS - 1) // THREADS
-    return torch.empty((c, blocks * WARPS), dtype=torch.float32, device=dev)
+    """The per-(client, CTA, warp) norm partials, one per client per 128
+    columns (a CTA covers ``TILE`` columns, the last one partly past D); the
+    caching allocator hands this memory out again only to work queued after
+    the kernels on the same stream."""
+    return torch.empty((c, -(-d // TILE) * WARPS), dtype=torch.float32, device=dev)
+
+
+def _ticket(dev, stream: int) -> torch.Tensor:
+    """The fused kernels' ticket counter for ``(dev, stream)``: one int32,
+    zeroed when first asked for and kept.  Each launch counts its CTAs on it
+    and its last CTA sets it back to 0, so launches on one stream, which run
+    in order, share it; a launch on another stream gets a counter of its
+    own, so launches that may overlap never share one."""
+    key = (dev.index, stream)
+    if key not in _tickets:
+        _tickets[key] = torch.zeros((1,), dtype=torch.int32, device=dev)
+    return _tickets[key]
+
+
+def _vector(d: int, *mats) -> int:
+    """Elements per load for the fused kernel: the widest of 4, 2, 1 that
+    divides D and every matrix's start address (with a row stride of D, every
+    row is then aligned to it)."""
+    for v in (4, 2):
+        if d % v == 0 and all(m.data_ptr() % (v * m.element_size()) == 0 for m in mats):
+            return v
+    return 1
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -204,13 +234,16 @@ def client_sqnorms_cuda(updates: torch.Tensor) -> torch.Tensor:
 
 def norm_scale_aggregate_cuda(updates: torch.Tensor, scale: torch.Tensor):
     """(C, D) f32/bf16, (C,) f32 -> ((C,) f32 squared norms, (D,) f32
-    ``sum_i scale_i * U_i``) from one read of U.
+    ``sum_i scale_i * U_i``) from one read of U, in one launch.
 
-    CUDA tensors run the kernel (or raise); CPU tensors run the plain version.
+    Any D and any start address of a contiguous matrix.  The launch uses the
+    current stream's ticket counter (:func:`_ticket`): a call on another
+    stream gets its own and gives the same result.  CUDA tensors run the
+    kernel (or raise); CPU tensors run the plain version.
     """
     if _on_cpu(updates, scale):
         return norm_scale_aggregate_ref(updates, scale)
-    c, d = _check(updates, scale)
+    c, d = _check(updates, scale, any_width=True)
     dev = updates.device
     sq = torch.empty((c,), dtype=torch.float32, device=dev)
     agg = torch.empty((d,), dtype=torch.float32, device=dev)
@@ -220,7 +253,7 @@ def norm_scale_aggregate_cuda(updates: torch.Tensor, scale: torch.Tensor):
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _kernel_fn("norm_scale_aggregate", updates.dtype)(
         updates.data_ptr(), scale.data_ptr(), partials.data_ptr(), sq.data_ptr(),
-        agg.data_ptr(), c, d, stream,
+        agg.data_ptr(), _ticket(dev, stream).data_ptr(), c, d, _vector(d, updates), stream,
     )
     _raise_on(rc, "norm_scale_aggregate")
     norm_scale_aggregate_cuda.launches += 1
@@ -231,14 +264,16 @@ def compress_norm_scale_aggregate_cuda(updates: torch.Tensor, scale: torch.Tenso
                                        mats: tuple, kind: str, param: float):
     """Raw (C, D) f32/bf16 + ``MATERIAL_ARITY[kind]`` (C, D) f32 material,
     (C,) f32 scale -> ((C,) f32 squared norms of C(U), (D,) f32
-    ``sum_i scale_i * C(U_i)``), compressed in the tile stream.
+    ``sum_i scale_i * C(U_i)``), compressed in the tile stream, in one launch.
 
-    CUDA tensors run the kernel (or raise); CPU tensors run the plain version.
+    Any D and any start addresses of contiguous matrices; the current
+    stream's ticket counter, as :func:`norm_scale_aggregate_cuda`.  CUDA
+    tensors run the kernel (or raise); CPU tensors run the plain version.
     """
     mats = _check_compressor(kind, mats)
     if _on_cpu(updates, scale, *mats):
         return compress_norm_scale_aggregate_ref(updates, scale, mats, kind, param)
-    c, d = _check(updates, scale, mats)
+    c, d = _check(updates, scale, mats, any_width=True)
     dev = updates.device
     sq = torch.empty((c,), dtype=torch.float32, device=dev)
     agg = torch.empty((d,), dtype=torch.float32, device=dev)
@@ -250,7 +285,8 @@ def compress_norm_scale_aggregate_cuda(updates: torch.Tensor, scale: torch.Tenso
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _kernel_fn("compress_norm_scale_aggregate", updates.dtype)(
         updates.data_ptr(), scale.data_ptr(), ptrs[0], ptrs[1], partials.data_ptr(),
-        sq.data_ptr(), agg.data_ptr(), c, d, KINDS[kind], levels, inv_levels, stream,
+        sq.data_ptr(), agg.data_ptr(), _ticket(dev, stream).data_ptr(), c, d,
+        _vector(d, updates, *mats), KINDS[kind], levels, inv_levels, stream,
     )
     _raise_on(rc, "compress_norm_scale_aggregate")
     compress_norm_scale_aggregate_cuda.launches += 1

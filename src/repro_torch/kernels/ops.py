@@ -3,8 +3,9 @@
 Every wrapper follows the reference's convention set (``repro/kernels/
 ops.py``, see docs/paper_map.md): the trailing model dim is padded with zeros
 to a multiple of the kernel's tile (zeros leave the contraction unchanged),
-and outputs are unpadded before return.  A CUDA tensor runs the hand-written
-kernel; a CPU tensor runs its plain version.
+and outputs are unpadded before return — except the fused norm+aggregate
+pair, whose kernels take any D as it is.  A CUDA tensor runs the
+hand-written kernel; a CPU tensor runs its plain version.
 
 * ``client_sqnorms`` / ``tree_client_norms`` — Alg. 1 line 3 / Alg. 2 input:
   ``u_i = ||w_i U_i||``.
@@ -13,8 +14,8 @@ kernel; a CPU tensor runs its plain version.
 * ``norm_scale_aggregate`` — both reductions from one read (the scan
   engine's post-plan pass over each group).
 * ``compress_norm_scale_aggregate`` — the same on ``C(U)``, compressed in the
-  tile stream from the raw updates and their material (material matrices
-  are zero-padded with the updates: zero in, zero out for every kind).
+  tile stream from the raw updates and their material.  Both take the
+  unpadded ``(C, D)`` matrices, in one launch each.
 * ``shard_masked_aggregate`` / ``tree_shard_masked_aggregate`` and
   ``shard_compress_aggregate`` / ``tree_shard_compress_aggregate`` — the
   mesh round's Eq. 2: a rank's partial over its own client block, then one
@@ -126,11 +127,11 @@ def norm_scale_aggregate(updates: torch.Tensor, scale: torch.Tensor) -> tuple:
 
     Both OCS reductions from one read of the updates: the per-client squared
     norms behind ``u_i = ||w_i U_i||`` and Eq. 2's ``sum_i scale_i U_i``.
-    The scan engine calls it on each cached group after the plan.
+    The scan engine calls it on each cached group after the plan.  The
+    kernel takes the matrix as it is, at any D (no padding); a
+    non-contiguous one is copied first (the engine's are contiguous).
     """
-    d = updates.shape[1]
-    sq, agg = norm_scale_aggregate_cuda(_pad_cols(updates, (-d) % TILE), scale)
-    return sq, agg[:d]
+    return norm_scale_aggregate_cuda(updates.contiguous(), scale)
 
 
 def compress_norm_scale_aggregate(updates: torch.Tensor, scale: torch.Tensor,
@@ -140,16 +141,12 @@ def compress_norm_scale_aggregate(updates: torch.Tensor, scale: torch.Tensor,
 
     The compressor runs elementwise on each tile of the raw values and its
     ``MATERIAL_ARITY[kind]`` material matrices, and both reductions take the
-    compressed tile: one read of each update, no ``C(U)`` written.  D pads
-    with zeros on the updates AND the material.
+    compressed tile: one read of each update, no ``C(U)`` written.  The
+    kernel takes the matrices as they are, at any D (no padding); a
+    non-contiguous one is copied first (the engine's are contiguous).
     """
-    d = updates.shape[1]
-    pad = (-d) % TILE
-    sq, agg = compress_norm_scale_aggregate_cuda(
-        _pad_cols(updates, pad), scale, tuple(_pad_cols(m, pad) for m in mats),
-        kind, param,
-    )
-    return sq, agg[:d]
+    return compress_norm_scale_aggregate_cuda(
+        updates.contiguous(), scale, tuple(m.contiguous() for m in mats), kind, param)
 
 
 def masked_scale_aggregate(updates: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,10 @@ exactly: the fused norm+aggregate's norms are ``client_sqnorms``' and its
 aggregate is ``masked_scale_aggregate``'s, the compress kernel with
 ``kind='none'`` is the fused norm+aggregate, and the compress kernel equals
 eager compression on the card followed by the fused norm+aggregate.  The
+fused pair takes the unpadded matrix at any D and start address, in one
+device launch per call, and its ticket counter is back at 0 after each
+launch (ten calls in a row, and a call on a second stream, give the first
+call's result).  The
 mesh round's kernels: at ``k <= BLOCK_CLIENTS`` the sharded aggregate is
 ``masked_scale_aggregate``'s and the sharded compress aggregate is the
 compress kernel's; the sharded compress kernel's norms are the compress
@@ -35,6 +39,11 @@ kernel routes (``chunked_attention``, ``ssd_chunked``) against their eager
 forms on the card, and the reduced hybrid's prefill on the card against the
 CPU's (f32, TF32 off) at atol 1e-4.
 """
+
+import json
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -157,9 +166,7 @@ def test_norm_kernel_wrappers_reject(cuda):
     good = torch.zeros((4, 512), device=cuda)
     for bad in (
         torch.zeros((512, 4), device=cuda).t(),                   # not contiguous
-        torch.zeros((4, 7), device=cuda),                         # D not a multiple of 4
         torch.zeros((4, 512), device=cuda, dtype=torch.float16),  # dtype
-        torch.zeros((4 * 512 + 1,), device=cuda)[1:].view(4, 512),  # misaligned rows
     ):
         for call in (lambda: na.client_sqnorms_cuda(bad),
                      lambda: na.norm_scale_aggregate_cuda(bad, s),
@@ -167,12 +174,135 @@ def test_norm_kernel_wrappers_reject(cuda):
                      lambda: na.compress_norm_scale_aggregate_cuda(good, s, (bad,), "randk", 0.1)):
             with pytest.raises((ValueError, TypeError)):
                 call()
+    # the fused pair takes these (test_fused_norm_kernels_take_any_width)
+    for bad in (
+        torch.zeros((4, 7), device=cuda),                         # D not a multiple of 4
+        torch.zeros((4 * 512 + 1,), device=cuda)[1:].view(4, 512),  # misaligned rows
+    ):
+        with pytest.raises(ValueError):
+            na.client_sqnorms_cuda(bad)
     with pytest.raises(ValueError):
         na.norm_scale_aggregate_cuda(good, s.cpu())
     with pytest.raises(TypeError):
         na.norm_scale_aggregate_cuda(good, s.double())
     with pytest.raises(ValueError):
         na.compress_norm_scale_aggregate_cuda(good, s, (good,), "qsgd", 8.0)   # arity
+
+
+def _at_offset(x, offset):
+    """``x`` copied into a contiguous buffer that starts ``offset`` elements
+    past an allocation's (aligned) start."""
+    buf = torch.empty((x.numel() + offset,), dtype=x.dtype, device=x.device)
+    out = buf[offset:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.fixture(scope="module")
+def norm_profile():
+    """chip_smoke.py's profiler pass of the fused norm kernels, in a process
+    of its own: a profiler window late in a process (as in this one, after
+    many tests) can lose device events on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    root = Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, str(root / "chip_smoke.py"), "--profile", "norm"],
+                         capture_output=True, text=True, timeout=600, cwd=root)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
+@pytest.mark.parametrize("d", (4096, 4097, 4098, 4099, 58430, 513, 3))
+@pytest.mark.parametrize("c", (4, 32))
+def test_fused_norm_kernels_take_any_width(cuda, c, d, dtype, offset):
+    """Kernels 3 and 4 on the unpadded matrix, D mod 4 in {0, 1, 2, 3}, at a
+    start address one element past an aligned one: bitwise kernel 2's norms
+    and kernel 1's aggregate (both on the padded matrix), kernel 6's
+    norms and aggregate (k <= 128), and eager C(U) then kernel 3."""
+    u, s = _inputs(c, d, c * 1009 + d + offset, dtype, cuda)
+    u[0, :4] = torch.tensor([2.0 ** -126, 1e-40, 0.5, -0.25], device=cuda)[:d].to(dtype)
+    ua = u                       # aligned, for the kernels that pad or need it
+    u = _at_offset(u, offset)
+    sq3, agg3 = ops.norm_scale_aggregate(u, s)
+    sq4n, agg4n = ops.compress_norm_scale_aggregate(u, s, (), "none", 0.0)
+    torch.cuda.synchronize()
+    assert _sq_close(sq3, na.client_sqnorms_ref(u))
+    assert _agg_close(agg3, ma.masked_scale_aggregate_ref(u, s), u, s)
+    assert torch.equal(sq3, ops.client_sqnorms(ua))
+    assert torch.equal(agg3, ops.masked_scale_aggregate(ua, s))
+    assert torch.equal(sq4n, sq3) and torch.equal(agg4n, agg3)
+    for kind, param in COMPRESSORS:
+        keys = rng.split(rng.PRNGKey(c * 3 + d, device=cuda), c)
+        mats_a = tuple(m["u"].contiguous()
+                       for m in client_material({"u": ua}, keys, kind, param))
+        mats = tuple(_at_offset(m, offset) for m in mats_a)
+        sq4, agg4 = ops.compress_norm_scale_aggregate(u, s, mats, kind, param)
+        xc = apply_compression_flat(u, kind, param, *mats).to(dtype)
+        sq_m, agg_m = ops.norm_scale_aggregate(xc, s)
+        sq6, agg6 = ops.shard_compress_aggregate(ua, s, mats_a, kind, param)
+        want_sq, want_agg = na.compress_norm_scale_aggregate_ref(u, s, mats, kind, param)
+        torch.cuda.synchronize()
+        assert _sq_close(sq4, want_sq) and _agg_close(agg4, want_agg, xc, s)
+        assert torch.equal(sq4, sq_m) and torch.equal(agg4, agg_m)
+        assert torch.equal(sq4, sq6) and torch.equal(agg4, agg6)
+        assert torch.equal(sq_m, ops.client_sqnorms(xc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("kind", ("none", "randk", "qsgd", "natural"))
+def test_fused_norm_kernels_launch_once_per_call(norm_profile, kind, dtype):
+    """One device kernel in a profiler window around one ops call, and one
+    count on the wrapper's launch counter."""
+    names = [f"ops.compress_norm_scale_aggregate {kind} {dtype} (32, 58430)"]
+    if kind == "none":
+        names.append(f"ops.norm_scale_aggregate {kind} {dtype} (32, 58430)")
+    for name in names:
+        assert len(norm_profile["launches"][name]) == 1, norm_profile["launches"][name]
+        assert "fused_kernel" in norm_profile["launches"][name][0]
+        assert norm_profile["counted"][name] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
+def test_fused_norm_kernels_reset_their_ticket(cuda, dtype):
+    """Ten calls in a row, no sync between them: each equals the first, so
+    each launch finds its counter at 0 and leaves it there."""
+    u, s = _inputs(32, 58430, 6, dtype, cuda)
+    keys = rng.split(rng.PRNGKey(6, device=cuda), 32)
+    mats = tuple(m["u"] for m in client_material({"u": u}, keys, "randk", 0.1))
+    runs3 = [ops.norm_scale_aggregate(u, s) for _ in range(10)]
+    runs4 = [ops.compress_norm_scale_aggregate(u, s, mats, "randk", 0.1) for _ in range(10)]
+    torch.cuda.synchronize()
+    for runs in (runs3, runs4):
+        for sq, agg in runs[1:]:
+            assert torch.equal(sq, runs[0][0]) and torch.equal(agg, runs[0][1])
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert int(na._ticket(u.device, stream).item()) == 0
+
+
+@pytest.mark.cuda
+def test_fused_norm_kernels_on_a_second_stream(cuda):
+    """A call on another stream takes a counter of its own (the docstring's
+    contract) and gives the same result as on the current stream."""
+    u, s = _inputs(4, 58430, 7, torch.float32, cuda)
+    keys = rng.split(rng.PRNGKey(7, device=cuda), 4)
+    mats = tuple(m["u"] for m in client_material({"u": u}, keys, "qsgd", 8.0))
+    want3 = ops.norm_scale_aggregate(u, s)
+    want4 = ops.compress_norm_scale_aggregate(u, s, mats, "qsgd", 8.0)
+    side = torch.cuda.Stream(device=u.device)
+    side.wait_stream(torch.cuda.current_stream(u.device))
+    with torch.cuda.stream(side):
+        got3 = ops.norm_scale_aggregate(u, s)
+        got4 = ops.compress_norm_scale_aggregate(u, s, mats, "qsgd", 8.0)
+    torch.cuda.synchronize()
+    assert na._ticket(u.device, side.cuda_stream) is not na._ticket(
+        u.device, torch.cuda.current_stream(u.device).cuda_stream)
+    for got, want in ((got3, want3), (got4, want4)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.cuda
