@@ -15,11 +15,13 @@ nvcc (one process per source, all at once), then:
   the bitwise contracts between them, and times each at its path shapes
   (the mesh kernels also at a large local block of 1,024 clients) beside
   that plain version, a library call where one computes the same function,
-  and its bound (the fused norm + aggregate kernels 3 and 4 on the unpadded
-  (C, 58430) matrices the engine passes, by CUDA events, by the profiler's
-  device time and as the whole ``ops`` call, beside the launch floor of
-  ``torch.cuda._sleep(1)``, with their device launches per call from a
-  profiler window around one call); flash attention over S x head dim x
+  and its bound (the one-launch kernels 2, 3, 4 and 6 on the unpadded
+  (C, 58430) matrices the engine and the mesh round pass, by CUDA events,
+  by the profiler's device time and as the whole ``ops`` call, beside the
+  launch floor of ``torch.cuda._sleep(1)``, with their device launches per
+  call from a profiler window around one call; kernel 2 beside three
+  one-call library yardsticks, ``torch.einsum``, ``torch.linalg.vecdot`` and
+  a batched ``torch.bmm``); flash attention over S x head dim x
   (window, prefix), the
   SSD scan over S x chunk x (P, N), and both at the serve paths' shapes
   (flash attention's library yardstick is PyTorch's fused flash backend);
@@ -466,20 +468,18 @@ def norm_kernel_phase(torch, dev, flush):
             else:
                 raise AssertionError(f"a wrapper took {tuple(bad.shape)} {bad.dtype} "
                                      f"stride {bad.stride()}")
-    # client_sqnorms needs D % 4 == 0 and aligned rows (ops pads for it); the
-    # fused pair takes both
-    for bad in (torch.zeros((4, 7), device=dev),
-                torch.zeros((4 * 512 + 1,), device=dev)[1:].view(4, 512)):
-        try:
-            na.client_sqnorms_cuda(bad)
-        except ValueError:
-            pass
-        else:
-            raise AssertionError(f"client_sqnorms took {tuple(bad.shape)} at a misaligned "
-                                 f"or odd width")
-        na.norm_scale_aggregate_cuda(bad, zeros4)
+    # D % 4 != 0 and rows one element off: kernel 2 (and the fused pair)
+    # take them, bitwise what kernel 2 gives on the zero-padded aligned matrix
+    for odd in (inputs(4, 7, torch.float32)[0], shifted_copy(torch, inputs(4, 512,
+                                                                          torch.float32)[0])):
+        padded = torch.nn.functional.pad(odd, (0, (-odd.shape[1]) % ma.TILE)).contiguous()
+        if not torch.equal(na.client_sqnorms_cuda(odd), na.client_sqnorms_cuda(padded)):
+            raise AssertionError(f"client_sqnorms at {tuple(odd.shape)}, start "
+                                 f"{odd.data_ptr() % 16} bytes off, is not its padded result")
+        na.norm_scale_aggregate_cuda(odd, zeros4)
     print("kernel check: the wrappers reject a non-contiguous matrix and float16; "
-          "client_sqnorms rejects D % 4 != 0 and misaligned rows, which the fused pair takes")
+          "client_sqnorms and the fused pair take D % 4 != 0 and rows one element off "
+          "(client_sqnorms bitwise its zero-padded result)")
 
     # timings at the path shapes, on the unpadded matrices the engine passes
     d = 58430
@@ -502,19 +502,32 @@ def norm_kernel_phase(torch, dev, flush):
         return {"ms": k_ms, "path_ms": path_ms, "plain_ms": p_ms, "library_ms": l_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "floor_ms": floor_ms}
 
-    # kernel 2 keeps its padded route: ops pads, two launches
-    dp = d + (-d) % ma.TILE
-    u32 = torch.nn.functional.pad(inputs(32, d, torch.float32, False)[0],
-                                  (0, dp - d)).contiguous()
-    err = check_sq("client_sqnorms path shape", na.client_sqnorms_cuda(u32),
-                   na.client_sqnorms_ref(u32), RTOL)
-    k2_ms = time_ms(lambda: na.client_sqnorms_cuda(u32), torch, flush)
-    out["client_sqnorms"] = ((32, dp), err, {
-        "ms": k2_ms, "plain_ms": time_ms(lambda: na.client_sqnorms_ref(u32), torch, flush),
-        "library_ms": time_ms(lambda: torch.einsum("cd,cd->c", u32, u32), torch, flush),
-        **dict(zip(("bound_ms", "bound_by"), bound((32 * dp + 32) * 4, 2 * 32 * dp))),
-    })
-    print(f"kernel timing client_sqnorms at (32, {dp}) f32: {out['client_sqnorms'][2]}")
+    # kernel 2 on the unpadded (C, 58430) matrices tree_client_norms passes,
+    # beside three one-call library yardsticks of the same function
+    for c in (32, 4):
+        uc = inputs(c, d, torch.float32, False)[0]
+        sq = na.client_sqnorms_cuda(uc)
+        err = check_sq("client_sqnorms path shape", sq, na.client_sqnorms_ref(uc), RTOL)
+        padded = torch.nn.functional.pad(uc, (0, (-d) % ma.TILE)).contiguous()
+        if not (torch.equal(na.client_sqnorms_cuda(shifted_copy(torch, uc)), sq)
+                and torch.equal(na.client_sqnorms_cuda(padded), sq)):
+            raise AssertionError(f"client_sqnorms at ({c}, {d}) differs shifted by one "
+                                 f"element or zero-padded")
+        libraries = {
+            "torch.einsum": lambda uc=uc: torch.einsum("cd,cd->c", uc, uc),
+            "torch.linalg.vecdot": lambda uc=uc: torch.linalg.vecdot(uc, uc, dim=1),
+            "torch.bmm": lambda uc=uc: torch.bmm(uc[:, None, :], uc[:, :, None]),
+        }
+        lib_ms = {name: time_ms(fn, torch, flush) for name, fn in libraries.items()}
+        fastest = min(lib_ms, key=lib_ms.get)
+        res = timed("client_sqnorms", c, None, lambda uc=uc: na.client_sqnorms_cuda(uc),
+                    lambda uc=uc: ops.client_sqnorms(uc),
+                    lambda uc=uc: na.client_sqnorms_ref(uc), libraries[fastest],
+                    (c * d + c) * 4, 2 * c * d, err)
+        res.update({"library": fastest, "library_yardsticks_ms": lib_ms})
+        print(f"kernel timing client_sqnorms at ({c}, {d}) f32: library yardsticks {lib_ms} "
+              f"ms (fastest {fastest})")
+        out[f"client_sqnorms@{c}"] = ((c, d), err, res)
 
     u4, s4 = inputs(4, d, torch.float32, False)
     sq, agg = na.norm_scale_aggregate_cuda(u4, s4)
@@ -561,17 +574,8 @@ def norm_kernel_phase(torch, dev, flush):
 
     # the profiler's launches per call and device time, from a process of
     # its own (see norm_profile)
-    prof = profile_in_child("norm")
-    for key, names in prof["launches"].items():
-        print(f"kernel launches per call of {key} (profiler window around one call): "
-              f"{len(names)} ({names})")
-        if key.startswith(("ops.norm_scale_aggregate", "ops.compress_norm_scale_aggregate")) \
-                and len(names) != 1:
-            raise AssertionError(f"{key}: {len(names)} device kernels per call, want 1")
-    for key, res in prof["timing"].items():
-        out[key][2].update(res)
-        print(f"kernel device time {key} (profiler, mean of {PROFILE_REPS}, L2 flushed): "
-              f"{res['device_ms']} ms; {res['launches_per_call']} launches per call")
+    merge_norm_profile(out, ("ops.client_sqnorms", "ops.norm_scale_aggregate",
+                             "ops.compress_norm_scale_aggregate"))
 
     def entry(name, replaces, key):
         shape, err, res = out[key]
@@ -588,8 +592,10 @@ def norm_kernel_phase(torch, dev, flush):
     k4.update({"vmap_shape": [32, d], "vmap_ms": vm["ms"], "vmap_device_ms": vm["device_ms"],
                "vmap_path_ms": vm["path_ms"], "vmap_plain_ms": vm["plain_ms"],
                "vmap_bound_ms": vm["bound_ms"]})
+    k2 = entry("client_sqnorms", "src/repro/kernels/client_norm.py:34", "client_sqnorms@32")
+    k2["at_4"] = {"shape": [4, d], **out["client_sqnorms@4"][2]}
     return [
-        entry("client_sqnorms", "src/repro/kernels/client_norm.py:34", "client_sqnorms"),
+        k2,
         entry("norm_scale_aggregate", "src/repro/kernels/norm_aggregate.py:62",
               "norm_scale_aggregate"),
         k4,
@@ -605,17 +611,18 @@ def shifted_copy(torch, x):
 
 
 def norm_profile(torch, dev) -> dict:
-    """The norm kernels under torch.profiler, in ONE window: each fused
-    kernel (all four kinds, f32 and bf16, at (32, 58430)) called once alone,
-    whose device kernels are its launches per call; then kernels 2-4 at the
-    path shapes, each called once alone and PROFILE_REPS times after an L2
-    flush, for their device time.  Run in a process of its own
-    (:func:`profile_in_child`)."""
+    """The norm kernels under torch.profiler, in ONE window: each one-launch
+    kernel's ops call (kernels 3, 4 and 6 at all four kinds, kernel 2; f32
+    and bf16, at (32, 58430); kernel 6 rand-k also at 129 and 1,024 clients)
+    called once alone, whose device kernels are its launches per call; then
+    kernels 2, 3, 4 and 6 at the path shapes, each called once alone and
+    PROFILE_REPS times after an L2 flush, for their device time.  Run in a
+    process of its own (:func:`profile_in_child`)."""
     from repro_torch import rng
     from repro_torch.core.compression import client_material
-    from repro_torch.kernels import masked_aggregate as ma
     from repro_torch.kernels import norm_aggregate as na
     from repro_torch.kernels import ops
+    from repro_torch.kernels import sharded_aggregate as sa
 
     d = 58430
     gen = torch.Generator(device="cpu").manual_seed(2)
@@ -628,34 +635,52 @@ def norm_profile(torch, dev) -> dict:
         mats = tuple(m["u"].contiguous() for m in client_material({"u": u}, keys, kind, param))
         return u, s, mats
 
+    def shard(u, s, mats, kind, param):
+        return lambda: ops.shard_compress_aggregate(u, s, mats, kind, param)
+
     alone = {}
     for dtype in (torch.float32, torch.bfloat16):
         for kind, param in (("none", 0.0), ("randk", 0.1), ("qsgd", 8.0), ("natural", 0.0)):
             u, s, mats = inputs(32, kind, param, dtype)
-            tag = f"{kind} {str(dtype).split('.')[-1]} (32, {d})"
+            name = str(dtype).split('.')[-1]
+            tag = f"{kind} {name} (32, {d})"
             alone[f"ops.compress_norm_scale_aggregate {tag}"] = (
                 lambda u=u, s=s, mats=mats, kind=kind, param=param:
                 ops.compress_norm_scale_aggregate(u, s, mats, kind, param))
+            alone[f"ops.shard_compress_aggregate {tag}"] = shard(u, s, mats, kind, param)
             if kind == "none":
                 alone[f"ops.norm_scale_aggregate {tag}"] = (
                     lambda u=u, s=s: ops.norm_scale_aggregate(u, s))
-    dp = d + (-d) % ma.TILE
-    u32 = torch.nn.functional.pad(inputs(32, "none", 0.0, torch.float32)[0], (0, dp - d))
+                alone[f"ops.client_sqnorms {name} (32, {d})"] = (
+                    lambda u=u: ops.client_sqnorms(u))
+    big = {k: inputs(k, "randk", 0.1, torch.float32) for k in (129, 1024)}
+    for k, (u, s, mats) in big.items():
+        alone[f"ops.shard_compress_aggregate randk float32 ({k}, {d})"] = shard(
+            u, s, mats, "randk", 0.1)
     u4, s4, _ = inputs(4, "none", 0.0, torch.float32)
-    timed = {"client_sqnorms": lambda: na.client_sqnorms_cuda(u32),
-             "norm_scale_aggregate": lambda: ops.norm_scale_aggregate(u4, s4)}
+    timed = {"norm_scale_aggregate": lambda: ops.norm_scale_aggregate(u4, s4)}
+    for c in (32, 4):
+        uc = inputs(c, "none", 0.0, torch.float32)[0]
+        timed[f"client_sqnorms@{c}"] = lambda uc=uc: ops.client_sqnorms(uc)
     for c in (4, 32):
         uc, sc, mats = inputs(c, "randk", 0.1, torch.float32)
         timed[f"compress_norm_scale_aggregate@{c}"] = (
             lambda uc=uc, sc=sc, mats=mats:
             ops.compress_norm_scale_aggregate(uc, sc, mats, "randk", 0.1))
+    for c in (32, 8):
+        timed[f"shard_compress_aggregate@{c}"] = shard(*inputs(c, "randk", 0.1, torch.float32),
+                                                       "randk", 0.1)
+    timed["shard_compress_aggregate@1024"] = shard(*big[1024], "randk", 0.1)
+    for kind, param in (("qsgd", 8.0), ("natural", 0.0)):
+        timed[f"shard_compress_aggregate {kind}@32"] = shard(
+            *inputs(32, kind, param, torch.float32), kind, param)
+    wrappers = (na.client_sqnorms_cuda, na.norm_scale_aggregate_cuda,
+                na.compress_norm_scale_aggregate_cuda, sa.sharded_compress_aggregate_cuda)
     counted = {}       # the wrappers' launch counts of one call
     for key, call in alone.items():
-        before = na.norm_scale_aggregate_cuda.launches + \
-            na.compress_norm_scale_aggregate_cuda.launches
+        before = sum(w.launches for w in wrappers)
         call()
-        counted[key] = (na.norm_scale_aggregate_cuda.launches
-                        + na.compress_norm_scale_aggregate_cuda.launches - before)
+        counted[key] = sum(w.launches for w in wrappers) - before
     segments = list(alone.values())
     for call in timed.values():
         segments += [call] + [lambda call=call: (flush.zero_(), call())] * PROFILE_REPS
@@ -675,6 +700,27 @@ def norm_profile(torch, dev) -> dict:
     return out
 
 
+def merge_norm_profile(out, prefixes) -> None:
+    """Read :func:`norm_profile` (run once, in a child): fail unless every
+    ops call whose name starts with one of ``prefixes`` ran one device
+    kernel and counted one launch on its wrapper; merge the device times of
+    the keys of ``out`` into it."""
+    prof = profile_in_child("norm")
+    for key, names in prof["launches"].items():
+        if not key.startswith(tuple(f"{p} " for p in prefixes)):
+            continue
+        print(f"kernel launches per call of {key} (profiler window around one call): "
+              f"{len(names)} ({names}); wrapper count {prof['counted'][key]}")
+        if len(names) != 1 or prof["counted"][key] != 1:
+            raise AssertionError(f"{key}: {len(names)} device kernels and "
+                                 f"{prof['counted'][key]} counted launches per call, want 1")
+    for key, res in prof["timing"].items():
+        if key in out:
+            out[key][2].update(res)
+            print(f"kernel device time {key} (profiler, mean of {PROFILE_REPS}, L2 flushed): "
+                  f"{res['device_ms']} ms; {res['launches_per_call']} launches per call")
+
+
 def ssd_profile(torch, dev) -> dict:
     """{str((B, S, H, P, N)): {pass: device us per call}} of kernel 8 on the
     model's views at the serve paths' shapes (:func:`_ssd_pass_times`).
@@ -691,19 +737,24 @@ def ssd_profile(torch, dev) -> dict:
     return out
 
 
+_PROFILES: dict = {}
+
+
 def profile_in_child(name: str) -> dict:
     """The JSON of ``chip_smoke.py --profile NAME`` (:func:`norm_profile` or
-    :func:`ssd_profile`), run in a process of its own.  On the H100 (torch
-    2.11) a torch.profiler window in a process that has run for a while can
-    lose device events (some windows see none, some a part; a host sleep in
-    the window does not help), while a young process's windows were whole in
-    every run: so the windows whose counts and device times a phase reports
-    run there."""
-    child = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--profile", name],
-                           capture_output=True, text=True, timeout=600, cwd=ROOT)
-    if child.returncode:
-        raise AssertionError(f"the {name} profiler pass failed:\n{child.stderr[-3000:]}")
-    return json.loads(child.stdout.strip().splitlines()[-1])
+    :func:`ssd_profile`), run once in a process of its own.  On the H100
+    (torch 2.11) a torch.profiler window in a process that has run for a
+    while can lose device events (some windows see none, some a part; a host
+    sleep in the window does not help), while a young process's windows were
+    whole in every run: so the windows whose counts and device times a phase
+    reports run there."""
+    if name not in _PROFILES:
+        child = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--profile", name],
+                               capture_output=True, text=True, timeout=600, cwd=ROOT)
+        if child.returncode:
+            raise AssertionError(f"the {name} profiler pass failed:\n{child.stderr[-3000:]}")
+        _PROFILES[name] = json.loads(child.stdout.strip().splitlines()[-1])
+    return _PROFILES[name]
 
 
 def profile_segments(torch, segments, tries=3) -> list:
@@ -827,7 +878,6 @@ def shard_kernel_phase(torch, dev, flush):
           f"(its norms == client_sqnorms), and a relaunch gives equal results")
 
     for bad in (torch.zeros((512, 4), device=dev).t(),                  # not contiguous
-                torch.zeros((4, 7), device=dev),                        # D not a multiple of 4
                 torch.zeros((4, 512), device=dev, dtype=torch.float16)):  # dtype
         s4 = torch.zeros(bad.shape[0], device=dev)
         for call in (lambda: sa.sharded_masked_aggregate_cuda(bad, s4),
@@ -839,63 +889,111 @@ def shard_kernel_phase(torch, dev, flush):
             else:
                 raise AssertionError(f"a sharded wrapper took {tuple(bad.shape)} "
                                      f"{bad.dtype} stride {bad.stride()}")
-    print("kernel check: the sharded wrappers reject a non-contiguous matrix, D % 4 != 0 "
-          "and float16")
+    # D % 4 != 0 and rows one element off: kernel 5 rejects them (its ops
+    # wrapper pads), kernel 6 takes them, bitwise its zero-padded result
+    for odd in (inputs(4, 7, torch.float32)[0], shifted_copy(torch, inputs(4, 512,
+                                                                          torch.float32)[0])):
+        s4 = torch.rand(4, device=dev)
+        mats = (torch.rand(odd.shape, device=dev),)
+        pad = (-odd.shape[1]) % ma.TILE
+        try:
+            sa.sharded_masked_aggregate_cuda(odd, s4)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"sharded_masked_aggregate took {tuple(odd.shape)} at an "
+                                 f"odd width or start")
+        sq6, agg6 = sa.sharded_compress_aggregate_cuda(odd, s4, mats, "randk", 0.1)
+        sq6p, agg6p = sa.sharded_compress_aggregate_cuda(
+            torch.nn.functional.pad(odd, (0, pad)).contiguous(), s4,
+            tuple(torch.nn.functional.pad(m, (0, pad)) for m in mats), "randk", 0.1)
+        if not (torch.equal(sq6, sq6p) and torch.equal(agg6, agg6p[:odd.shape[1]])):
+            raise AssertionError(f"sharded_compress_aggregate at {tuple(odd.shape)} is not "
+                                 f"its zero-padded result")
+    print("kernel check: the sharded wrappers reject a non-contiguous matrix and float16; "
+          "sharded_masked_aggregate rejects D % 4 != 0 and rows one element off, which "
+          "sharded_compress_aggregate takes (bitwise its zero-padded result)")
 
     d = 58430
     dp = d + (-d) % ma.TILE
-    out = {}
+    floor_ms = time_ms(lambda: torch.cuda._sleep(1), torch, flush)
+    out5, out6 = {}, {}
     for c in (32, 8, 1024):
+        # kernel 5 keeps its padded route (ops pads)
         u, s = inputs(c, d, torch.float32, False)
-        u = torch.nn.functional.pad(u, (0, dp - d)).contiguous()
-        got = sa.sharded_masked_aggregate_cuda(u, s)
+        up = torch.nn.functional.pad(u, (0, dp - d)).contiguous()
+        got = sa.sharded_masked_aggregate_cuda(up, s)
         err5 = check_close("sharded_masked_aggregate path shape", got,
-                           sa.sharded_masked_aggregate_ref(u, s), u, s, RTOL, ATOL)
+                           sa.sharded_masked_aggregate_ref(up, s), up, s, RTOL, ATOL)
         b5 = bound((c * dp + c + dp) * 4, 2 * c * dp)
-        t5 = (time_ms(lambda: sa.sharded_masked_aggregate_cuda(u, s), torch, flush),
-              time_ms(lambda: sa.sharded_masked_aggregate_ref(u, s), torch, flush),
-              time_ms(lambda: torch.matmul(s, u), torch, flush))
-        mats = tuple(torch.nn.functional.pad(m, (0, dp - d)).contiguous()
-                     for m in material(u[:, :d], "randk", 0.1, seed=c))
-        sq, agg = sa.sharded_compress_aggregate_cuda(u, s, mats, "randk", 0.1)
-        want_sq, want_agg = sa.sharded_compress_aggregate_ref(u, s, mats, "randk", 0.1)
-        err6 = max(check_sq("sharded_compress_aggregate path shape", sq, want_sq, RTOL),
-                   check_close("sharded_compress_aggregate path shape", agg, want_agg,
-                               u * mats[0], s, RTOL, ATOL))
-        b6 = bound((2 * c * dp + c + c + dp) * 4, 5 * c * dp)
-        t6 = (time_ms(lambda: sa.sharded_compress_aggregate_cuda(u, s, mats, "randk", 0.1),
-                      torch, flush),
-              time_ms(lambda: sa.sharded_compress_aggregate_ref(u, s, mats, "randk", 0.1),
-                      torch, flush))
+        t5 = (time_ms(lambda: sa.sharded_masked_aggregate_cuda(up, s), torch, flush),
+              time_ms(lambda: sa.sharded_masked_aggregate_ref(up, s), torch, flush),
+              time_ms(lambda: torch.matmul(s, up), torch, flush))
         print(f"kernel timing sharded_masked_aggregate at ({c}, {dp}) f32 (median of "
               f"{TIMING_REPS}, L2 flushed): kernel {t5[0]} ms, plain {t5[1]} ms, "
               f"torch.matmul {t5[2]} ms, kernel / torch.matmul {t5[0] / t5[2]}; bound "
               f"{b5[0]} ms ({b5[1]}); max abs err {err5}; {card_line()}")
-        print(f"kernel timing sharded_compress_aggregate randk at ({c}, {dp}) f32 (median "
-              f"of {TIMING_REPS}, L2 flushed): kernel {t6[0]} ms, plain {t6[1]} ms, "
-              f"library none; bound {b6[0]} ms ({b6[1]}); max abs err {err6}")
-        out[c] = (err5, t5, b5, err6, t6, b6)
+        out5[c] = {"shape": [c, dp], "max_abs_err": err5, "ms": t5[0], "plain_ms": t5[1],
+                   "library_ms": t5[2], "bound_ms": b5[0], "bound_by": b5[1]}
+        # kernel 6 on the unpadded (k, 58430) matrices the mesh round passes
+        kinds = (("randk", 0.1), ("qsgd", 8.0), ("natural", 0.0)) if c == 32 else (("randk", 0.1),)
+        for kind, param in kinds:
+            mats = tuple(m.contiguous() for m in material(u, kind, param, seed=c))
+            sq, agg = sa.sharded_compress_aggregate_cuda(u, s, mats, kind, param)
+            want_sq, want_agg = sa.sharded_compress_aggregate_ref(u, s, mats, kind, param)
+            xc = apply_compression_flat(u, kind, param, *mats)
+            err6 = max(check_sq("sharded_compress_aggregate path shape", sq, want_sq, RTOL),
+                       check_close("sharded_compress_aggregate path shape", agg, want_agg,
+                                   xc, s, RTOL, ATOL))
+            sq_x, agg_x = sa.sharded_compress_aggregate_cuda(
+                shifted_copy(torch, u), s, tuple(shifted_copy(torch, m) for m in mats), kind,
+                param)
+            sq4, agg4 = ops.compress_norm_scale_aggregate(u, s, mats, kind, param)
+            if not (torch.equal(sq_x, sq) and torch.equal(agg_x, agg) and torch.equal(sq4, sq)
+                    and (c > sa.BLOCK_CLIENTS or torch.equal(agg4, agg))):
+                raise AssertionError(f"sharded_compress_aggregate {kind} at ({c}, {d}) is not "
+                                     f"bitwise kernel 4's, or differs shifted by one element")
+            if kind == "randk":
+                _, agg6n = ops.shard_compress_aggregate(u, s, (), "none", 0.0)
+                if not torch.equal(agg6n, ops.shard_masked_aggregate(u, s)):
+                    raise AssertionError(f"sharded_compress_aggregate none at ({c}, {d}) is "
+                                         f"not bitwise kernel 5's aggregate")
+            bound6 = bound(((1 + len(mats)) * c * d + c + c + d) * 4, 5 * c * d)
+            k_ms = time_ms(lambda: sa.sharded_compress_aggregate_cuda(u, s, mats, kind, param),
+                           torch, flush)
+            path_ms = time_ms(lambda: ops.shard_compress_aggregate(u, s, mats, kind, param),
+                              torch, flush)
+            p_ms = time_ms(lambda: sa.sharded_compress_aggregate_ref(u, s, mats, kind, param),
+                           torch, flush)
+            print(f"kernel timing sharded_compress_aggregate {kind} at ({c}, {d}) f32 (median "
+                  f"of {TIMING_REPS}, L2 flushed): kernel {k_ms} ms by events, the ops call "
+                  f"{path_ms} ms; plain {p_ms} ms, library none; bound {bound6[0]} ms "
+                  f"({bound6[1]}); launch floor {floor_ms} ms; max abs err {err6}")
+            key = f"shard_compress_aggregate@{c}" if kind == "randk" else \
+                f"shard_compress_aggregate {kind}@{c}"
+            out6[key] = ((c, d), err6, {
+                "ms": k_ms, "path_ms": path_ms, "plain_ms": p_ms, "library_ms": None,
+                "bound_ms": bound6[0], "bound_by": bound6[1], "floor_ms": floor_ms})
+    print(f"kernel check: at the path shapes sharded_compress_aggregate is bitwise kernel 4's "
+          f"norms (and aggregate at k <= {sa.BLOCK_CLIENTS}), kernel 5's aggregate for kind "
+          f"none, on aligned rows and shifted by one element")
+    merge_norm_profile(out6, ("ops.shard_compress_aggregate",))
 
-    def entry(name, replaces, i):
-        err, t, b = out[32][i:i + 3]
-        row = {
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/sharded_aggregate.cu",
-            "replaces": replaces, "shape": [32, dp], "launches": None,
-            "max_abs_err": max(out[c][i] for c in out), "ms": t[0], "plain_ms": t[1],
-            "bound_ms": b[0], "bound_by": b[1],
-            "library_ms": t[2] if len(t) > 2 else None,
-        }
-        for c in (8, 1024):
-            ec, tc, bc = out[c][i:i + 3]
-            row[f"at_{c}"] = {"shape": [c, dp], "ms": tc[0], "plain_ms": tc[1],
-                              "library_ms": tc[2] if len(tc) > 2 else None,
-                              "bound_ms": bc[0], "bound_by": bc[1]}
-        return row
-
-    return [entry("sharded_masked_aggregate", "src/repro/kernels/sharded_aggregate.py:68", 0),
-            entry("sharded_compress_aggregate", "src/repro/kernels/sharded_aggregate.py:140",
-                  3)]
+    source = "src/repro_torch/kernels/csrc/sharded_aggregate.cu"
+    k5 = {"name": "sharded_masked_aggregate", "route": "cuda", "source": source,
+          "replaces": "src/repro/kernels/sharded_aggregate.py:68", "launches": None,
+          **{k: v for k, v in out5[32].items()},
+          "max_abs_err": max(o["max_abs_err"] for o in out5.values()),
+          **{f"at_{c}": out5[c] for c in (8, 1024)}}
+    shape, _, res = out6["shard_compress_aggregate@32"]
+    k6 = {"name": "sharded_compress_aggregate", "route": "cuda", "source": source,
+          "replaces": "src/repro/kernels/sharded_aggregate.py:140", "shape": list(shape),
+          "launches": None, "max_abs_err": max(err for _, err, _ in out6.values()), **res}
+    for key, (shape, _, res) in out6.items():
+        kind, c = key.removeprefix("shard_compress_aggregate").strip().split("@")
+        if key != "shard_compress_aggregate@32":
+            k6[f"{kind}_at_{c}" if kind else f"at_{c}"] = {"shape": list(shape), **res}
+    return [k5, k6]
 
 
 def _max_err(got, want) -> float:
@@ -1665,8 +1763,9 @@ def mesh4_phase(torch, out_dir):
         if r["counts"] != want or r["backend"] != "gloo" or r["device"] != "cuda:0":
             raise AssertionError(f"rank {r['rank']}: launches {r['counts']} on {r['backend']} "
                                  f"{r['device']}, want {want} on gloo cuda:0")
-        if len(r["shapes"]) != MESH4_ROUNDS or {s[0] for s in r["shapes"]} != {k}:
-            raise AssertionError(f"rank {r['rank']}: kernel shapes {r['shapes']}")
+        if len(r["shapes"]) != MESH4_ROUNDS or set(r["shapes"]) != {(k, 58430)}:
+            raise AssertionError(f"rank {r['rank']}: kernel shapes {r['shapes']}, want the "
+                                 f"unpadded ({k}, 58430)")
         if r["doc"] != doc0:
             raise AssertionError(f"rank {r['rank']}: its ledger differs from rank 0's")
         for name, p in r["params"].items():
@@ -1685,7 +1784,7 @@ def mesh4_phase(torch, out_dir):
     print(f"mesh 4 ranks sharing one card (gloo, every rank on cuda:0): {SHARD_RANDK_CELL} "
           f"at full width, {MESH4_ROUNDS} rounds in {secs:.1f} s with the ranks' start; each "
           f"rank launched sharded_compress_aggregate once per round at {ranks[0]['shapes'][0]} "
-          f"(D 58430 padded); ledgers, masks and parameters equal across the ranks; the first "
+          f"(unpadded); ledgers, masks and parameters equal across the ranks; the first "
           f"round's mask equals the world-size-1 run's; later rounds whose mask differs from "
           f"it: {later} of {MESH4_ROUNDS - 1}; max |param - world-size-1 param| after the last "
           f"round {err}")
@@ -2011,7 +2110,7 @@ def shard_breakdown_phase(torch):
             laps.lap("aggregate: tree -> matrix")
             _, part = ops.shard_compress_aggregate(flat, plan.scale, mat_flats,
                                                    fl.compression, fl.compression_param)
-            laps.lap("aggregate: pad + kernel (sharded_compress_aggregate)")
+            laps.lap("aggregate: kernel (sharded_compress_aggregate, one launch)")
             agg = mesh.all_reduce(part)
             laps.lap("all_reduce of the (D,) partial")
             aggregate = ops.client_matrix_to_tree(agg, params, strip_client_axis=False)

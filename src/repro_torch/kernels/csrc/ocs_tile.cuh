@@ -5,23 +5,27 @@
 // Layout: U is a contiguous client-major (C, D) matrix.  A CTA of kThreads
 // threads covers kThreads * kCols adjacent columns (the tile); each thread owns
 // kCols of them and reads one 16-byte (f32) or 8-byte (bf16) vector per
-// client (norm_aggregate.cu's fused kernel: narrower vectors where the rows'
-// alignment asks, and zeros past D).  The grid is 1-D over D.
+// client (load_row: narrower vectors where the rows' alignment asks, and
+// zeros past D).  The grid's x axis runs over D.
 //
 // Reductions, both with a fixed order and no atomics on values:
 // * aggregate (over C): the column's owning thread sums the clients in order
 //   i = 0..C-1 with fmaf into an f32 register (agg_step), so every kernel
 //   that uses it gives bitwise the same aggregate for the same tile values;
 //   fold_clients runs that fold with the loads of kClientBlock clients in
-//   registers before any of them is folded;
+//   registers before any of them is folded, block_step with those of a
+//   smaller block of clients, their material, and their norm partials;
 // * squared norm (over D, so across CTAs): each thread squares its kCols
 //   values (col_sqnorm), a warp sums its 32 threads with a shuffle tree
 //   (warp_sum), lane 0 writes one partial per (client, CTA, warp), and each
-//   client's partials are summed in one fixed order: by a second kernel
-//   (finish_sqnorms), or inside the same launch by the CTA that finishes
-//   last (warp_finish_sqnorms, the same order in one warp).  Every
-//   norm-emitting kernel uses these same stages, so the norms agree bitwise
-//   between kernels for the same tile values.
+//   client's partials are summed in one fixed order inside the same launch
+//   by the CTA that draws the last ticket (last_ticket, cta_finish_sqnorms).
+//   The order is that of the earlier second launch, which gave a client one
+//   CTA of kThreads threads: thread t summed partials t, t + kThreads, ...
+//   in turn, then a shared-memory tree over the kThreads threads
+//   (warp_finish_sqnorms repeats it in one warp).  Every norm-emitting
+//   kernel uses these same stages, so the norms agree bitwise between
+//   kernels for the same tile values.
 //
 // The compressor (compress4) is core/compression.py::apply_compression_flat
 // op for op.  Its arithmetic is written with __fmul_rn / __fdiv_rn /
@@ -165,30 +169,10 @@ __device__ __forceinline__ float4 compress4(const float4& x, const float4& m0,
       to_transport(compress1<Kind>(x.w, m0.w, m1.w, levels, inv_levels), tag));
 }
 
-// Sum each client's `parts` partials in a fixed order: one CTA per client;
-// thread t sums partials t, t + kThreads, ... in turn, then a shared-memory
-// tree of kThreads.  No atomics.
-__global__ void __launch_bounds__(kThreads)
-finish_sqnorms(const float* __restrict__ partials, float* __restrict__ out,
-               int parts) {
-  __shared__ float s[kThreads];
-  const float* p = partials + static_cast<long long>(blockIdx.x) * parts;
-  float v = 0.f;
-  for (int j = threadIdx.x; j < parts; j += kThreads) v = __fadd_rn(v, p[j]);
-  s[threadIdx.x] = v;
-  __syncthreads();
-#pragma unroll
-  for (int w = kThreads / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) s[threadIdx.x] = __fadd_rn(s[threadIdx.x], s[threadIdx.x + w]);
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[blockIdx.x] = s[0];
-}
-
-// One client's finish_sqnorms in one warp, for the in-launch finish.  Lane l
-// stands for finish_sqnorms's threads l + 32 q (q = 0..3): it sums partials
-// l + 32 q + kThreads j for j = 0, 1, ... in turn, as those threads do;
-// (q0 + q2) + (q1 + q3) is that tree's steps 64 and 32, and warp_sum's
+// One client's norm in one warp, in the order of the header's kThreads-thread
+// finish.  Lane l stands for its threads l + 32 q (q = 0..3): it sums
+// partials l + 32 q + kThreads j for j = 0, 1, ... in turn, as those threads
+// did; (q0 + q2) + (q1 + q3) is that tree's steps 64 and 32, and warp_sum's
 // steps 16..1 leave its s[0] in lane 0.  kClients clients (client k's
 // partials at p + k * stride) at once, kRows rows of kThreads partials each,
 // so that many loads are in flight; the loads go through L2 (__ldcg), since
@@ -238,6 +222,145 @@ __device__ __forceinline__ void warp_finish_sqnorms(float (&out)[kClients], cons
 #pragma unroll
     for (int k = 0; k < kClients; ++k) {
       out[k] = __fadd_rn(out[k], __shfl_xor_sync(0xffffffffu, out[k], off));
+    }
+  }
+}
+
+// The thread's 4 columns (col..col+3) of one row at p (the row's column
+// col), zeros past d.  V (2 or 1) elements per load; V divides d, so a load
+// lies wholly inside the row or wholly past it.  (16-byte loads of 4 f32
+// elements ran slower in block_step's kernels on the H100 than two 8-byte
+// ones, at 32 and at 1,024 clients; the wrappers do not offer them.)
+template <int V>
+__device__ __forceinline__ float4 load_row(const float* p, long long col, int d) {
+  float v[4];
+#pragma unroll
+  for (int k = 0; k < 4; k += V) {
+    if constexpr (V == 2) {
+      const float2 t = col + k < d ? *reinterpret_cast<const float2*>(p + k)
+                                   : make_float2(0.f, 0.f);
+      v[k] = t.x;
+      v[k + 1] = t.y;
+    } else {
+      v[k] = col + k < d ? p[k] : 0.f;
+    }
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+template <int V>
+__device__ __forceinline__ float4 load_row(const __nv_bfloat16* p, long long col, int d) {
+  float v[4];
+#pragma unroll
+  for (int k = 0; k < 4; k += V) {
+    if constexpr (V == 2) {
+      const float2 t =
+          col + k < d ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + k))
+                      : make_float2(0.f, 0.f);
+      v[k] = t.x;
+      v[k + 1] = t.y;
+    } else {
+      v[k] = col + k < d ? __bfloat162float(p[k]) : 0.f;
+    }
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// out[col..col+3] = acc, cut at d (out is a 16-byte aligned (d,) vector)
+__device__ __forceinline__ void store_row(float* out, const float4& acc, long long col, int d) {
+  if (col + kCols <= d) {
+    *reinterpret_cast<float4*>(out + col) = acc;
+  } else {
+    const float v[4] = {acc.x, acc.y, acc.z, acc.w};
+    for (int k = 0; col + k < d; ++k) out[col + k] = v[k];
+  }
+}
+
+// One register block of the client axis: the loads of up to kBlock clients
+// (rows j = 0..n-1 at element offset off + j * d of U and of the kind's
+// material) are issued before any of them is compressed; then, client by
+// client in order, compress4 and, with kFold, agg_step into acc with
+// scale[j]; the kBlock warp_sum trees run interleaved, step by step, and
+// lane 0 writes client j's partial to part[j * parts].  Lanes past d take
+// zeros, so every lane joins the shuffles.
+template <int Kind, int V, int kBlock, bool kFold, typename T>
+__device__ __forceinline__ void block_step(float4& acc, const T* __restrict__ u,
+                                           const float* __restrict__ m0,
+                                           const float* __restrict__ m1, long long off,
+                                           int n, long long col, int d, bool live,
+                                           const float* scale, float* part, long long parts,
+                                           int lane, float levels, float inv_levels) {
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 x[kBlock], a[kBlock], b[kBlock];
+#pragma unroll
+  for (int j = 0; j < kBlock; ++j) {
+    x[j] = zero;
+    a[j] = zero;
+    b[j] = zero;
+    if (live && j < n) {
+      const long long o = off + static_cast<long long>(j) * d;
+      x[j] = load_row<V>(u + o, col, d);
+      if constexpr (Kind != kNone) a[j] = load_row<V>(m0 + o, col, d);
+      if constexpr (Kind == kQsgd) b[j] = load_row<V>(m1 + o, col, d);
+    }
+  }
+  float p[kBlock];
+#pragma unroll
+  for (int j = 0; j < kBlock; ++j) {
+    if (live && j < n) {
+      x[j] = compress4<Kind>(x[j], a[j], b[j], levels, inv_levels, u);
+      if constexpr (kFold) agg_step(acc, scale[j], x[j]);
+    }
+    p[j] = col_sqnorm(x[j]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int j = 0; j < kBlock; ++j) {
+      if (j < n) p[j] = __fadd_rn(p[j], __shfl_xor_sync(0xffffffffu, p[j], o));
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < kBlock; ++j) {
+      if (j < n) part[static_cast<long long>(j) * parts] = p[j];
+    }
+  }
+}
+
+// After the CTA's writes, a ticket on *counter (the only atomic, and on a
+// counter, not a value): true in every thread of the CTA that draws the
+// last of `total`, which may then read, through L2 (__ldcg), what the other
+// CTAs of the count wrote before theirs.  Called by every thread.
+__device__ __forceinline__ bool last_ticket(unsigned int* counter, unsigned int total) {
+  __shared__ bool s_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(counter, 1u) == total - 1;
+  __syncthreads();
+  const bool last = s_last;
+  if (last) __threadfence();
+  return last;
+}
+
+// Clients 0..c-1's norms from their partials (client i's `parts` partials
+// at p + i * parts) into sq: warp w finishes clients w, w + kWarps, ...,
+// kFinishClients at a time (warp_finish_sqnorms, kFinishRows rows of
+// kThreads partials per load round); lane 0 writes.
+__device__ __forceinline__ void cta_finish_sqnorms(const float* p, float* sq, int c, int parts,
+                                                   int warp, int lane) {
+  constexpr int kFinishClients = 4;
+  constexpr int kFinishRows = 4;
+  for (int i0 = warp; i0 < c; i0 += kWarps * kFinishClients) {
+    float s[kFinishClients];
+    warp_finish_sqnorms<kFinishClients, kFinishRows>(
+        s, p + static_cast<long long>(i0) * parts, static_cast<long long>(kWarps) * parts,
+        parts, (c - i0 + kWarps - 1) / kWarps, lane);
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < kFinishClients; ++k) {
+        if (i0 + k * kWarps < c) sq[i0 + k * kWarps] = s[k];
+      }
     }
   }
 }

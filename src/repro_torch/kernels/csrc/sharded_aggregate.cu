@@ -14,36 +14,54 @@
 // for large local blocks and accumulate each output chunk in VMEM across the
 // sequential client-block steps.  Here CTAs run in parallel and in no order,
 // so the grid is (D tiles, client blocks of kBlockClients): each CTA folds
-// its block's clients in order into f32 registers (ocs::agg_step).  With one
-// client block the CTA writes the output, so at k <= kBlockClients the
-// aggregate is bitwise masked_aggregate.cu's (and norm_aggregate.cu's) for
-// the same tile values; with more, each CTA writes its block's (D,) partial
-// and sum_blocks adds the partials in block order.  No atomics on values.
+// its block's clients in order into f32 registers (ocs::agg_step).  The
+// client fold is never split across CTAs, so with one client block the CTA
+// writes the output and the aggregate is bitwise masked_aggregate.cu's (and
+// norm_aggregate.cu's) for the same tile values; with more, each CTA writes
+// its block's partial of its tile, and the blockpart partials are added in
+// block order (acc = part[0], then __fadd_rn of part[1], part[2], ...).  No
+// atomics on values.
 //
 // Norms, as in norm_aggregate.cu: one partial per (client, D tile, warp)
-// through ocs::col_sqnorm and ocs::warp_sum, summed per client by
-// ocs::finish_sqnorms in a fixed order.  Each client lies in exactly one
-// client block, so its norm is a sum over D only, taken in the order of
+// through ocs::col_sqnorm and ocs::warp_sum, summed per client in the fixed
+// order of ocs::cta_finish_sqnorms.  Each client lies in exactly one client
+// block, so its norm is a sum over D only, taken in the order of
 // compress_norm_scale_aggregate: the norms are that kernel's, bitwise, at
 // every k.
 //
-// Loads: the plain aggregate (sharded_masked_aggregate) folds its block
-// through ocs::fold_clients, kernel 1's register block: the loads of 32
-// clients are in flight before any is folded.  The compressed instances
-// issue the loads of kUnroll clients (updates and material) before they
-// fold any of them.  Every fold keeps the client order.
+// sharded_masked_aggregate (kernel 5) folds its block through
+// ocs::fold_clients, kernel 1's register block of 32 clients, on a padded
+// matrix, and adds the blocks' partials in a second launch (sum_blocks).
+//
+// sharded_compress_aggregate is one launch on the caller's unpadded
+// matrices, as norm_aggregate.cu's fused kernel: the block body is that
+// kernel's (ocs::block_step, 8 clients' loads of U and material in flight
+// through load_row<V>, zeros past D), and two kinds of ticket counter finish
+// inside the launch:
+// * one per client block, counting its D tiles: the CTA that draws the
+//   block's last ticket sums its <= 128 clients' norm partials
+//   (ocs::cta_finish_sqnorms) and sets the counter back to 0;
+// * at k > kBlockClients, one per D tile, counting the client blocks: the
+//   tile's last CTA adds the blocks' partials of its columns in block order,
+//   writes the output and sets the counter back to 0.
 //
 // Bound on an H100 SXM: device memory.  The kernels read the block (and its
 // material) once and write (D,) floats (and (k,) norms), against 2-5 flops
-// per element: at a rank's (32, 58880) f32 block that is 7.8 MB (2.3 us at
-// 3.35 TB/s) for the masked aggregate and 15.3 MB (4.6 us) for rand-k.
+// per element: at a rank's (32, 58430) f32 block that is 7.5 MB (2.2 us at
+// 3.35 TB/s) for the masked aggregate and 15.0 MB (4.5 us) for rand-k.
 //
 // Contract (checked by the Python wrapper): every matrix is contiguous
-// (k, D) with D % kCols == 0 and rows aligned to the vector load, scale is
-// (k,) f32, partials is (k, tile_blocks(D) * kWarps) f32 scratch, blockpart
-// is (ceil(k / kBlockClients), D) f32 scratch when k > kBlockClients (else
-// unused), 1 <= k <= 65535 * kBlockClients.  ops.py pads D with zeros to a
-// multiple of the tile.
+// (k, D); scale is (k,) f32; 1 <= k <= 65535 * kBlockClients.
+// sharded_masked_aggregate: D % kCols == 0 and rows aligned to the vector
+// load (ops.py pads D with zeros to a multiple of the tile); blockpart is
+// (ceil(k / kBlockClients), D) f32 scratch when k > kBlockClients (else
+// unused).  sharded_compress_aggregate: any D >= 1 and element-aligned rows,
+// with V (2 or 1) | D and V-element-aligned bases; partials is
+// (k, tile_blocks(D) * kWarps) f32 scratch; blockpart is
+// (ceil(k / kBlockClients), tile_blocks(D) * kThreads * kCols) f32 scratch
+// when k > kBlockClients (else unused); counters holds
+// ceil(k / kBlockClients) + tile_blocks(D) int32 that are 0 before the
+// launch (and after it), owned by the launch's stream.
 
 #include "ocs_tile.cuh"
 
@@ -52,17 +70,14 @@ namespace {
 using namespace ocs;
 
 constexpr int kBlockClients = 128;
+constexpr int kMinCtas = 1;   // shard_compress_kernel's CTAs per SM (launch bounds)
 
-// One CTA per (tile of kThreads * kCols columns, block of kBlockClients
-// clients).  Out-of-range threads take zeros, so every lane joins the
-// norms' shuffle.
-template <typename T, int Kind, bool kNorms>
+// sharded_masked_aggregate: one CTA per (tile of kThreads * kCols columns,
+// block of kBlockClients clients).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 shard_tile_kernel(const T* __restrict__ u, const float* __restrict__ scale,
-                  const float* __restrict__ m0, const float* __restrict__ m1,
-                  float* __restrict__ partials, float* __restrict__ out, int c,
-                  int d, float levels, float inv_levels) {
-  constexpr int kUnroll = Kind == kNone ? 8 : 4;   // the compressed instances
+                  float* __restrict__ out, int c, int d) {
   __shared__ float s_scale[kBlockClients];
   const int lo = blockIdx.y * kBlockClients;
   const int nc = min(kBlockClients, c - lo);
@@ -71,50 +86,10 @@ shard_tile_kernel(const T* __restrict__ u, const float* __restrict__ scale,
 
   const long long col =
       (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * kCols;
-  const bool live = col < d;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int parts = gridDim.x * kWarps;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 acc = zero;
-  if constexpr (Kind == kNone && !kNorms) {
-    if (live) fold_clients(acc, u + static_cast<long long>(lo) * d + col, d, s_scale, nc);
-  } else {
-    for (int i0 = 0; i0 < nc; i0 += kUnroll) {
-      float4 x[kUnroll], a[kUnroll], b[kUnroll];
-#pragma unroll
-      for (int j = 0; j < kUnroll; ++j) {
-        x[j] = zero;
-        a[j] = zero;
-        b[j] = zero;
-        if (live && i0 + j < nc) {
-          const long long off = static_cast<long long>(lo + i0 + j) * d + col;
-          x[j] = load_cols(u + off);
-          if (Kind != kNone) a[j] = load_cols(m0 + off);
-          if (Kind == kQsgd) b[j] = load_cols(m1 + off);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kUnroll; ++j) {
-        if (i0 + j >= nc) break;               // the same for every thread
-        float4 xc = zero;
-        if (live) {
-          xc = compress4<Kind>(x[j], a[j], b[j], levels, inv_levels, u);
-          agg_step(acc, s_scale[i0 + j], xc);
-        }
-        if (kNorms) {
-          const float p = warp_sum(col_sqnorm(xc));
-          if (lane == 0) {
-            partials[static_cast<long long>(lo + i0 + j) * parts +
-                     blockIdx.x * kWarps + warp] = p;
-          }
-        }
-      }
-    }
-  }
-  if (live) {
-    *reinterpret_cast<float4*>(out + static_cast<long long>(blockIdx.y) * d + col) = acc;
-  }
+  if (col >= d) return;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  fold_clients(acc, u + static_cast<long long>(lo) * d + col, d, s_scale, nc);
+  *reinterpret_cast<float4*>(out + static_cast<long long>(blockIdx.y) * d + col) = acc;
 }
 
 // out[col] = sum over client blocks j = 0..nblk-1 of part[j, col], in order
@@ -135,27 +110,82 @@ sum_blocks(const float* __restrict__ part, float* __restrict__ out, int nblk,
   *reinterpret_cast<float4*>(out + col) = acc;
 }
 
-template <typename T, int Kind, bool kNorms>
-int launch(const void* u, const void* scale, const void* m0, const void* m1,
-           void* partials, void* sq, void* blockpart, void* out, int c, int d,
-           float levels, float inv_levels, void* stream) {
+// sharded_compress_aggregate: one CTA per (tile of kThreads * kCols columns,
+// the last one partly past d; block of kBlockClients clients).  counters[y]
+// counts client block y's D tiles, counters[gridDim.y + x] D tile x's
+// client blocks (used at gridDim.y > 1 only).
+template <typename T, int Kind, int V>
+__global__ void __launch_bounds__(kThreads, kMinCtas)
+shard_compress_kernel(const T* __restrict__ u, const float* __restrict__ scale,
+                      const float* __restrict__ m0, const float* __restrict__ m1,
+                      float* __restrict__ partials, float* __restrict__ sq,
+                      float* __restrict__ blockpart, float* __restrict__ out,
+                      unsigned int* __restrict__ counters, int c, int d, float levels,
+                      float inv_levels) {
+  constexpr int kBlock = 8;           // clients whose loads a thread keeps in flight
+  __shared__ float s_scale[kBlockClients];
+  const int lo = blockIdx.y * kBlockClients;
+  const int nc = min(kBlockClients, c - lo);
+  for (int i = threadIdx.x; i < nc; i += kThreads) s_scale[i] = scale[lo + i];
+  __syncthreads();
+
+  const long long col =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * kCols;
+  const bool live = col < d;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int parts = gridDim.x * kWarps;
+  float* part = partials + static_cast<long long>(lo) * parts + blockIdx.x * kWarps + warp;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i0 = 0; i0 < nc; i0 += kBlock) {
+    block_step<Kind, V, kBlock, true>(acc, u, m0, m1,
+                                      static_cast<long long>(lo + i0) * d + col, nc - i0,
+                                      col, d, live, s_scale + i0,
+                                      part + static_cast<long long>(i0) * parts, parts, lane,
+                                      levels, inv_levels);
+  }
+  if (gridDim.y == 1) {
+    if (live) store_row(out, acc, col, d);
+  } else {
+    // the block's partial of the tile, rows at the tile-padded width; the
+    // tile's last CTA adds the blocks' partials in block order
+    const long long width = static_cast<long long>(gridDim.x) * kThreads * kCols;
+    *reinterpret_cast<float4*>(blockpart + blockIdx.y * width + col) = acc;
+    unsigned int* tile_count = counters + gridDim.y + blockIdx.x;
+    if (last_ticket(tile_count, gridDim.y)) {
+      if (live) {
+        float4 sum = __ldcg(reinterpret_cast<const float4*>(blockpart + col));
+        for (int j = 1; j < static_cast<int>(gridDim.y); ++j) {
+          const float4 v = __ldcg(reinterpret_cast<const float4*>(blockpart + j * width + col));
+          sum.x = __fadd_rn(sum.x, v.x);
+          sum.y = __fadd_rn(sum.y, v.y);
+          sum.z = __fadd_rn(sum.z, v.z);
+          sum.w = __fadd_rn(sum.w, v.w);
+        }
+        store_row(out, sum, col, d);
+      }
+      if (threadIdx.x == 0) *tile_count = 0u;
+    }
+  }
+  // the block's norms: its last CTA sums its clients' partials
+  if (last_ticket(counters + blockIdx.y, gridDim.x)) {
+    cta_finish_sqnorms(partials + static_cast<long long>(lo) * parts, sq + lo, nc, parts,
+                       warp, lane);
+    if (threadIdx.x == 0) counters[blockIdx.y] = 0u;
+  }
+}
+
+template <typename T>
+int launch_masked(const void* u, const void* scale, void* blockpart, void* out, int c, int d,
+                  void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int dblocks = tile_blocks(d);
   const int cblocks = (c + kBlockClients - 1) / kBlockClients;
   float* dst = static_cast<float*>(cblocks == 1 ? out : blockpart);
-  shard_tile_kernel<T, Kind, kNorms><<<dim3(dblocks, cblocks), kThreads, 0, s>>>(
-      static_cast<const T*>(u), static_cast<const float*>(scale),
-      static_cast<const float*>(m0), static_cast<const float*>(m1),
-      static_cast<float*>(partials), dst, c, d, levels, inv_levels);
+  shard_tile_kernel<T><<<dim3(dblocks, cblocks), kThreads, 0, s>>>(
+      static_cast<const T*>(u), static_cast<const float*>(scale), dst, c, d);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (kNorms) {
-    finish_sqnorms<<<c, kThreads, 0, s>>>(static_cast<const float*>(partials),
-                                          static_cast<float*>(sq), dblocks * kWarps);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (cblocks > 1) {
+  if (err == cudaSuccess && cblocks > 1) {
     sum_blocks<<<dblocks, kThreads, 0, s>>>(static_cast<const float*>(blockpart),
                                             static_cast<float*>(out), cblocks, d);
     err = cudaGetLastError();
@@ -163,25 +193,54 @@ int launch(const void* u, const void* scale, const void* m0, const void* m1,
   return static_cast<int>(err);
 }
 
+template <typename T, int Kind, int V>
+int launch_compress(const void* u, const void* scale, const void* m0, const void* m1,
+                    void* partials, void* sq, void* blockpart, void* out, void* counters,
+                    int c, int d, float levels, float inv_levels, cudaStream_t s) {
+  const int cblocks = (c + kBlockClients - 1) / kBlockClients;
+  shard_compress_kernel<T, Kind, V><<<dim3(tile_blocks(d), cblocks), kThreads, 0, s>>>(
+      static_cast<const T*>(u), static_cast<const float*>(scale),
+      static_cast<const float*>(m0), static_cast<const float*>(m1),
+      static_cast<float*>(partials), static_cast<float*>(sq), static_cast<float*>(blockpart),
+      static_cast<float*>(out), static_cast<unsigned int*>(counters), c, d, levels,
+      inv_levels);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int Kind>
+int launch_vec(const void* u, const void* scale, const void* m0, const void* m1,
+               void* partials, void* sq, void* blockpart, void* out, void* counters, int c,
+               int d, int vec, float levels, float inv_levels, cudaStream_t s) {
+  switch (vec) {
+    case 2:
+      return launch_compress<T, Kind, 2>(u, scale, m0, m1, partials, sq, blockpart, out,
+                                         counters, c, d, levels, inv_levels, s);
+    case 1:
+      return launch_compress<T, Kind, 1>(u, scale, m0, m1, partials, sq, blockpart, out,
+                                         counters, c, d, levels, inv_levels, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <typename T>
-int launch_kind(const void* u, const void* scale, const void* m0,
-                const void* m1, void* partials, void* sq, void* blockpart,
-                void* out, int c, int d, int kind, float levels,
-                float inv_levels, void* stream) {
+int launch_kind(const void* u, const void* scale, const void* m0, const void* m1,
+                void* partials, void* sq, void* blockpart, void* out, void* counters, int c,
+                int d, int vec, int kind, float levels, float inv_levels, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case kNone:
-      return launch<T, kNone, true>(u, scale, m0, m1, partials, sq, blockpart,
-                                    out, c, d, levels, inv_levels, stream);
+      return launch_vec<T, kNone>(u, scale, m0, m1, partials, sq, blockpart, out, counters,
+                                  c, d, vec, levels, inv_levels, s);
     case kRandK:
-      return launch<T, kRandK, true>(u, scale, m0, m1, partials, sq, blockpart,
-                                     out, c, d, levels, inv_levels, stream);
+      return launch_vec<T, kRandK>(u, scale, m0, m1, partials, sq, blockpart, out, counters,
+                                   c, d, vec, levels, inv_levels, s);
     case kQsgd:
-      return launch<T, kQsgd, true>(u, scale, m0, m1, partials, sq, blockpart,
-                                    out, c, d, levels, inv_levels, stream);
+      return launch_vec<T, kQsgd>(u, scale, m0, m1, partials, sq, blockpart, out, counters,
+                                  c, d, vec, levels, inv_levels, s);
     case kNatural:
-      return launch<T, kNatural, true>(u, scale, m0, m1, partials, sq,
-                                       blockpart, out, c, d, levels,
-                                       inv_levels, stream);
+      return launch_vec<T, kNatural>(u, scale, m0, m1, partials, sq, blockpart, out,
+                                     counters, c, d, vec, levels, inv_levels, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -192,32 +251,27 @@ int launch_kind(const void* u, const void* scale, const void* m0,
 extern "C" int sharded_masked_aggregate_f32(const void* u, const void* scale,
                                             void* blockpart, void* out, int c,
                                             int d, void* stream) {
-  return launch<float, ocs::kNone, false>(u, scale, nullptr, nullptr, nullptr,
-                                          nullptr, blockpart, out, c, d, 0.f,
-                                          0.f, stream);
+  return launch_masked<float>(u, scale, blockpart, out, c, d, stream);
 }
 
 extern "C" int sharded_masked_aggregate_bf16(const void* u, const void* scale,
                                              void* blockpart, void* out, int c,
                                              int d, void* stream) {
-  return launch<__nv_bfloat16, ocs::kNone, false>(u, scale, nullptr, nullptr,
-                                                  nullptr, nullptr, blockpart,
-                                                  out, c, d, 0.f, 0.f, stream);
+  return launch_masked<__nv_bfloat16>(u, scale, blockpart, out, c, d, stream);
 }
 
 extern "C" int sharded_compress_aggregate_f32(
     const void* u, const void* scale, const void* m0, const void* m1,
-    void* partials, void* sq, void* blockpart, void* out, int c, int d,
-    int kind, float levels, float inv_levels, void* stream) {
-  return launch_kind<float>(u, scale, m0, m1, partials, sq, blockpart, out, c,
-                            d, kind, levels, inv_levels, stream);
+    void* partials, void* sq, void* blockpart, void* out, void* counters, int c, int d,
+    int vec, int kind, float levels, float inv_levels, void* stream) {
+  return launch_kind<float>(u, scale, m0, m1, partials, sq, blockpart, out, counters, c, d,
+                            vec, kind, levels, inv_levels, stream);
 }
 
 extern "C" int sharded_compress_aggregate_bf16(
     const void* u, const void* scale, const void* m0, const void* m1,
-    void* partials, void* sq, void* blockpart, void* out, int c, int d,
-    int kind, float levels, float inv_levels, void* stream) {
-  return launch_kind<__nv_bfloat16>(u, scale, m0, m1, partials, sq, blockpart,
-                                    out, c, d, kind, levels, inv_levels,
-                                    stream);
+    void* partials, void* sq, void* blockpart, void* out, void* counters, int c, int d,
+    int vec, int kind, float levels, float inv_levels, void* stream) {
+  return launch_kind<__nv_bfloat16>(u, scale, m0, m1, partials, sq, blockpart, out,
+                                    counters, c, d, vec, kind, levels, inv_levels, stream);
 }

@@ -16,15 +16,14 @@ TPU kernels:
 
 All three share one tile layout and one reduction code (``csrc/
 ocs_tile.cuh``), with a fixed summation order and no atomics on values: the
-norms of the second equal the first's bitwise, its aggregate equals
+norms of all three are equal bitwise, the second's aggregate equals
 ``masked_scale_aggregate_cuda``'s, the third with ``kind='none'`` equals the
 second, and the third equals "compress eagerly on the card, then the second".
 On an H100 each is bound by device memory, and at the round's shapes by
-launch and memory latency.  The first runs two launches (the tile pass and
-the fixed-order sum of the per-CTA norm partials) on a matrix whose D is a
-multiple of 4.  The second and third run one launch on any ``(C, D)``: the
-CTA that finishes last sums the partials in the same order, which it knows
-from a ticket counter (see :func:`_ticket`).
+launch and memory latency.  Each runs one launch on any contiguous ``(C,
+D)`` matrix at any element-aligned start: the CTA that finishes last sums
+the per-CTA norm partials in the fixed order, which it knows from a ticket
+counter (see :func:`_counters`).
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything it
 cannot take; for CPU tensors it returns the plain version beside it.  Its
@@ -54,11 +53,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = {
-    "client_sqnorms": [_P] * 3 + [_I] * 2 + [_P],
+    "client_sqnorms": [_P] * 4 + [_I] * 3 + [_P],
     "norm_scale_aggregate": [_P] * 6 + [_I] * 3 + [_P],
     "compress_norm_scale_aggregate": [_P] * 8 + [_I] * 4 + [_F] * 2 + [_P],
 }
-_tickets: dict = {}
+_counter_buffers: dict = {}
 
 
 def client_sqnorms_ref(updates: torch.Tensor) -> torch.Tensor:
@@ -147,26 +146,29 @@ def _scratch(c: int, d: int, dev) -> torch.Tensor:
     return torch.empty((c, -(-d // TILE) * WARPS), dtype=torch.float32, device=dev)
 
 
-def _ticket(dev, stream: int) -> torch.Tensor:
-    """The fused kernels' ticket counter for ``(dev, stream)``: one int32,
-    zeroed when first asked for and kept.  Each launch counts its CTAs on it
-    and its last CTA sets it back to 0, so launches on one stream, which run
-    in order, share it; a launch on another stream gets a counter of its
-    own, so launches that may overlap never share one."""
+def _counters(dev, stream: int, n: int = 1) -> torch.Tensor:
+    """The kernels' ticket counters for ``(dev, stream)``: int32, zeroed when
+    first asked for and kept, and replaced by a larger zeroed buffer when a
+    launch needs more (``n``) than it holds.  Each launch counts its CTAs on
+    its first counters and its last CTAs set them back to 0, so launches on
+    one stream, which run in order, share them (kernels 2, 3, 4 and 6 take
+    the same buffer); a launch on another stream gets a buffer of its own,
+    so launches that may overlap never share one."""
     key = (dev.index, stream)
-    if key not in _tickets:
-        _tickets[key] = torch.zeros((1,), dtype=torch.int32, device=dev)
-    return _tickets[key]
+    buf = _counter_buffers.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _counter_buffers[key] = torch.zeros((max(n, 64),), dtype=torch.int32, device=dev)
+    return buf
 
 
 def _vector(d: int, *mats) -> int:
-    """Elements per load for the fused kernel: the widest of 4, 2, 1 that
-    divides D and every matrix's start address (with a row stride of D, every
-    row is then aligned to it)."""
-    for v in (4, 2):
-        if d % v == 0 and all(m.data_ptr() % (v * m.element_size()) == 0 for m in mats):
-            return v
-    return 1
+    """Elements per load for the one-launch kernels: 2 where D and every
+    matrix's start address are even in elements (with a row stride of D,
+    every row is then aligned to it), else 1.  The kernels take no wider
+    load: 16-byte loads ran slower in them on the H100 (``PERF.md`` §6,
+    PR 18)."""
+    even = d % 2 == 0 and all(m.data_ptr() % (2 * m.element_size()) == 0 for m in mats)
+    return 2 if even else 1
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -212,20 +214,26 @@ def _material_ptrs(mats: tuple) -> list:
 
 
 def client_sqnorms_cuda(updates: torch.Tensor) -> torch.Tensor:
-    """(C, D) f32/bf16 -> (C,) f32 squared norms.
+    """(C, D) f32/bf16 -> (C,) f32 squared norms, in one launch.
 
-    CUDA tensors run the kernel (or raise); CPU tensors run the plain version.
+    Any D and any start address of a contiguous matrix.  The kernel splits
+    the clients into groups, each with a ticket counter of the current
+    stream's (:func:`_counters`; at most C of them), whose last CTA finishes
+    the group's norms.  CUDA tensors run the kernel (or raise); CPU tensors
+    run the plain version.
     """
     if _on_cpu(updates):
         return client_sqnorms_ref(updates)
-    c, d = _check(updates)
-    sq = torch.empty((c,), dtype=torch.float32, device=updates.device)
+    c, d = _check(updates, any_width=True)
+    dev = updates.device
+    sq = torch.empty((c,), dtype=torch.float32, device=dev)
     if d == 0:
         return sq.zero_()
-    partials = _scratch(c, d, updates.device)
-    stream = torch.cuda.current_stream(updates.device).cuda_stream
+    partials = _scratch(c, d, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _kernel_fn("client_sqnorms", updates.dtype)(
-        updates.data_ptr(), partials.data_ptr(), sq.data_ptr(), c, d, stream,
+        updates.data_ptr(), partials.data_ptr(), sq.data_ptr(),
+        _counters(dev, stream, c).data_ptr(), c, d, _vector(d, updates), stream,
     )
     _raise_on(rc, "client_sqnorms")
     client_sqnorms_cuda.launches += 1
@@ -237,7 +245,7 @@ def norm_scale_aggregate_cuda(updates: torch.Tensor, scale: torch.Tensor):
     ``sum_i scale_i * U_i``) from one read of U, in one launch.
 
     Any D and any start address of a contiguous matrix.  The launch uses the
-    current stream's ticket counter (:func:`_ticket`): a call on another
+    current stream's ticket counter (:func:`_counters`): a call on another
     stream gets its own and gives the same result.  CUDA tensors run the
     kernel (or raise); CPU tensors run the plain version.
     """
@@ -253,7 +261,7 @@ def norm_scale_aggregate_cuda(updates: torch.Tensor, scale: torch.Tensor):
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _kernel_fn("norm_scale_aggregate", updates.dtype)(
         updates.data_ptr(), scale.data_ptr(), partials.data_ptr(), sq.data_ptr(),
-        agg.data_ptr(), _ticket(dev, stream).data_ptr(), c, d, _vector(d, updates), stream,
+        agg.data_ptr(), _counters(dev, stream).data_ptr(), c, d, _vector(d, updates), stream,
     )
     _raise_on(rc, "norm_scale_aggregate")
     norm_scale_aggregate_cuda.launches += 1
@@ -285,7 +293,7 @@ def compress_norm_scale_aggregate_cuda(updates: torch.Tensor, scale: torch.Tenso
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _kernel_fn("compress_norm_scale_aggregate", updates.dtype)(
         updates.data_ptr(), scale.data_ptr(), ptrs[0], ptrs[1], partials.data_ptr(),
-        sq.data_ptr(), agg.data_ptr(), _ticket(dev, stream).data_ptr(), c, d,
+        sq.data_ptr(), agg.data_ptr(), _counters(dev, stream).data_ptr(), c, d,
         _vector(d, updates, *mats), KINDS[kind], levels, inv_levels, stream,
     )
     _raise_on(rc, "compress_norm_scale_aggregate")

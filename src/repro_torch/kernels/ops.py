@@ -1,11 +1,13 @@
 """Public wrappers around the port's kernels, and the tree <-> matrix layout.
 
 Every wrapper follows the reference's convention set (``repro/kernels/
-ops.py``, see docs/paper_map.md): the trailing model dim is padded with zeros
-to a multiple of the kernel's tile (zeros leave the contraction unchanged),
-and outputs are unpadded before return — except the fused norm+aggregate
-pair, whose kernels take any D as it is.  A CUDA tensor runs the
-hand-written kernel; a CPU tensor runs its plain version.
+ops.py``, see docs/paper_map.md), except for padding: the kernels of the
+norms, the fused norm+aggregate pair and the mesh round's compressed
+aggregate take the unpadded ``(C, D)`` matrices at any D, in one launch each;
+the masked aggregates (single-device and sharded) pad the trailing model dim
+with zeros to a multiple of the kernel's tile (zeros leave the contraction
+unchanged) and unpad their outputs.  A CUDA tensor runs the hand-written
+kernel; a CPU tensor runs its plain version.
 
 * ``client_sqnorms`` / ``tree_client_norms`` — Alg. 1 line 3 / Alg. 2 input:
   ``u_i = ||w_i U_i||``.
@@ -110,9 +112,10 @@ def _pad_cols(x: torch.Tensor, pad: int) -> torch.Tensor:
 
 
 def client_sqnorms(updates: torch.Tensor) -> torch.Tensor:
-    """(clients, D) -> (clients,) f32 squared norms in one pass (D zero-padded
-    to the kernel's tile)."""
-    return client_sqnorms_cuda(_pad_cols(updates, (-updates.shape[1]) % TILE))
+    """(clients, D) -> (clients,) f32 squared norms in one pass.  The kernel
+    takes the matrix as it is, at any D (no padding); a non-contiguous one is
+    copied first (``tree_to_client_matrix``'s are contiguous)."""
+    return client_sqnorms_cuda(updates.contiguous())
 
 
 def tree_client_norms(updates_tree, weights: torch.Tensor) -> torch.Tensor:
@@ -207,22 +210,20 @@ def shard_compress_aggregate(updates: torch.Tensor, scale: torch.Tensor, mats: t
                              kind: str, param: float, mesh=None) -> tuple:
     """A rank's raw ``(k, D)`` block + material -> ``((k,) sq norms of
     C(U), (D,) f32 aggregate of C(U) summed over the mesh)``, compression
-    fused into the kernel's tile stream.  ``mesh=None`` skips the sum.  D
-    pads with zeros on the updates and the material."""
-    d = updates.shape[1]
-    pad = (-d) % TILE
+    fused into the kernel's tile stream.  ``mesh=None`` skips the sum.  The
+    kernel takes the matrices as they are, at any D and any client count (no
+    padding); a non-contiguous one is copied first
+    (``tree_to_client_matrix``'s are contiguous)."""
     sq, out = sharded_compress_aggregate_cuda(
-        _pad_cols(updates, pad), scale, tuple(_pad_cols(m, pad) for m in mats),
-        kind, param,
-    )
-    out = out[:d]
+        updates.contiguous(), scale, tuple(m.contiguous() for m in mats), kind, param)
     return sq, (out if mesh is None else mesh.all_reduce(out))
 
 
 def tree_shard_compress_aggregate(updates_tree, scale: torch.Tensor, mats: tuple,
                                   kind: str, param: float, mesh=None):
     """:func:`shard_compress_aggregate` over a rank's tree of raw ``(k, ...)``
-    leaves and its material trees.  The squared norms the kernel emits are
+    leaves and its material trees, handed over as their client-major
+    matrices, unpadded.  The squared norms the kernel emits are
     discarded: the plan's norms come from the eager ``ocs.client_norms``, so
     masks never depend on a kernel."""
     _, agg = shard_compress_aggregate(

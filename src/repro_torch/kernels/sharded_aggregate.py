@@ -15,12 +15,19 @@ TPU kernels of the mesh round:
 The caller all-reduces the partial over the ranks (``ops.shard_*``).  The
 grid has a client-block axis of :data:`BLOCK_CLIENTS` clients, as the TPU
 kernels' has, for a rank that owns many clients: each block's CTAs fold
-their clients in order, and with more than one block a second launch adds
-the blocks' partials in block order (no atomics on values).  So at
+their clients in order, and with more than one block the blocks' partials
+are added in block order (no atomics on values).  So at
 ``k <= BLOCK_CLIENTS`` the aggregate equals ``masked_scale_aggregate_cuda``'s
 (and the compressed one ``compress_norm_scale_aggregate_cuda``'s) bitwise,
 the norms equal ``compress_norm_scale_aggregate_cuda``'s at every ``k``, and
 ``kind='none'`` equals :func:`sharded_masked_aggregate_cuda`.
+
+The first takes a padded matrix (D a multiple of 4, aligned rows) and adds
+the blocks' partials in a second launch.  The second runs one launch on the
+unpadded ``(k, D)`` matrices at any element-aligned start: the last CTA of
+each client block sums its clients' norm partials, and the last CTA of each
+D tile adds the blocks' partials, each told by a ticket counter of the
+stream's (``norm_aggregate._counters``).
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything it
 cannot take; for CPU tensors it returns the plain version.  Its ``launches``
@@ -34,17 +41,19 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.masked_aggregate import masked_scale_aggregate_ref
+from repro_torch.kernels.masked_aggregate import TILE, masked_scale_aggregate_ref
 from repro_torch.kernels.norm_aggregate import (
     KINDS,
     _SUFFIX,
     _check,
     _check_compressor,
+    _counters,
     _levels,
     _material_ptrs,
     _on_cpu,
     _raise_on,
     _scratch,
+    _vector,
     compress_norm_scale_aggregate_ref,
 )
 
@@ -55,7 +64,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = {
     "sharded_masked_aggregate": [_P] * 4 + [_I] * 2 + [_P],
-    "sharded_compress_aggregate": [_P] * 8 + [_I] * 3 + [_F] * 2 + [_P],
+    "sharded_compress_aggregate": [_P] * 9 + [_I] * 4 + [_F] * 2 + [_P],
 }
 
 # the plain versions: the single-device ones over the rank's block
@@ -71,13 +80,14 @@ def _kernel_fn(name: str, dtype):
     return fn
 
 
-def _block_partials(c: int, d: int, dev) -> torch.Tensor | None:
-    """Each client block's ``(D,)`` partial, when there is more than one
-    block; the kernel writes the output directly otherwise."""
+def _block_partials(c: int, width: int, dev) -> torch.Tensor | None:
+    """Each client block's partial of the aggregate, ``width`` columns a row,
+    when there is more than one block; the kernel writes the output directly
+    otherwise."""
     blocks = -(-c // BLOCK_CLIENTS)
     if blocks == 1:
         return None
-    return torch.empty((blocks, d), dtype=torch.float32, device=dev)
+    return torch.empty((blocks, width), dtype=torch.float32, device=dev)
 
 
 def sharded_masked_aggregate_cuda(updates: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -108,14 +118,18 @@ def sharded_compress_aggregate_cuda(updates: torch.Tensor, scale: torch.Tensor,
                                     mats: tuple, kind: str, param: float):
     """A rank's raw (k, D) f32/bf16 block + ``MATERIAL_ARITY[kind]`` (k, D)
     f32 material, (k,) f32 scale -> ((k,) f32 squared norms of C(U), (D,) f32
-    partial ``sum_i scale_i * C(U_i)``), compressed in the tile stream.
+    partial ``sum_i scale_i * C(U_i)``), compressed in the tile stream, in
+    one launch.
 
-    CUDA tensors run the kernel (or raise); CPU tensors run the plain version.
+    Any D and any start addresses of contiguous matrices.  The launch uses
+    the current stream's ticket counters (``norm_aggregate._counters``): a
+    call on another stream gets its own and gives the same result.  CUDA
+    tensors run the kernel (or raise); CPU tensors run the plain version.
     """
     mats = _check_compressor(kind, mats)
     if _on_cpu(updates, scale, *mats):
         return sharded_compress_aggregate_ref(updates, scale, mats, kind, param)
-    c, d = _check(updates, scale, mats, max_clients=MAX_CLIENTS)
+    c, d = _check(updates, scale, mats, max_clients=MAX_CLIENTS, any_width=True)
     dev = updates.device
     sq = torch.empty((c,), dtype=torch.float32, device=dev)
     out = torch.empty((d,), dtype=torch.float32, device=dev)
@@ -124,12 +138,15 @@ def sharded_compress_aggregate_cuda(updates: torch.Tensor, scale: torch.Tensor,
     levels, inv_levels = _levels(kind, param)
     ptrs = _material_ptrs(mats)
     partials = _scratch(c, d, dev)
-    blockpart = _block_partials(c, d, dev)
+    tiles = -(-d // TILE)
+    blockpart = _block_partials(c, tiles * TILE, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    counters = _counters(dev, stream, -(-c // BLOCK_CLIENTS) + tiles)
     rc = _kernel_fn("sharded_compress_aggregate", updates.dtype)(
         updates.data_ptr(), scale.data_ptr(), ptrs[0], ptrs[1], partials.data_ptr(),
         sq.data_ptr(), 0 if blockpart is None else blockpart.data_ptr(), out.data_ptr(),
-        c, d, KINDS[kind], levels, inv_levels, stream,
+        counters.data_ptr(), c, d, _vector(d, updates, *mats), KINDS[kind], levels,
+        inv_levels, stream,
     )
     _raise_on(rc, "sharded_compress_aggregate")
     sharded_compress_aggregate_cuda.launches += 1

@@ -14,10 +14,11 @@ exactly: the fused norm+aggregate's norms are ``client_sqnorms``' and its
 aggregate is ``masked_scale_aggregate``'s, the compress kernel with
 ``kind='none'`` is the fused norm+aggregate, and the compress kernel equals
 eager compression on the card followed by the fused norm+aggregate.  The
-fused pair takes the unpadded matrix at any D and start address, in one
-device launch per call, and its ticket counter is back at 0 after each
-launch (ten calls in a row, and a call on a second stream, give the first
-call's result).  The
+fused pair, ``client_sqnorms`` and the sharded compress kernel take the
+unpadded matrix at any D and start address, in one device launch per call,
+bitwise what they give on the zero-padded matrix, and their ticket counters
+are back at 0 after each launch (ten calls in a row, and a call on a second
+stream, give the first call's result).  The
 mesh round's kernels: at ``k <= BLOCK_CLIENTS`` the sharded aggregate is
 ``masked_scale_aggregate``'s and the sharded compress aggregate is the
 compress kernel's; the sharded compress kernel's norms are the compress
@@ -174,19 +175,36 @@ def test_norm_kernel_wrappers_reject(cuda):
                      lambda: na.compress_norm_scale_aggregate_cuda(good, s, (bad,), "randk", 0.1)):
             with pytest.raises((ValueError, TypeError)):
                 call()
-    # the fused pair takes these (test_fused_norm_kernels_take_any_width)
-    for bad in (
-        torch.zeros((4, 7), device=cuda),                         # D not a multiple of 4
-        torch.zeros((4 * 512 + 1,), device=cuda)[1:].view(4, 512),  # misaligned rows
-    ):
-        with pytest.raises(ValueError):
-            na.client_sqnorms_cuda(bad)
     with pytest.raises(ValueError):
         na.norm_scale_aggregate_cuda(good, s.cpu())
     with pytest.raises(TypeError):
         na.norm_scale_aggregate_cuda(good, s.double())
     with pytest.raises(ValueError):
         na.compress_norm_scale_aggregate_cuda(good, s, (good,), "qsgd", 8.0)   # arity
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
+def test_norm_and_shard_kernels_take_what_they_rejected(cuda, dtype):
+    """D % 4 != 0 and rows one element off an aligned start, which kernels 2
+    and 6 rejected while their ops wrappers padded: both now take them and
+    give bitwise what they give on the zero-padded aligned matrix (kernel 6
+    also its aggregate); kernel 5 still rejects both."""
+    u7, s = _inputs(4, 7, 11, dtype, cuda)
+    u512, _ = _inputs(4, 512, 12, dtype, cuda)
+    for u in (u7, _at_offset(u512, 1)):
+        d = u.shape[1]
+        padded = torch.nn.functional.pad(u, (0, (-d) % ma.TILE)).contiguous()
+        mats = (torch.rand(u.shape, device=cuda),)
+        mats_p = tuple(torch.nn.functional.pad(m, (0, (-d) % ma.TILE)) for m in mats)
+        assert torch.equal(na.client_sqnorms_cuda(u), na.client_sqnorms_cuda(padded))
+        sq6, agg6 = sa.sharded_compress_aggregate_cuda(u, s, mats, "randk", 0.1)
+        sq6p, agg6p = sa.sharded_compress_aggregate_cuda(padded, s, mats_p, "randk", 0.1)
+        assert torch.equal(sq6, sq6p) and torch.equal(agg6, agg6p[:d])
+        for call in (lambda: sa.sharded_masked_aggregate_cuda(u, s),
+                     lambda: ma.masked_scale_aggregate_cuda(u, s)):
+            with pytest.raises(ValueError):
+                call()
 
 
 def _at_offset(x, offset):
@@ -213,20 +231,55 @@ def norm_profile():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ("fused", "client_sqnorms", "shard_compress_aggregate"))
 @pytest.mark.parametrize("offset", (0, 1))
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
 @pytest.mark.parametrize("d", (4096, 4097, 4098, 4099, 58430, 513, 3))
 @pytest.mark.parametrize("c", (4, 32))
-def test_fused_norm_kernels_take_any_width(cuda, c, d, dtype, offset):
-    """Kernels 3 and 4 on the unpadded matrix, D mod 4 in {0, 1, 2, 3}, at a
-    start address one element past an aligned one: bitwise kernel 2's norms
-    and kernel 1's aggregate (both on the padded matrix), kernel 6's
-    norms and aggregate (k <= 128), and eager C(U) then kernel 3."""
+def test_fused_norm_kernels_take_any_width(cuda, c, d, dtype, offset, kernel):
+    """The one-launch kernels on the unpadded matrix, D mod 4 in {0, 1, 2,
+    3}, at a start address one element past an aligned one.  Kernels 3 and
+    4 ("fused"): bitwise kernel 2's norms and kernel 1's aggregate (kernel 1
+    on the padded matrix), kernel 6's norms and aggregate (k <= 128), and
+    eager C(U) then kernel 3.  Kernel 2: bitwise itself on the zero-padded
+    aligned matrix and kernel 3's norms.  Kernel 6: bitwise itself on the
+    zero-padded aligned matrices, kernel 4's norms and aggregate, and kernel
+    5's aggregate (padded) for kind 'none'."""
     u, s = _inputs(c, d, c * 1009 + d + offset, dtype, cuda)
     u[0, :4] = torch.tensor([2.0 ** -126, 1e-40, 0.5, -0.25], device=cuda)[:d].to(dtype)
     ua = u                       # aligned, for the kernels that pad or need it
     u = _at_offset(u, offset)
+    pad = (-d) % ma.TILE
     sq3, agg3 = ops.norm_scale_aggregate(u, s)
+    torch.cuda.synchronize()
+    if kernel == "client_sqnorms":
+        sq2 = ops.client_sqnorms(u)
+        sq2p = na.client_sqnorms_cuda(torch.nn.functional.pad(ua, (0, pad)).contiguous())
+        torch.cuda.synchronize()
+        assert _sq_close(sq2, na.client_sqnorms_ref(u))
+        assert torch.equal(sq2, sq2p) and torch.equal(sq2, sq3)
+        return
+    if kernel == "shard_compress_aggregate":
+        sq6n, agg6n = ops.shard_compress_aggregate(u, s, (), "none", 0.0)
+        assert torch.equal(sq6n, sq3) and torch.equal(agg6n, agg3)
+        assert torch.equal(agg6n, ops.shard_masked_aggregate(ua, s))
+        for kind, param in COMPRESSORS:
+            keys = rng.split(rng.PRNGKey(c * 3 + d, device=cuda), c)
+            mats_a = tuple(m["u"].contiguous()
+                           for m in client_material({"u": ua}, keys, kind, param))
+            mats = tuple(_at_offset(m, offset) for m in mats_a)
+            sq6, agg6 = ops.shard_compress_aggregate(u, s, mats, kind, param)
+            sq6p, agg6p = sa.sharded_compress_aggregate_cuda(
+                torch.nn.functional.pad(ua, (0, pad)).contiguous(), s,
+                tuple(torch.nn.functional.pad(m, (0, pad)) for m in mats_a), kind, param)
+            sq4, agg4 = ops.compress_norm_scale_aggregate(u, s, mats, kind, param)
+            want_sq, want_agg = sa.sharded_compress_aggregate_ref(u, s, mats, kind, param)
+            xc = apply_compression_flat(u, kind, param, *mats).to(dtype)
+            torch.cuda.synchronize()
+            assert _sq_close(sq6, want_sq) and _agg_close(agg6, want_agg, xc, s)
+            assert torch.equal(sq6, sq6p) and torch.equal(agg6, agg6p[:d])
+            assert torch.equal(sq6, sq4) and torch.equal(agg6, agg4)
+        return
     sq4n, agg4n = ops.compress_norm_scale_aggregate(u, s, (), "none", 0.0)
     torch.cuda.synchronize()
     assert _sq_close(sq3, na.client_sqnorms_ref(u))
@@ -256,53 +309,115 @@ def test_fused_norm_kernels_take_any_width(cuda, c, d, dtype, offset):
 @pytest.mark.parametrize("kind", ("none", "randk", "qsgd", "natural"))
 def test_fused_norm_kernels_launch_once_per_call(norm_profile, kind, dtype):
     """One device kernel in a profiler window around one ops call, and one
-    count on the wrapper's launch counter."""
-    names = [f"ops.compress_norm_scale_aggregate {kind} {dtype} (32, 58430)"]
+    count on the wrapper's launch counter: kernels 3 and 4, kernel 2, and
+    kernel 6 (rand-k also beyond one client block, at 129 and 1,024)."""
+    names = {f"ops.compress_norm_scale_aggregate {kind} {dtype} (32, 58430)": "fused_kernel",
+             f"ops.shard_compress_aggregate {kind} {dtype} (32, 58430)": "shard_compress_kernel"}
     if kind == "none":
-        names.append(f"ops.norm_scale_aggregate {kind} {dtype} (32, 58430)")
-    for name in names:
+        names[f"ops.norm_scale_aggregate {kind} {dtype} (32, 58430)"] = "fused_kernel"
+        names[f"ops.client_sqnorms {dtype} (32, 58430)"] = "sqnorms_kernel"
+    if kind == "randk" and dtype == "float32":
+        for k in (129, 1024):
+            names[f"ops.shard_compress_aggregate {kind} {dtype} ({k}, 58430)"] = (
+                "shard_compress_kernel")
+    for name, kernel in names.items():
         assert len(norm_profile["launches"][name]) == 1, norm_profile["launches"][name]
-        assert "fused_kernel" in norm_profile["launches"][name][0]
+        assert kernel in norm_profile["launches"][name][0]
         assert norm_profile["counted"][name] == 1
 
 
+def _all_zero(dev, stream) -> bool:
+    return not bool(na._counters(dev, stream).any())
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ("fused", "client_sqnorms", "shard_compress_aggregate"))
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
-def test_fused_norm_kernels_reset_their_ticket(cuda, dtype):
+def test_fused_norm_kernels_reset_their_ticket(cuda, dtype, kernel):
     """Ten calls in a row, no sync between them: each equals the first, so
-    each launch finds its counter at 0 and leaves it there."""
+    each launch finds its counters at 0 and leaves them there (kernel 6 at
+    one client block and at several)."""
     u, s = _inputs(32, 58430, 6, dtype, cuda)
     keys = rng.split(rng.PRNGKey(6, device=cuda), 32)
     mats = tuple(m["u"] for m in client_material({"u": u}, keys, "randk", 0.1))
-    runs3 = [ops.norm_scale_aggregate(u, s) for _ in range(10)]
-    runs4 = [ops.compress_norm_scale_aggregate(u, s, mats, "randk", 0.1) for _ in range(10)]
+    if kernel == "fused":
+        series = [[ops.norm_scale_aggregate(u, s) for _ in range(10)],
+                  [ops.compress_norm_scale_aggregate(u, s, mats, "randk", 0.1)
+                   for _ in range(10)]]
+    elif kernel == "client_sqnorms":
+        series = [[(ops.client_sqnorms(u), s) for _ in range(10)]]
+    else:
+        ub, sb = _inputs(300, 4099, 8, dtype, cuda)
+        mb = (torch.rand(ub.shape, device=cuda),)
+        series = [[ops.shard_compress_aggregate(u, s, mats, "randk", 0.1) for _ in range(10)],
+                  [ops.shard_compress_aggregate(ub, sb, mb, "randk", 0.1) for _ in range(10)]]
     torch.cuda.synchronize()
-    for runs in (runs3, runs4):
+    for runs in series:
         for sq, agg in runs[1:]:
             assert torch.equal(sq, runs[0][0]) and torch.equal(agg, runs[0][1])
-    stream = torch.cuda.current_stream(cuda).cuda_stream
-    assert int(na._ticket(u.device, stream).item()) == 0
+    assert _all_zero(u.device, torch.cuda.current_stream(cuda).cuda_stream)
 
 
 @pytest.mark.cuda
-def test_fused_norm_kernels_on_a_second_stream(cuda):
-    """A call on another stream takes a counter of its own (the docstring's
+@pytest.mark.parametrize("kernel", ("fused", "client_sqnorms", "shard_compress_aggregate"))
+def test_fused_norm_kernels_on_a_second_stream(cuda, kernel):
+    """A call on another stream takes counters of its own (the docstring's
     contract) and gives the same result as on the current stream."""
     u, s = _inputs(4, 58430, 7, torch.float32, cuda)
     keys = rng.split(rng.PRNGKey(7, device=cuda), 4)
     mats = tuple(m["u"] for m in client_material({"u": u}, keys, "qsgd", 8.0))
-    want3 = ops.norm_scale_aggregate(u, s)
-    want4 = ops.compress_norm_scale_aggregate(u, s, mats, "qsgd", 8.0)
+    ub, sb = _inputs(200, 4097, 9, torch.float32, cuda)
+    calls = {
+        "fused": (lambda: ops.norm_scale_aggregate(u, s),
+                  lambda: ops.compress_norm_scale_aggregate(u, s, mats, "qsgd", 8.0)),
+        "client_sqnorms": (lambda: (ops.client_sqnorms(u), s),
+                           lambda: (ops.client_sqnorms(ub), sb)),
+        "shard_compress_aggregate": (
+            lambda: ops.shard_compress_aggregate(u, s, mats, "qsgd", 8.0),
+            lambda: ops.shard_compress_aggregate(ub, sb, (), "none", 0.0)),
+    }[kernel]
+    want = [call() for call in calls]
     side = torch.cuda.Stream(device=u.device)
     side.wait_stream(torch.cuda.current_stream(u.device))
     with torch.cuda.stream(side):
-        got3 = ops.norm_scale_aggregate(u, s)
-        got4 = ops.compress_norm_scale_aggregate(u, s, mats, "qsgd", 8.0)
+        got = [call() for call in calls]
     torch.cuda.synchronize()
-    assert na._ticket(u.device, side.cuda_stream) is not na._ticket(
-        u.device, torch.cuda.current_stream(u.device).cuda_stream)
-    for got, want in ((got3, want3), (got4, want4)):
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    main = torch.cuda.current_stream(u.device).cuda_stream
+    assert na._counters(u.device, side.cuda_stream) is not na._counters(u.device, main)
+    assert _all_zero(u.device, side.cuda_stream) and _all_zero(u.device, main)
+    for g, w in zip(got, want):
+        assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=("f32", "bf16"))
+@pytest.mark.parametrize("d", (4099, 58430))
+@pytest.mark.parametrize("k", (129, 200, 1024))
+def test_shard_compress_beyond_one_client_block(cuda, k, d, dtype):
+    """Kernel 6 at k > 128 (several client blocks, the blocks' partials
+    added in the launch): one launch per call; for kind 'none' the aggregate
+    is bitwise kernel 5's; the norms are bitwise kernel 4's at every kind;
+    ten calls in a row equal the first, and the counters are back at 0."""
+    u, s = _inputs(k, d, k * 7 + d, dtype, cuda)
+    before = sa.sharded_compress_aggregate_cuda.launches
+    sq6n, agg6n = ops.shard_compress_aggregate(u, s, (), "none", 0.0)
+    assert sa.sharded_compress_aggregate_cuda.launches == before + 1
+    assert torch.equal(agg6n, ops.shard_masked_aggregate(u, s))
+    assert torch.equal(sq6n, ops.norm_scale_aggregate(u, s)[0])
+    for kind, param in COMPRESSORS:
+        keys = rng.split(rng.PRNGKey(k + d, device=cuda), k)
+        mats = tuple(m["u"].contiguous() for m in client_material({"u": u}, keys, kind, param))
+        runs = [ops.shard_compress_aggregate(u, s, mats, kind, param) for _ in range(10)]
+        sq4, _ = ops.compress_norm_scale_aggregate(u, s, mats, kind, param)
+        want_sq, want_agg = sa.sharded_compress_aggregate_ref(u, s, mats, kind, param)
+        xc = apply_compression_flat(u, kind, param, *mats).to(dtype)
+        torch.cuda.synchronize()
+        sq6, agg6 = runs[0]
+        assert _sq_close(sq6, want_sq) and _agg_close(agg6, want_agg, xc, s)
+        assert torch.equal(sq6, sq4)
+        for sq, agg in runs[1:]:
+            assert torch.equal(sq, sq6) and torch.equal(agg, agg6)
+    assert _all_zero(u.device, torch.cuda.current_stream(cuda).cuda_stream)
 
 
 @pytest.mark.cuda
@@ -357,19 +472,26 @@ def test_sharded_kernel_wrappers_reject(cuda):
     good = torch.zeros((4, 512), device=cuda)
     for bad in (
         torch.zeros((512, 4), device=cuda).t(),                   # not contiguous
-        torch.zeros((4, 7), device=cuda),                         # D not a multiple of 4
         torch.zeros((4, 512), device=cuda, dtype=torch.float16),  # dtype
-        torch.zeros((4 * 512 + 1,), device=cuda)[1:].view(4, 512),  # misaligned rows
     ):
         for call in (lambda: sa.sharded_masked_aggregate_cuda(bad, s),
                      lambda: sa.sharded_compress_aggregate_cuda(bad, s, (good,), "randk", 0.1),
                      lambda: sa.sharded_compress_aggregate_cuda(good, s, (bad,), "randk", 0.1)):
             with pytest.raises((ValueError, TypeError)):
                 call()
-    with pytest.raises(ValueError):
-        sa.sharded_masked_aggregate_cuda(good, s.cpu())
-    with pytest.raises(ValueError):
-        sa.sharded_compress_aggregate_cuda(good, s, (good,), "qsgd", 8.0)   # arity
+    # kernel 5 keeps its padded contract; kernel 6 takes these
+    # (test_norm_and_shard_kernels_take_what_they_rejected)
+    for bad in (
+        torch.zeros((4, 7), device=cuda),                         # D not a multiple of 4
+        torch.zeros((4 * 512 + 1,), device=cuda)[1:].view(4, 512),  # misaligned rows
+    ):
+        with pytest.raises(ValueError):
+            sa.sharded_masked_aggregate_cuda(bad, s)
+    for call in (lambda: sa.sharded_masked_aggregate_cuda(good, s.cpu()),
+                 lambda: sa.sharded_compress_aggregate_cuda(good, s.cpu(), (good,), "randk", 0.1),
+                 lambda: sa.sharded_compress_aggregate_cuda(good, s, (good,), "qsgd", 8.0)):
+        with pytest.raises(ValueError):                                      # CPU scale, arity
+            call()
 
 
 def _attn_close(got, want, dtype) -> bool:

@@ -3,25 +3,28 @@ the CPU, and the unpadded fused wrappers against the reference.
 
 The CUDA kernels of ``src/repro_torch/kernels/csrc/norm_aggregate.cu`` take
 each client's squared norm in stages (``csrc/ocs_tile.cuh``): a thread
-squares its 4 columns (``col_sqnorm``: one multiply, three fmaf), a warp sums
-its 32 threads by an xor shuffle tree (``warp_sum``), lane 0 writes one
+squares its 4 columns (``col_sqnorm``: one multiply, three fmaf), a warp
+sums its 32 threads by an xor shuffle tree (``warp_sum``), lane 0 writes one
 partial per (client, CTA, warp), i.e. per 128 columns, and the partials are
-summed in one fixed order.  Kernel 2 and kernel 6 sum them in a second launch
+summed in one fixed order. Kernel 2 and kernel 6 sum them in a second launch
 (``finish_sqnorms``: thread t adds partials t, t + 128, ... in turn, then a
-shared-memory tree over 128 threads); kernels 3 and 4 sum them inside their
-one launch, in the CTA that finishes last, one warp per client
-(``warp_finish_sqnorms``).  This file emulates every stage with numpy
-float32 arithmetic (fmaf with one rounding) and shows:
+shared-memory tree over 128 threads), as they did before their one-launch
+rebuild; kernels 2, 3, 4 and 6 now sum them inside their one launch, in the
+CTA that finishes last, one warp per client (``warp_finish_sqnorms``). This
+file emulates every stage with numpy float32 arithmetic (fmaf with one
+rounding) and shows:
 
 * the two finishes give bitwise the same norms, for any partials;
 * a matrix whose columns past D are 0.0 after compression (the unpadded
   kernel's tail) gives bitwise the partials of the zero-padded matrix, for
   every compressor, through the port's own ``apply_compression_flat``;
 
-so kernels 3 and 4 on the unpadded matrix keep the norms of kernels 2 and 6
-on the padded one.  Then the CPU route of the two unpadded wrappers is held
-against the reference's Pallas kernels in interpret mode at the model's D =
-58,430 (rtol 1e-5, atol 1e-6: the two sum in different orders).
+so the one-launch kernels on the unpadded matrix (kernels 2, 3, 4 and 6)
+keep the norms that the padded two-launch kernels gave.  Then the CPU route
+of the unpadded wrappers is held against the reference's Pallas kernels in
+interpret mode (rtol 1e-5, atol 1e-6: the two sum in different orders), and
+the ``ops`` wrappers are shown to hand the kernels the caller's matrices
+unpadded.
 """
 
 import jax
@@ -32,6 +35,7 @@ import torch
 
 from repro.core import compression as jc
 from repro.kernels import norm_aggregate as j_na
+from repro.kernels import ops as j_ops
 from repro_torch import rng
 from repro_torch.core import compression as tc
 from repro_torch.kernels import ops
@@ -219,3 +223,80 @@ def test_unpadded_wrappers_match_reference_at_full_width(c, kind, param):
     assert got[0].shape == (c,) and got[1].shape == (d,)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), b, rtol=1e-5, atol=1e-6)
+
+
+def _reference_norms_and_shard(u, s, mats, kind, param):
+    """The reference's ``ops`` in interpret mode: ``client_sqnorms`` on its
+    zero padding of D, and ``shard_compress_aggregate`` padded on both axes
+    (D to the chunk, the clients to the block of 128) as it pads them."""
+    uj = jnp.asarray(u)
+    sq2 = j_ops.client_sqnorms(uj, interpret=True)
+    sq6, agg6 = j_ops.shard_compress_aggregate(
+        uj, jnp.asarray(s), tuple(jnp.asarray(m) for m in mats), kind, param,
+        interpret=True)
+    return np.asarray(sq2), np.asarray(sq6), np.asarray(agg6)
+
+
+@pytest.mark.parametrize("kind,param", (("none", 0.0), ("randk", 0.1), ("qsgd", 8.0)))
+@pytest.mark.parametrize("d", (7, 513, 58430))
+@pytest.mark.parametrize("c", (4, 32, 200))
+def test_unpadded_norm_and_shard_wrappers_match_reference(c, d, kind, param):
+    """``ops.client_sqnorms`` and ``ops.shard_compress_aggregate`` (kernels 2
+    and 6, which take the unpadded matrices) on the CPU against the
+    reference's padded Pallas kernels, beyond one client block at c = 200."""
+    r = np.random.default_rng(c * 3 + d)
+    u = (r.normal(size=(c, d)) * 1e-2).astype(np.float32)
+    s = (r.uniform(0, 2, size=c) * (r.uniform(size=c) < 0.6)).astype(np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(c + d), c)
+    mats = () if kind == "none" else tuple(
+        np.array(m) for m in
+        jax.vmap(lambda x, k: jc.compression_material(x, k, kind, param))(jnp.asarray(u), keys))
+    want_sq2, want_sq6, want_agg6 = _reference_norms_and_shard(u, s, mats, kind, param)
+    ut, st = torch.from_numpy(u), torch.from_numpy(s)
+    sq2 = ops.client_sqnorms(ut)
+    sq6, agg6 = ops.shard_compress_aggregate(ut, st, tuple(torch.from_numpy(m) for m in mats),
+                                             kind, param)
+    assert sq2.shape == (c,) and sq6.shape == (c,) and agg6.shape == (d,)
+    np.testing.assert_allclose(sq2.numpy(), want_sq2, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(sq6.numpy(), want_sq6, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(agg6.numpy(), want_agg6, rtol=1e-5, atol=1e-6)
+
+
+def test_ops_hand_the_kernels_unpadded_matrices(monkeypatch):
+    """The ``ops`` wrappers of kernels 2 and 6 pass the caller's ``(C, D)``
+    matrices to the kernel wrappers as they are: no padding, no copy of a
+    contiguous matrix (a recording stub stands in for each wrapper)."""
+    from repro_torch.kernels import norm_aggregate as na
+    from repro_torch.kernels import sharded_aggregate as sa
+
+    seen = []
+
+    def sqnorms(u):
+        seen.append(("client_sqnorms", u))
+        return na.client_sqnorms_ref(u)
+
+    def shard(u, s, mats, kind, param):
+        seen.append(("sharded_compress_aggregate", u, *mats))
+        return sa.sharded_compress_aggregate_ref(u, s, mats, kind, param)
+
+    monkeypatch.setattr(ops, "client_sqnorms_cuda", sqnorms)
+    monkeypatch.setattr(ops, "sharded_compress_aggregate_cuda", shard)
+    c, d = 5, 58430
+    r = np.random.default_rng(0)
+    u = torch.from_numpy(r.normal(size=(c, d)).astype(np.float32))
+    s = torch.from_numpy(r.uniform(size=c).astype(np.float32))
+    mats = (torch.from_numpy(r.uniform(size=(c, d)).astype(np.float32)),
+            torch.from_numpy(r.uniform(size=(c, d)).astype(np.float32)))
+    ops.client_sqnorms(u)
+    ops.shard_compress_aggregate(u, s, mats, "qsgd", 8.0)
+    tree = {"a": u[:, :430].reshape(c, 43, 10).clone(), "b": u[:, 430:].clone()}
+    ops.tree_client_norms(tree, s)
+    ops.tree_shard_compress_aggregate(tree, s, ({"a": tree["a"], "b": tree["b"]},
+                                                {"a": tree["a"], "b": tree["b"]}),
+                                      "qsgd", 8.0)
+    assert [name for name, *_ in seen] == ["client_sqnorms", "sharded_compress_aggregate"] * 2
+    for _, *mats_seen in seen:
+        assert all(tuple(m.shape) == (c, d) and m.is_contiguous() for m in mats_seen)
+    assert seen[0][1] is u
+    assert seen[1][1] is u and seen[1][2] is mats[0] and seen[1][3] is mats[1]
+    assert torch.equal(seen[2][1], u) and torch.equal(seen[3][1], u)
