@@ -57,9 +57,24 @@ nvcc (one process per source, all at once), then:
     vmap + rand-k + pallas path and the first slice's path);
 
   each path checks its launches per round, that the ledger is valid and the
-  losses finite, that a second run reproduces masks, losses and parameters
-  bitwise, and that a reduced run on the card matches the same run on the
-  CPU;
+  losses finite, that a second run reproduces masks, the ledger minus
+  ``wall_ms`` and parameters bitwise, and that a reduced run on the card
+  matches the same run on the CPU; these paths run the driver's ``'host'``
+  mode, as they did before the pool existed;
+* the main path again under the reference's default driver mode
+  ``'prefetch'`` (the ``ClientPool`` on the card, round k+1's gather
+  dispatched on a side stream before round k's step), with the same
+  launches, bitwise equal to the host run; the charlm cell
+  ``charlm-fedavg-aocs`` (the 2-layer GRU, D = 60,630) at full width in both
+  modes, bitwise across the modes and across a second run, and with
+  ``agg_backend="pallas"`` (kernel 1 once per round on its (32, 60,630)
+  update matrix, which is also held against the plain version and timed);
+  a server optimizer (sgd with momentum, adam) through the vmap and scan
+  engines, which agree within atol 1e-5; and a child process
+  (``--profile prefetch``) that profiles the main path and the charlm cell
+  in both modes (idle share, device ops per round) and counts the runtime
+  calls that wait for the device between two prefetch round dispatches,
+  which must be 0;
 * ``femnist1-fedavg-aocs-shard-randk`` on 4 ranks sharing the one card (gloo,
   every rank on ``cuda:0``): each rank's launches, masks equal across ranks,
   the first round's mask equal to the world-size-1 run's and the parameters
@@ -107,6 +122,15 @@ VMAP_CELL = "femnist1-fedavg-aocs-randk"      # + agg_backend pallas
 SLICE1_CELL = "femnist1-fedavg-aocs-pallas"
 SHARD_RANDK_CELL = "femnist1-fedavg-aocs-shard-randk"
 SHARD_CELL = "femnist1-fedavg-aocs-shard"
+CHARLM_CELL = "charlm-fedavg-aocs"            # the 2-layer GRU, D = 60,630
+CHARLM_ROUNDS = 10
+CHARLM_DIM = 60630
+MAIN_DIM = 58430
+SYNC_ROUNDS = 4              # profiled rounds per mode; the sync window spans 2
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy", "cudaMemcpy2D", "cudaMemcpyFromSymbol", "cudaMemcpyToSymbol")
+SERVER_OPT_ROUNDS = 3        # the reference's test_engine_matrix_parity_server_opt
+SERVER_OPT_ATOL = 1e-5
 PATH_ROUNDS = 20
 SHARD_ROUNDS = 10            # = VMAP_ROUNDS = SLICE1_ROUNDS: compared bitwise
 MESH4_RANKS = 4
@@ -1646,74 +1670,314 @@ def vmap_scenario():
                     fl=dataclasses.replace(sc.fl, agg_backend="pallas"))
 
 
-def path_phase(torch, sc, rounds, per_round, out_dir):
-    """One path at full width: ``rounds`` rounds through the kernels
-    (``per_round`` launches each), reproduced bitwise, and a reduced run on
-    the card against the CPU.  A sharded cell runs the mesh round at world
-    size 1 (NCCL on the card, gloo for the CPU run).  Returns the counts,
-    the parameters and the ledger of the run."""
+def path_phase(torch, sc, rounds, per_round, out_dir, mode="host", dim=MAIN_DIM):
+    """One path at full width in driver mode ``mode``: ``rounds`` rounds
+    through the kernels (``per_round`` launches each), reproduced bitwise,
+    and a reduced run on the card against the CPU.  A sharded cell runs the
+    mesh round at world size 1 (NCCL on the card, gloo for the CPU run).
+    Returns the counts, the parameters and the ledger of the run."""
+    from repro_torch.kernels.ops import tree_leaves
     from repro_torch.sim.driver import run_scenario, validate_ledger
 
+    label = f"{sc.name} [{mode}]"
     reset_counts()
     t0 = time.perf_counter()
-    params, ledger = run_scenario(sc, mode="host", rounds=rounds)
+    params, ledger = run_scenario(sc, mode=mode, rounds=rounds)
     counts = read_counts()
     want = {name: per_round.get(name, 0) * rounds for name in counts}
     if counts != want:
-        raise AssertionError(f"{sc.name}: launches {counts}, want {want}")
+        raise AssertionError(f"{label}: launches {counts}, want {want}")
     doc = ledger.to_json(include_masks=True)
     validate_ledger(doc)
     if len(ledger.loss) != rounds or not all(map(_finite, ledger.loss)):
         raise AssertionError(f"bad loss series {ledger.loss}")
-    if (ledger.workload["model_dim"] != 58430 or ledger.workload["backend_platform"] != "cuda"
-            or ledger.workload.get("mesh_axis_size") != (1 if sc.sharded else None)):
+    if (ledger.workload["model_dim"] != dim or ledger.workload["backend_platform"] != "cuda"
+            or ledger.workload.get("mesh_axis_size") != (1 if sc.sharded else None)
+            or ("pool_bytes" in ledger.workload) != (mode == "prefetch")):
         raise AssertionError(f"unexpected workload {ledger.workload}")
-    for name, p in params.items():
+    for i, p in enumerate(tree_leaves(params)):
         if p.device.type != "cuda" or not bool(torch.isfinite(p).all()):
-            raise AssertionError(f"parameter {name} is not finite on the card")
+            raise AssertionError(f"parameter leaf {i} is not finite on the card")
     walls = ledger.wall_ms[1:]
-    print(f"path {sc.name}: full width, {rounds} rounds on the card in "
+    print(f"path {label}: full width, {rounds} rounds on the card in "
           f"{time.perf_counter() - t0:.1f} s; launches per round "
           f"{ {k: v / rounds for k, v in counts.items() if v} }; loss {ledger.loss[0]} -> "
           f"{ledger.loss[-1]}; sent {ledger.sent}; uplink bits {ledger.uplink_bits[-1]}")
-    print(f"path {sc.name} timing: {ledger.rounds_per_sec} rounds/s after the first round; "
-          f"per-round ms median {statistics.median(walls)}, min {min(walls)}, "
-          f"max {max(walls)}; set-up (first round) {ledger.wall_ms[0]} ms")
+    cadence = " (dispatch cadence: no sync per round)" if mode == "prefetch" else ""
+    print(f"path {label} timing: {ledger.rounds_per_sec} rounds/s after the first round; "
+          f"per-round ms{cadence} median {statistics.median(walls)}, min {min(walls)}, "
+          f"max {max(walls)}; set-up (first round) {ledger.wall_ms[0]} ms; run "
+          f"{ledger.wall_s * 1e3} ms; pool bytes {ledger.workload.get('pool_bytes')}; "
+          f"{card_line()}")
 
-    params2, ledger2 = run_scenario(sc, mode="host", rounds=rounds)
-    same_masks = all(bool((a == b).all()) for a, b in zip(ledger.masks, ledger2.masks))
-    same_params = all(torch.equal(params[k], params2[k]) for k in params)
-    if not (same_masks and same_params and ledger.loss == ledger2.loss):
-        raise AssertionError(f"{sc.name}: a second run is not bitwise the first")
-    print(f"path {sc.name}: a second run reproduces masks, losses and parameters bitwise")
+    same_run(torch, f"{label}, a second run", (params, ledger),
+             run_scenario(sc, mode=mode, rounds=rounds))
 
     # a reference on a small input: the same reduced run on the CPU
-    _, red_cpu = run_scenario(sc, reduced=True, rounds=3, device="cpu")
-    _, red_gpu = run_scenario(sc, reduced=True, rounds=3)
+    _, red_cpu = run_scenario(sc, reduced=True, rounds=3, device="cpu", mode=mode)
+    _, red_gpu = run_scenario(sc, reduced=True, rounds=3, mode=mode)
     if not all(bool((a == b).all()) for a, b in zip(red_cpu.masks, red_gpu.masks)):
-        raise AssertionError(f"{sc.name} reduced: masks differ between the card and the CPU")
+        raise AssertionError(f"{label} reduced: masks differ between the card and the CPU")
     for a, b in zip(red_cpu.loss, red_gpu.loss):
         if abs(a - b) > 1e-4 * abs(a):
-            raise AssertionError(f"{sc.name} reduced: losses differ {red_cpu.loss} "
+            raise AssertionError(f"{label} reduced: losses differ {red_cpu.loss} "
                                  f"{red_gpu.loss}")
-    print(f"path {sc.name}: reduced run on the card matches the CPU (masks bitwise, loss "
+    print(f"path {label}: reduced run on the card matches the CPU (masks bitwise, loss "
           f"rtol 1e-4): {red_gpu.loss} vs {red_cpu.loss}")
     if out_dir is not None:
-        (out_dir / f"chip_smoke_ledger_{sc.name}.json").write_text(json.dumps(doc, indent=1))
+        suffix = "" if mode == "host" else f"_{mode}"
+        (out_dir / f"chip_smoke_ledger_{sc.name}{suffix}.json").write_text(
+            json.dumps(doc, indent=1))
     return counts, params, ledger
 
 
 def same_run(torch, what, a, b) -> None:
-    """Two runs' masks, losses and parameters, bitwise."""
+    """Two runs' masks, every ledger series but ``wall_ms`` (losses, bits,
+    alpha, gamma, the eval curve ...) and parameters, bitwise."""
+    from repro_torch.kernels.ops import tree_leaves
+
     (pa, la), (pb, lb) = a, b
-    same = (len(la.masks) == len(lb.masks)
+    ma, mb = (l.to_json()["metrics"] for l in (la, lb))
+    differ = [k for k in ma if k != "wall_ms" and ma[k] != mb[k]]
+    same = (not differ and len(la.masks) == len(lb.masks)
             and all(bool((x == y).all()) for x, y in zip(la.masks, lb.masks))
-            and la.loss == lb.loss and la.uplink_bits == lb.uplink_bits
-            and all(torch.equal(pa[k], pb[k]) for k in pa))
+            and all(torch.equal(x, y) for x, y in zip(tree_leaves(pa), tree_leaves(pb))))
     if not same:
-        raise AssertionError(f"{what}: the runs differ")
-    print(f"path {what}: masks, losses, uplink bits and parameters bitwise equal over "
+        raise AssertionError(f"{what}: the runs differ (ledger series {differ})")
+    print(f"path {what}: masks, the ledger minus wall_ms and parameters bitwise equal over "
           f"{len(la.masks)} rounds")
+
+
+def charlm_scenario(backend="jnp"):
+    """The paper's Shakespeare cell at the registry's full width (pool 240,
+    cohort 32, m = 2, R = 6, batch 8, sequence 5, hidden 64; D = 60,630),
+    optionally with the Eq. 2 aggregate on kernel 1."""
+    from repro_torch.sim.scenarios import get_scenario
+
+    sc = get_scenario(CHARLM_CELL)
+    if backend == "jnp":
+        return sc
+    return sc.with_(name=f"{CHARLM_CELL}+pallas",
+                    fl=dataclasses.replace(sc.fl, agg_backend="pallas"))
+
+
+def charlm_kernel_check(torch, dev, flush):
+    """Kernel 1 on the charlm path's matrix: the (32, 60,630) client-major
+    update matrix of a full-width cohort (60,630 is not a multiple of 4, so
+    ``ops`` pads it to 60,632), against its plain version, and timed beside
+    it.  Returns the keys added to kernel 1's entry of the kernel line."""
+    import numpy as np
+
+    from repro_torch import rng as trng
+    from repro_torch.fl.engine import RoundEngine
+    from repro_torch.kernels import masked_aggregate as ma
+    from repro_torch.kernels import ops
+
+    sc = charlm_scenario("pallas")
+    ds = sc.build_dataset()
+    init_fn, loss_fn, _ = sc.build_model(ds)
+    engine = RoundEngine(loss_fn, sc.fl)
+    params = init_fn(trng.fold_in(trng.PRNGKey(sc.seed, device=dev), 1))
+    gen = np.random.default_rng(sc.seed)
+    clients = gen.choice(ds.n_clients, size=sc.fl.n_clients, replace=False)
+    batch = ds.sample_round_batches(gen, clients, sc.fl.local_steps, sc.batch_size)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    flat = ops.tree_to_client_matrix(engine._batched_update(params, batch)[0])
+    c, d = flat.shape
+    if (c, d) != (32, CHARLM_DIM):
+        raise AssertionError(f"charlm update matrix {tuple(flat.shape)}, want (32, {CHARLM_DIM})")
+    g = torch.Generator(device="cpu").manual_seed(19)
+    s = (torch.rand((c,), generator=g) * (torch.rand((c,), generator=g) < 0.5)).to(dev)
+    got = ops.masked_scale_aggregate(flat, s)
+    want = ma.masked_scale_aggregate_ref(flat, s)
+    torch.cuda.synchronize()
+    max_err = check_close("masked_scale_aggregate charlm shape", got, want, flat, s, RTOL, ATOL)
+    upad = torch.nn.functional.pad(flat, (0, (-d) % ma.TILE)).contiguous()
+    ops_ms = time_ms(lambda: ops.masked_scale_aggregate(flat, s), torch, flush)
+    kernel_ms = time_ms(lambda: ma.masked_scale_aggregate_cuda(upad, s), torch, flush)
+    plain_ms = time_ms(lambda: ma.masked_scale_aggregate_ref(flat, s), torch, flush)
+    library_ms = time_ms(lambda: torch.matmul(s, flat), torch, flush)
+    nbytes = (c * d + c + d) * 4
+    bound_ms, bound_by = bound(nbytes, 2 * c * d)
+    print(f"kernel charlm shape ({c}, {d}) f32 (ops pads to {tuple(upad.shape)}): max abs err "
+          f"{max_err} (rtol {RTOL}, atol {ATOL}); ops call {ops_ms} ms, kernel on the padded "
+          f"matrix {kernel_ms} ms, plain {plain_ms} ms, torch.matmul {library_ms} ms, bound "
+          f"{bound_ms} ms ({bound_by}); {card_line()}")
+    return {"charlm_shape": [c, d], "charlm_max_abs_err": max_err, "charlm_ops_ms": ops_ms,
+            "charlm_ms": kernel_ms, "charlm_plain_ms": plain_ms,
+            "charlm_library_ms": library_ms, "charlm_bound_ms": bound_ms}
+
+
+def server_opt_phase(torch, dev):
+    """A server optimizer (sgd with momentum 0.9, and adam) through the vmap
+    and scan engines on the card, on the workload of the reference's
+    ``test_engine_matrix_parity_server_opt`` (8 clients, the optimal sampler,
+    3 rounds): every engine x backend x cache regime ends at the first's
+    parameters within atol 1e-5, with the same masks."""
+    import numpy as np
+
+    from repro_torch import rng as trng
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.fl.engine import RoundEngine
+    from repro_torch.fl.round import client_weights
+    from repro_torch.kernels.ops import tree_leaves
+    from repro_torch.models.simple import mlp_classifier
+    from repro_torch.optim import adam, sgd
+
+    init, loss, _ = mlp_classifier(12, 3, hidden=8)
+    gen = np.random.default_rng(1)
+    batch = {"x": torch.as_tensor(gen.normal(size=(8, 2, 4, 12)).astype("float32"), device=dev),
+             "y": torch.as_tensor(gen.integers(0, 3, (8, 2, 4)).astype("int32"), device=dev)}
+    fl = FLConfig(n_clients=8, expected_clients=3, sampler="optimal", local_steps=2,
+                  lr_local=0.1)
+    combos = [("vmap", be, None) for be in ("jnp", "pallas")] + [
+        ("scan", be, cg) for be in ("jnp", "pallas") for cg in (None, 0, 1)]
+    w = client_weights(fl, device=dev)
+    key = trng.PRNGKey(11, device=dev)
+    for opt_name, make in (("sgd(0.5, momentum=0.9)", lambda: sgd(0.5, momentum=0.9)),
+                           ("adam(0.01)", lambda: adam(0.01))):
+        finals, masks, err = [], [], 0.0
+        for mem, be, cg in combos:
+            opt = make()
+            step = RoundEngine(loss, fl, opt, memory=mem, backend=be, scan_group=2,
+                               cache_groups=cg, device=dev).make_step()
+            params = init(trng.PRNGKey(0, device=dev))
+            state = opt.init(params)
+            run_masks = []
+            for k in range(SERVER_OPT_ROUNDS):
+                params, state, m = step(params, state, batch, w, trng.fold_in(key, k))
+                run_masks.append(m.mask.cpu())
+            finals.append(tree_leaves(params))
+            masks.append(run_masks)
+        for combo, leaves, run_masks in zip(combos[1:], finals[1:], masks[1:]):
+            if not all(torch.equal(a, b) for a, b in zip(run_masks, masks[0])):
+                raise AssertionError(f"server optimizer {opt_name}: {combo} draws other masks")
+            for a, b in zip(finals[0], leaves):
+                if a.device != b.device or a.device.type != dev.type:
+                    raise AssertionError(f"server optimizer {opt_name}: a leaf left {dev}")
+                err = max(err, float((a - b).abs().max()))
+        if err > SERVER_OPT_ATOL:
+            raise AssertionError(f"server optimizer {opt_name}: finals differ by {err} "
+                                 f"(atol {SERVER_OPT_ATOL})")
+        print(f"server optimizer {opt_name}: vmap and scan x jnp and pallas x cache regimes "
+              f"({len(combos)} engines, {SERVER_OPT_ROUNDS} rounds on the card): masks equal, "
+              f"final parameters within {err} of vmap+jnp's (atol {SERVER_OPT_ATOL})")
+
+
+def prefetch_profile(torch, dev) -> dict:
+    """The main path and the charlm cell in host and prefetch modes under
+    torch.profiler (``SYNC_ROUNDS`` rounds after a warm-up run each): device
+    busy ms, device ops per round and the run's wall ms; and, for the
+    prefetch runs, the CUDA runtime calls that wait for the device
+    (``SYNC_CALLS``) from the end of the first round's sync to the dispatch
+    of the last round's step, with every round step and the driver's syncs
+    marked by ``record_function``.  Then a few prefetch rounds under
+    ``torch.cuda.set_sync_debug_mode('warn')``, whose warnings name the
+    lines that synchronise.  Run in a process of its own."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.sim import driver
+
+    make_engine, sync = driver.make_engine, driver._sync
+
+    def marked_engine(*args, **kw):
+        step = make_engine(*args, **kw)
+
+        def round_step(*a):
+            with record_function("chip_smoke.round_step"):
+                return step(*a)
+
+        return round_step
+
+    def marked_sync(d):
+        with record_function("chip_smoke.sync"):
+            sync(d)
+
+    driver.make_engine, driver._sync = marked_engine, marked_sync
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for sc in (main_scenario(), charlm_scenario()):
+        ds = sc.build_dataset()
+        init_fn, loss_fn, _ = sc.build_model(ds)
+        for mode in ("host", "prefetch"):
+            def run(rounds):
+                return driver.run_simulation(ds, init_fn, loss_fn, sc.fl, rounds, mode=mode,
+                                             batch_size=sc.batch_size, seed=sc.seed)[1]
+            run(2)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                ledger = run(SYNC_ROUNDS)
+            events = prof.events()
+            on_card = [str(e.device_type).endswith("CUDA") for e in events]
+            # the markers' device-side spans (gpu_user_annotation) are not ops
+            device = [e for e, c in zip(events, on_card)
+                      if c and not e.name.startswith("chip_smoke.")]
+            host = [e for e, c in zip(events, on_card) if not c]
+            steps = sorted(e.time_range.start for e in host
+                           if e.name == "chip_smoke.round_step")
+            first_sync = min((e.time_range.end for e in host if e.name == "chip_smoke.sync"),
+                             default=None)
+            res = {"rounds": SYNC_ROUNDS, "wall_ms": ledger.wall_s * 1e3,
+                   "sum_round_ms": sum(ledger.wall_ms),
+                   "busy_ms": sum(e.time_range.elapsed_us() for e in device) / 1e3,
+                   "device_ops_per_round": len(device) / SYNC_ROUNDS,
+                   "round_steps_marked": len(steps)}
+            if mode == "prefetch" and first_sync is not None and len(steps) == SYNC_ROUNDS:
+                lo, hi = first_sync, steps[-1]
+                inside = [e.name for e in host if lo <= e.time_range.start < hi]
+                res["window_rounds"] = sum(lo <= t < hi for t in steps)
+                res["sync_calls"] = {n: inside.count(n) for n in SYNC_CALLS}
+                res["memcpy_async_calls"] = inside.count("cudaMemcpyAsync")
+                res["stream_wait_calls"] = inside.count("cudaStreamWaitEvent")
+            out[f"{sc.name} [{mode}]"] = res
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sc = main_scenario()
+            ds = sc.build_dataset()
+            init_fn, loss_fn, _ = sc.build_model(ds)
+            driver.run_simulation(ds, init_fn, loss_fn, sc.fl, 4, mode="prefetch",
+                                  batch_size=sc.batch_size, seed=sc.seed)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    out["sync_debug_warnings"] = sorted({f"{Path(w.filename).name}:{w.lineno}: "
+                                         f"{str(w.message)[:80]}" for w in caught})
+    return out
+
+
+def prefetch_profile_report() -> dict:
+    """Print :func:`prefetch_profile` (run in a child) and fail unless no
+    call that waits for the device lies between two prefetch round
+    dispatches.  Returns the child's numbers."""
+    prof = profile_in_child("prefetch")
+    for name, res in prof.items():
+        if name == "sync_debug_warnings":
+            continue
+        idle = 1 - res["busy_ms"] / res["wall_ms"]
+        print(f"profile {name}: {res['rounds']} rounds under the profiler (a young process), "
+              f"run {res['wall_ms']} ms (rounds' wall_ms sum {res['sum_round_ms']}), device "
+              f"busy {res['busy_ms']} ms, idle share {idle}; device ops per round "
+              f"{res['device_ops_per_round']}; {card_line()}")
+        if "[prefetch]" not in name:
+            continue
+        if "sync_calls" not in res:
+            raise AssertionError(f"{name}: the profiler saw {res['round_steps_marked']} of "
+                                 f"{res['rounds']} marked round steps; no sync window")
+        waits = sum(res["sync_calls"].values())
+        print(f"profile {name}: from the first round's sync to the last step's dispatch "
+              f"({res['window_rounds']} rounds): calls that wait for the device "
+              f"{res['sync_calls']} (total {waits}); cudaMemcpyAsync "
+              f"{res['memcpy_async_calls']}, cudaStreamWaitEvent {res['stream_wait_calls']}")
+        if waits:
+            raise AssertionError(f"{name}: {waits} calls wait for the device between two round "
+                                 f"dispatches: {res['sync_calls']}; set_sync_debug_mode "
+                                 f"warnings: {prof['sync_debug_warnings']}")
+    print(f"profile: set_sync_debug_mode('warn') over 4 prefetch rounds of the main path "
+          f"(the first round's sync, the run's last sync and the ledger's reads included): "
+          f"{prof['sync_debug_warnings']}")
+    return prof
 
 
 def _mesh4_rank(mesh, rounds):
@@ -1735,7 +1999,7 @@ def _mesh4_rank(mesh, rounds):
 
     ops.sharded_compress_aggregate_cuda = recorded
     reset_counts()
-    params, ledger = run_scenario(SHARD_RANDK_CELL, rounds=rounds, mesh=mesh)
+    params, ledger = run_scenario(SHARD_RANDK_CELL, rounds=rounds, mesh=mesh, mode="host")
     counts = read_counts()
     return {"rank": mesh.rank, "backend": mesh.backend, "device": str(mesh.device),
             "counts": counts, "shapes": shapes,
@@ -1749,7 +2013,7 @@ def mesh4_phase(torch, out_dir):
     from repro_torch.fl.mesh import spawn_mesh
     from repro_torch.sim.driver import run_scenario, validate_ledger
 
-    ref_params, ref_ledger = run_scenario(SHARD_RANDK_CELL, rounds=MESH4_ROUNDS)
+    ref_params, ref_ledger = run_scenario(SHARD_RANDK_CELL, rounds=MESH4_ROUNDS, mode="host")
     t0 = time.perf_counter()
     ranks = spawn_mesh(_mesh4_rank, MESH4_RANKS, "gloo", MESH4_TIMEOUT_S, device="cuda:0",
                        args=(MESH4_ROUNDS,))
@@ -1853,7 +2117,7 @@ def profile_phase(torch, sc, out_dir):
     mesh = build_client_mesh(sc.fl) if sc.sharded else None
 
     def run(rounds):
-        return run_simulation(ds, init_fn, loss_fn, sc.fl, rounds,
+        return run_simulation(ds, init_fn, loss_fn, sc.fl, rounds, mode="host",
                               batch_size=sc.batch_size, seed=sc.seed, mesh=mesh)[1]
 
     try:
@@ -2143,7 +2407,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
                     help="directory for the full-width ledgers and the profile traces")
-    ap.add_argument("--profile", choices=("norm", "ssd"), default=None,
+    ap.add_argument("--profile", choices=("norm", "ssd", "prefetch"), default=None,
                     help="only print that profiler pass's JSON (the kernel phases run this)")
     args = ap.parse_args()
 
@@ -2163,7 +2427,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     if args.profile is not None:
-        profile = {"norm": norm_profile, "ssd": ssd_profile}[args.profile]
+        profile = {"norm": norm_profile, "ssd": ssd_profile,
+                   "prefetch": prefetch_profile}[args.profile]
         print(json.dumps(profile(torch, dev)))
         return 0
     kind = torch.cuda.get_device_name(0)
@@ -2190,6 +2455,7 @@ def main() -> int:
     kernels = [kernel_phase(torch, dev, flush)] + norm_kernel_phase(torch, dev, flush)
     kernels += shard_kernel_phase(torch, dev, flush)
     kernels += [attention_kernel_phase(torch, dev, flush), ssd_kernel_phase(torch, dev, flush)]
+    kernels[0].update(charlm_kernel_check(torch, dev, flush))
     del flush
 
     main_sc = main_scenario()
@@ -2201,9 +2467,29 @@ def main() -> int:
     engine = RoundEngine(main_sc.build_model(main_sc.build_dataset())[1], main_sc.fl)
     print(f"path {main_sc.name}: scan_group {engine.scan_group}, cache_groups "
           f"{engine.cache_groups}, local_update_evals {engine.local_update_evals} per round")
-    counts, _, _ = path_phase(torch, main_sc, PATH_ROUNDS,
-                              {"norm_scale_aggregate": 4, "compress_norm_scale_aggregate": 4},
-                              args.out)
+    main_per_round = {"norm_scale_aggregate": 4, "compress_norm_scale_aggregate": 4}
+    counts, main_params, main_ledger = path_phase(torch, main_sc, PATH_ROUNDS, main_per_round,
+                                                  args.out)
+    # the reference's default driver mode on the same path: the pool on the
+    # card, round k+1's gather dispatched before round k's step
+    pre_counts, pre_params, pre_ledger = path_phase(torch, main_sc, PATH_ROUNDS,
+                                                    main_per_round, args.out, mode="prefetch")
+    same_run(torch, f"{main_sc.name}: prefetch vs host", (pre_params, pre_ledger),
+             (main_params, main_ledger))
+    print(f"path {main_sc.name}: host {main_ledger.rounds_per_sec} vs prefetch "
+          f"{pre_ledger.rounds_per_sec} rounds/s after the first round; ClientPool.nbytes "
+          f"{pre_ledger.workload['pool_bytes']}")
+
+    # the charlm cell at full width, both modes, and with kernel 1 on its aggregate
+    c_host = path_phase(torch, charlm_scenario(), CHARLM_ROUNDS, {}, args.out, dim=CHARLM_DIM)
+    c_pre = path_phase(torch, charlm_scenario(), CHARLM_ROUNDS, {}, args.out,
+                       mode="prefetch", dim=CHARLM_DIM)
+    same_run(torch, f"{CHARLM_CELL}: prefetch vs host", c_pre[1:], c_host[1:])
+    charlm_counts, _, _ = path_phase(torch, charlm_scenario("pallas"), CHARLM_ROUNDS,
+                                     {"masked_scale_aggregate": 1}, args.out,
+                                     mode="prefetch", dim=CHARLM_DIM)
+    server_opt_phase(torch, dev)
+    prefetch_profile_report()
     vmap_counts, vmap_params, vmap_ledger = path_phase(
         torch, vmap_scenario(), VMAP_ROUNDS, {"compress_norm_scale_aggregate": 1}, args.out)
     from repro_torch.sim.scenarios import get_scenario
@@ -2242,6 +2528,10 @@ def main() -> int:
         k["launches"] = run_counts[k["name"]]
         k["path"] = path
     kernels[3]["vmap_path_launches"] = vmap_counts["compress_norm_scale_aggregate"]
+    kernels[0]["charlm_launches"] = charlm_counts["masked_scale_aggregate"]
+    kernels[0]["charlm_path"] = f"{CHARLM_CELL}+pallas [prefetch]"
+    for k in (2, 3):
+        kernels[k]["prefetch_launches"] = pre_counts[kernels[k]["name"]]
     kernels[7]["mamba2_130m_launches"] = serves["mamba2-130m"]["counts"]["ssd_scan"]
     kernels[7]["mamba2_130m_path"] = mamba
 

@@ -41,7 +41,9 @@ def optimal_probabilities(u: torch.Tensor, m: int) -> torch.Tensor:
                         torch.full_like(s, float("inf")))
     ok = (budget > 0) & (budget <= ratio)
     l = torch.max(torch.where(ok, ls, torch.zeros_like(ls)))  # noqa: E741
-    denom = csum[l - 1]
+    # torch.take, not csum[l - 1]: indexing with a 0-d tensor reads it back
+    # to the host (a stream sync every round)
+    denom = torch.take(csum, l - 1)
     scale = (m + l - n) / torch.clamp(denom, min=_EPS)
     p_small = u * scale
     # the n - l largest norms get 1; ranks break ties exactly like the sort

@@ -4,6 +4,9 @@
 * ``femnist_like`` — 62-class image classification with the paper's
   unbalancing procedure (footnote 6), datasets 1-3 of decreasing balance.
 * ``cifar_like``   — the balanced control pool (Appendix G).
+* ``charlm``       — the Shakespeare-like next-character pool (Sec. 4.2,
+  Figs. 6-7): ``CHARLM_VOCAB`` symbols, ``tokens``/``targets`` windows.
+* ``eval_split``   — a held-out pool from the same generative process.
 
 Pure numpy, so the same ``Generator`` gives bit-identical client data and
 ``sample_round_batches`` output in both packages.
@@ -113,3 +116,48 @@ def cifar_like(
         x = means[labels] + rng.normal(size=(per_client, dim)).astype(np.float32) * 0.25
         clients.append({"x": x.astype(np.float32), "y": labels.astype(np.int32)})
     return FederatedDataset(clients, num_classes, dim)
+
+
+def eval_split(ds_fn, n_examples: int = 2048, seed: int = 999, **kw):
+    """Held-out pool drawn from the same generative process."""
+    ds = ds_fn(seed=seed, n_clients=max(8, n_examples // 64), **kw)
+    x = np.concatenate([c["x"] for c in ds.client_data])[:n_examples]
+    y = np.concatenate([c["y"] for c in ds.client_data])[:n_examples]
+    return {"x": x, "y": y}
+
+
+# ---------------------------------------------------------------------------
+# Shakespeare-like char LM
+
+
+CHARLM_VOCAB = 86
+
+
+def charlm(
+    n_clients: int = 715, seq_len: int = 5, chars_per_client: int = 800, seed: int = 3,
+) -> FederatedDataset:
+    rng = np.random.default_rng(seed)
+    v = CHARLM_VOCAB
+    # one global order-1 transition matrix + per-client temperature/shift;
+    # concentrated dirichlet -> peaky transitions (learnable structure, like
+    # real text), mild per-client variation (heterogeneity without chaos).
+    base = rng.dirichlet(np.full(v, 0.02), size=v)
+    clients = []
+    for _ in range(n_clients):
+        shift = rng.integers(0, 4)
+        temp = rng.uniform(0.8, 1.25)
+        trans = np.roll(base, shift, axis=1) ** temp
+        trans = trans + 1e-6
+        trans /= trans.sum(axis=1, keepdims=True)
+        n_chars = int(rng.lognormal(np.log(chars_per_client), 0.8))
+        n_chars = max(seq_len * 8, min(n_chars, 4000))
+        text = np.empty(n_chars, np.int32)
+        text[0] = rng.integers(0, v)
+        for t in range(1, n_chars):
+            text[t] = rng.choice(v, p=trans[text[t - 1]])
+        n_seq = n_chars // (seq_len + 1)
+        chunk = text[: n_seq * (seq_len + 1)].reshape(n_seq, seq_len + 1)
+        clients.append(
+            {"tokens": chunk[:, :-1].astype(np.int32), "targets": chunk[:, 1:].astype(np.int32)}
+        )
+    return FederatedDataset(clients, v, seq_len)

@@ -38,8 +38,14 @@ With a mesh, :func:`make_engine` returns the mesh round of
 ``fl/shard_round.py`` instead: the clients sharded over the ranks of a
 ``torch.distributed`` process group, with explicit collectives.
 
-Not ported yet, each raising ``NotImplementedError``: a server optimizer
-(the optimizer slice) and the observability step ``make_step(diag=True)``.
+The master applies the aggregate with plain ``lr_global`` SGD, or with a
+server optimizer (``server_opt``, :mod:`repro_torch.optim`) on either memory
+policy; the mesh round keeps plain SGD and rejects one.  Parameters are
+nested dicts of tensors (the char-LM's ``gru{i}: {wx, wh, b}``), mapped leaf
+by leaf with :func:`~repro_torch.kernels.ops.tree_map`.
+
+Not ported yet, raising ``NotImplementedError``: the observability step
+``make_step(diag=True)``.
 """
 
 from __future__ import annotations
@@ -136,15 +142,15 @@ def make_local_update(loss_fn: Callable, fl: FLConfig):
         client_batch = dict(client_batch)
         step_mask = client_batch.pop("_step_mask", None)
         if step_mask is None:
-            device = next(iter(params.values())).device
+            device = kops.tree_leaves(params)[0].device
             step_mask = torch.ones((fl.local_steps,), dtype=torch.float32, device=device)
         p, losses = params, []
         for r in range(fl.local_steps):
             g, loss = grad_fn(p, {k: v[r] for k, v in client_batch.items()})
             m = step_mask[r]
-            p = {k: p[k] - m * fl.lr_local * g[k].to(p[k].dtype) for k in p}
+            p = kops.tree_map(lambda a, b: a - m * fl.lr_local * b.to(a.dtype), p, g)
             losses.append(loss)
-        update = {k: params[k] - p[k] for k in params}
+        update = kops.tree_map(lambda a, b: a - b, params, p)
         loss = torch.sum(torch.stack(losses) * step_mask) / torch.clamp(
             torch.sum(step_mask), min=1.0
         )
@@ -221,6 +227,7 @@ class RoundEngine:
         device=None,
     ):
         self.fl = fl
+        self.server_opt = server_opt
         self.device = resolve_device(device)
         self.memory = memory if memory is not None else fl.round_engine
         self.backend = backend if backend is not None else fl.agg_backend
@@ -245,8 +252,6 @@ class RoundEngine:
             raise ValueError(
                 f"unknown compressor {fl.compression!r}; want one of {COMPRESSORS}"
             )
-        if server_opt is not None:
-            raise _not_ported("a server optimizer", "optimizer")
         if fl.algorithm not in ("fedavg", "dsgd"):
             raise ValueError(f"unknown algorithm {fl.algorithm!r}; want fedavg or dsgd")
         sampling.resolve_sampler(fl.sampler)
@@ -278,9 +283,11 @@ class RoundEngine:
         )
 
     def _apply_server(self, params, opt_state, aggregate):
-        lr = self.fl.lr_global
-        new_params = {k: params[k] - lr * aggregate[k].to(params[k].dtype) for k in params}
-        return new_params, opt_state
+        if self.server_opt is None:
+            lr = self.fl.lr_global
+            new_params = kops.tree_map(lambda p, g: p - lr * g.to(p.dtype), params, aggregate)
+            return new_params, opt_state
+        return self.server_opt.update(aggregate, opt_state, params)
 
     def make_step(self, diag: bool = False) -> Callable:
         """The ``round_step`` for this engine's (memory, backend).  The

@@ -1,10 +1,13 @@
-"""Stable round entry points: client weights and the per-round bit bill
-(``repro/fl/round.py``)."""
+"""Stable round entry points: client weights, ``make_round`` and the
+per-round bit bill (``repro/fl/round.py``)."""
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
+from repro_torch._device import upload
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.bits import BitsLedger
 from repro_torch.fl.engine import (  # noqa: F401  (re-exported stable API)
@@ -19,10 +22,25 @@ def client_weights(fl: FLConfig, sizes=None, device=None) -> torch.Tensor:
     """``(n,)`` f32 client weights ``w_i``: uniform, or ``sizes`` normalised
     when ``fl.weights == 'data_size'``."""
     if fl.weights == "data_size" and sizes is not None:
-        w = torch.as_tensor(sizes, device=device).to(torch.float32)
+        w = upload(sizes, device).to(torch.float32)
         return w / torch.sum(w)
     return torch.full((fl.n_clients,), 1.0 / fl.n_clients, dtype=torch.float32,
                       device=device)
+
+
+def make_round(loss_fn: Callable, fl: FLConfig, server_opt=None, mode: str | None = None,
+               scan_group: int | None = None, backend: str | None = None, device=None):
+    """Returns ``round_step(params, opt_state, batch, weights, key) ->
+    (params, opt_state, RoundMetrics)``.
+
+    ``mode`` / ``scan_group`` / ``backend`` override the config's
+    ``round_engine`` / ``scan_group`` / ``agg_backend`` when given (the
+    reference's call form); ``device`` is the engine's (``None`` means CUDA).
+    """
+    return RoundEngine(
+        loss_fn, fl, server_opt,
+        memory=mode, backend=backend, scan_group=scan_group, device=device,
+    ).make_step()
 
 
 def round_bits(fl: FLConfig, model_dim: int, mask) -> int:

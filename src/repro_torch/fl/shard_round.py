@@ -137,8 +137,7 @@ def make_shard_map_round(loss_fn: Callable, fl: FLConfig, mesh) -> Callable:
 
             aggregate = kops.tree_map(agg, compressed)
         lr = fl.lr_global
-        new_params = {name: params[name] - lr * aggregate[name].to(params[name].dtype)
-                      for name in params}
+        new_params = kops.tree_map(lambda p, g: p - lr * g.to(p.dtype), params, aggregate)
         loss = mesh.pmean(torch.mean(losses))
         return new_params, opt_state, round_metrics(plan, loss)
 

@@ -58,11 +58,13 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def tree_map(fn, tree):
-    """``fn`` applied to every leaf of a nested dict."""
+def tree_map(fn, tree, *rest):
+    """``fn`` applied to every leaf of a nested dict; with ``rest``, to the
+    matching leaves of several trees of one structure (``jax.tree_util.
+    tree_map``'s form)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def tree_rebuild(like, leaves_iter):

@@ -81,9 +81,13 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in``: the cipher of the counter pair ``(0, data)``."""
-    x = torch.tensor([0, int(data) & _MASK], dtype=torch.int64, device=key.device)
-    y0, y1 = threefry2x32(key[0], key[1], x[:1], x[1:])
+    """``jax.random.fold_in``: the cipher of the counter pair ``(0, data)``.
+
+    The counters are fills on the key's device, not a copy from host
+    memory, so a round key costs no stream sync."""
+    x0 = torch.zeros((1,), dtype=torch.int64, device=key.device)
+    x1 = torch.full((1,), int(data) & _MASK, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[0], key[1], x0, x1)
     return torch.cat([y0, y1])
 
 
@@ -106,9 +110,11 @@ def uniform(key: torch.Tensor, shape=(), minval=0.0, maxval=1.0) -> torch.Tensor
     batch of keys as :func:`bits` does."""
     b = bits(key, shape)
     floats = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    # the bounds and their difference in float32, as jax forms them, passed
+    # as Python scalars (exact in float32): no host-to-device copy
+    lo = np.float32(minval)
+    span = float(np.float32(maxval) - lo)
+    return torch.clamp(floats * span + float(lo), min=float(lo))
 
 
 def bernoulli(key: torch.Tensor, p, shape=None) -> torch.Tensor:
@@ -119,7 +125,7 @@ def bernoulli(key: torch.Tensor, p, shape=None) -> torch.Tensor:
     if isinstance(p, torch.Tensor):
         p = p.to(device=u.device, dtype=torch.float32)
     else:
-        p = torch.tensor(p, dtype=torch.float32, device=u.device)
+        p = float(np.float32(p))      # a scalar exact in float32: no copy
     return u < p
 
 

@@ -1,5 +1,6 @@
-"""Simulation subsystem: the multi-round driver (host mode), its schema-3
-ledger, and the registry of the scenario cells the port runs."""
+"""Simulation subsystem: the multi-round driver (host and prefetch modes),
+the device-resident client pool, the schema-3 ledger, and the registry of
+the scenario cells the port runs."""
 
 from repro_torch.sim.driver import (  # noqa: F401
     SimLedger,
@@ -7,6 +8,7 @@ from repro_torch.sim.driver import (  # noqa: F401
     run_simulation,
     validate_ledger,
 )
+from repro_torch.sim.pool import ClientPool, RoundPlan, plan_cohort  # noqa: F401
 from repro_torch.sim.scenarios import (  # noqa: F401
     SCENARIOS,
     Scenario,

@@ -1,13 +1,28 @@
 """Multi-round simulation driver: the paper's Sec. 4 evaluation loop, with a
 structured metrics ledger and versioned JSON artifacts.
 
-Ported from ``repro/sim/driver.py`` for the ``'host'`` mode: numpy batch
-assembly and upload every round, synchronous with the round step.  The loop
-consumes the host RNG (cohort draw without replacement, per-client example
-permutations) and the round keys (``fold_in(PRNGKey(seed), 1000 + k)``) in
-the reference's exact order, and :mod:`repro_torch.rng` reproduces jax's
-keys, so a run draws the reference's cohorts, batches and — whenever the
-norms agree — its participation masks.
+Ported from ``repro/sim/driver.py`` for two of its three modes:
+
+* ``'prefetch'`` (the default, as in the reference) — the
+  :class:`~repro_torch.sim.pool.ClientPool` pipeline: the dataset is padded
+  onto the device once; each round uploads only a small index plan, and one
+  device gather makes the batch.  Round k+1's plan is drawn and its gather
+  dispatched (on the pool's side stream) before round k's step is
+  dispatched, and the loop waits for the device only after the first round
+  and at the end, so ``wall_ms`` after the first round is the dispatch
+  cadence, as in the reference;
+* ``'host'`` — numpy batch assembly and upload every round, synchronous with
+  the round step (each ``wall_ms`` ends in a device sync).
+
+Both consume the host RNG (cohort draw without replacement, per-client
+example permutations) and the round keys (``fold_in(PRNGKey(seed), 1000 +
+k)``) in the reference's exact order, and :mod:`repro_torch.rng` reproduces
+jax's keys, so a run draws the reference's cohorts, batches and — whenever
+the norms agree — its participation masks, in either mode; the two modes'
+ledgers (minus timing) and parameters are bitwise equal.  ``eval_fn``
+evaluates on the reference's ``eval_every`` grid (and after the last round),
+filling the ledger's ``acc_rounds`` / ``acc``; ``server_opt`` applies the
+aggregate with a :mod:`repro_torch.optim` optimizer.
 
 Every run fills a :class:`SimLedger` (schema 3, the reference's artifact
 contract: ``validate_ledger`` accepts the same documents as the reference's);
@@ -17,15 +32,15 @@ With a ``mesh`` (a :class:`~repro_torch.fl.mesh.ClientMesh`,
 :func:`build_client_mesh`) the loop runs the mesh round of
 ``fl/shard_round.py`` on every rank: each rank replays the same numpy
 generator, so every rank draws the reference's cohorts and batches, and
-uploads only its block of the cohort.  The ledger is the same on every rank.
+uploads (host) or gathers (prefetch) only its block of the cohort.  Under
+prefetch every rank holds the whole pool (the reference shards its rows over
+the mesh).  The ledger is the same on every rank.
 
-Not ported yet: the ``'prefetch'`` and ``'scan'`` modes, telemetry
-(``obs``), checkpoint/resume and the client-state layer (``system``); each
-raises ``NotImplementedError`` (``'scan'`` with a mesh raises
-``ValueError``, as in the reference: the mesh round cannot run inside a
-block of rounds).  Until prefetch lands, ``run_simulation`` and
-``run_scenario`` default to ``mode='host'`` (the reference defaults to
-``'prefetch'``).
+Not ported yet: the ``'scan'`` mode (``rounds_per_scan`` is accepted),
+telemetry (``obs``), checkpoint/resume and the client-state layer
+(``system``); each raises ``NotImplementedError`` (``'scan'`` with a mesh
+raises ``ValueError``, as in the reference: the mesh round cannot run inside
+a block of rounds).
 """
 
 from __future__ import annotations
@@ -41,12 +56,13 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import rng as trng
-from repro_torch._device import resolve_device
+from repro_torch._device import resolve_device, upload
 from repro_torch.fl.engine import make_engine
 from repro_torch.fl.mesh import ClientMesh, local_client_mesh
 from repro_torch.fl.round import client_weights, round_bits_duplex
 from repro_torch.fl.shard_round import validate_shard_config
 from repro_torch.kernels.ops import tree_leaves
+from repro_torch.sim.pool import ClientPool, claim_batch
 from repro_torch.sim.scenarios import get_scenario
 
 SIM_SCHEMA = 3
@@ -69,9 +85,11 @@ class SimLedger:
 
     Per-round series (``LEDGER_SERIES``; the system-layer counters are zeros
     in this slice, and ``wall_ms`` is each round's time on the monotonic
-    clock, ending in a device sync), the sparse gap series and the eval curve
-    (empty in this slice) and the run's throughput.  ``masks``/``norms`` are
-    kept in memory for parity checks and written to JSON only on request.
+    clock: ending in a device sync in host mode, the dispatch cadence after
+    the first round under prefetch), the sparse gap series (empty: no gap
+    estimator yet), the eval curve and the run's throughput.
+    ``masks``/``norms`` are kept in memory for parity checks and written to
+    JSON only on request.
     """
 
     mode: str
@@ -220,24 +238,26 @@ def build_client_mesh(fl, world_size: int | None = None, device=None) -> ClientM
     return local_client_mesh(device, axis_name=fl.client_axis)
 
 
-def _check_mode(mode, on_mesh: bool) -> None:
+def _check_mode(mode, on_mesh: bool, rounds_per_scan: int = 8) -> None:
     if mode not in MODES:
         raise ValueError(f"unknown sim mode {mode!r}; want one of {MODES}")
+    if mode == "scan" and rounds_per_scan < 1:
+        raise ValueError(f"rounds_per_scan must be >= 1, got {rounds_per_scan}")
     if mode == "scan" and on_mesh:
         raise ValueError(
             "sim mode 'scan' does not support a mesh: the shard_map round cannot run "
             "inside the scan-over-rounds block — use mode='host' or mode='prefetch' "
             "with the mesh, or drop the mesh to keep scan-over-rounds"
         )
-    if mode != "host":
+    if mode == "scan":
         raise NotImplementedError(
-            f"sim mode {mode!r} is not ported yet: it lands with the driver-modes "
-            f"slice of the port (use mode='host')"
+            "sim mode 'scan' is not ported yet: it lands with the driver-modes "
+            "slice of the port (use mode='prefetch' or mode='host')"
         )
 
 
-def _reject_unported(mode, mesh, **given):
-    _check_mode(mode, mesh is not None)
+def _reject_unported(mode, mesh, rounds_per_scan, **given):
+    _check_mode(mode, mesh is not None, rounds_per_scan)
     for name, value in given.items():
         if value is not None:
             raise NotImplementedError(f"run_simulation({name}=...) is not ported yet")
@@ -256,7 +276,11 @@ def run_simulation(
     rounds: int,
     *,
     batch_size: int = 20,
-    mode: str = "host",
+    mode: str = "prefetch",
+    rounds_per_scan: int = 8,
+    eval_fn=None,
+    eval_batch=None,
+    eval_every: int = 5,
     seed: int = 0,
     local_epoch: bool = True,
     server_opt=None,
@@ -273,21 +297,28 @@ def run_simulation(
 
     Each round draws the cohort (``rng.choice`` without replacement), the
     per-client example permutations and the round key
-    (``fold_in(key, 1000 + k)``) in the reference's order, runs one round
+    (``fold_in(key, 1000 + k)``) in the reference's order and runs one round
     step of the configured engine (``fl.round_engine``) on ``device``
-    (``None`` means CUDA and raises without one; pass ``device='cpu'``), and
-    waits for it.  ``init_fn(key)`` gets
+    (``None`` means CUDA and raises without one; pass ``device='cpu'``):
+    under ``mode='prefetch'`` from the device-resident pool, with the next
+    round's gather dispatched first; under ``'host'`` from a numpy batch,
+    waiting for each round (module docstring).  ``init_fn(key)`` gets
     ``fold_in(PRNGKey(seed), 1)``.  ``fl.weights == 'data_size'`` takes each
     cohort's slice of ``dataset.sizes()``, normalised per round.
+    ``eval_fn(params, eval_batch)`` (``eval_batch`` a dict of arrays or
+    tensors, moved to the device once) runs after round k whenever
+    ``k % eval_every == 0`` or k is the last round.  ``server_opt`` (an
+    :class:`~repro_torch.optim.Optimizer`) replaces the plain ``lr_global``
+    server step; it needs ``mesh=None``, as in the reference.
 
     With a ``mesh`` (call it on every rank) the round is the mesh round, on
-    the mesh's device: every rank draws the whole cohort and uploads its
-    block of the batch and the weights.  The ledger is the same on every
-    rank (``wall_ms`` is the slowest rank's) and records
-    ``workload["mesh_axis_size"]``.  ``artifact`` (a path) serialises the
-    ledger on completion (rank 0 only).
+    the mesh's device: every rank draws the whole cohort and uploads (host)
+    or gathers (prefetch) its block of the batch and the weights.  The
+    ledger is the same on every rank (``wall_ms`` is the slowest rank's) and
+    records ``workload["mesh_axis_size"]``.  ``artifact`` (a path) serialises
+    the ledger on completion (rank 0 only).
     """
-    _reject_unported(mode, mesh, server_opt=server_opt, system=system,
+    _reject_unported(mode, mesh, rounds_per_scan, system=system,
                      obs=obs, checkpoint=checkpoint, resume=resume)
     if fl.n_clients > dataset.n_clients:
         raise ValueError(
@@ -305,43 +336,85 @@ def run_simulation(
         k_local = fl.n_clients // mesh.world_size
         lo = mesh.rank * k_local
     # the round step (and its config check) before any draw
-    round_step = make_engine(loss_fn, fl, mesh=mesh, device=dev)
+    round_step = make_engine(loss_fn, fl, server_opt, mesh=mesh, device=dev)
 
     rng = np.random.default_rng(seed)
     key = trng.PRNGKey(seed, device=dev)
     params = init_fn(trng.fold_in(key, 1))
     dim = sum(leaf.numel() for leaf in tree_leaves(params))
-    opt_state = ()
+    opt_state = server_opt.init(params) if server_opt is not None else ()
     sizes = np.asarray(dataset.sizes())
     uniform_w = client_weights(fl, device=dev)
+    if eval_batch is not None:
+        eval_batch = {k: upload(v, dev) for k, v in eval_batch.items()}
 
     def cohort_weights(clients):
+        # this rank's block of the cohort's weights (all of them without a mesh)
         if fl.weights == "data_size":
-            return client_weights(fl, sizes[np.asarray(clients)], device=dev)
-        return uniform_w
+            return client_weights(fl, sizes[np.asarray(clients)], device=dev)[lo:lo + k_local]
+        return uniform_w[lo:lo + k_local]
 
-    dev_metrics, wall_ms = [], []
+    def draw_cohort():
+        return rng.choice(dataset.n_clients, size=fl.n_clients, replace=False)
+
+    def want_eval(k):
+        return eval_fn is not None and (k % eval_every == 0 or k == rounds - 1)
+
+    dev_metrics, dev_evals, wall_ms = [], [], []
+    pool = None
     t_start = time.perf_counter()
     t_first = None
-    for k in range(rounds):
-        t_round = time.perf_counter()
-        clients = rng.choice(dataset.n_clients, size=fl.n_clients, replace=False)
-        w = cohort_weights(clients)[lo:lo + k_local]
-        batch = dataset.sample_round_batches(
-            rng, clients, fl.local_steps, batch_size, local_epoch
-        )
-        # this rank's block of the cohort (the whole cohort without a mesh)
-        batch = {bk: torch.as_tensor(v[lo:lo + k_local], device=dev)
-                 for bk, v in batch.items()}
-        kk = trng.fold_in(key, 1000 + k)
-        params, opt_state, metrics = round_step(params, opt_state, batch, w, kk)
-        dev_metrics.append(metrics)
-        # the host loop is synchronous: it waits for the round before
-        # assembling the next round's batch
-        _sync(dev)
-        if t_first is None:
-            t_first = time.perf_counter()
-        wall_ms.append((time.perf_counter() - t_round) * 1e3)
+    if mode == "host":
+        for k in range(rounds):
+            t_round = time.perf_counter()
+            clients = draw_cohort()
+            w = cohort_weights(clients)
+            batch = dataset.sample_round_batches(
+                rng, clients, fl.local_steps, batch_size, local_epoch
+            )
+            # this rank's block of the cohort (the whole cohort without a mesh)
+            batch = {bk: torch.as_tensor(v[lo:lo + k_local], device=dev)
+                     for bk, v in batch.items()}
+            kk = trng.fold_in(key, 1000 + k)
+            params, opt_state, metrics = round_step(params, opt_state, batch, w, kk)
+            dev_metrics.append(metrics)
+            if want_eval(k):
+                dev_evals.append((k, eval_fn(params, eval_batch)))
+            # the host loop is synchronous: it waits for the round before
+            # assembling the next round's batch
+            _sync(dev)
+            if t_first is None:
+                t_first = time.perf_counter()
+            wall_ms.append((time.perf_counter() - t_round) * 1e3)
+    else:
+        pool = ClientPool(dataset, device=dev)
+
+        def draw_round(k):
+            # called strictly in round order: the host RNG and the keys are
+            # consumed as in the host loop, only earlier
+            clients = draw_cohort()
+            plan = pool.plan(rng, clients, fl.local_steps, batch_size, local_epoch)
+            return (pool.gather(plan, lo, k_local), cohort_weights(clients),
+                    trng.fold_in(key, 1000 + k))
+
+        nxt = draw_round(0)
+        for k in range(rounds):
+            t_round = time.perf_counter()
+            (batch, ready), w, kk = nxt
+            if k + 1 < rounds:
+                # double buffering: round k+1's plan is drawn and its gather
+                # dispatched before round k's step is
+                nxt = draw_round(k + 1)
+            params, opt_state, metrics = round_step(
+                params, opt_state, claim_batch(batch, ready), w, kk)
+            dev_metrics.append(metrics)
+            if want_eval(k):
+                dev_evals.append((k, eval_fn(params, eval_batch)))
+            if t_first is None:
+                # the only mid-run sync: it ends the set-up round
+                _sync(dev)
+                t_first = time.perf_counter()
+            wall_ms.append((time.perf_counter() - t_round) * 1e3)
     _sync(dev)
     t_end = time.perf_counter()
     wall_s = t_end - t_start
@@ -364,6 +437,7 @@ def run_simulation(
             "seed": seed,
             "local_epoch": bool(local_epoch),
             "backend_platform": dev.type,
+            **({"pool_bytes": pool.nbytes} if pool is not None else {}),
             **({"mesh_axis_size": mesh.world_size} if mesh is not None else {}),
         },
     )
@@ -393,6 +467,9 @@ def run_simulation(
         ledger.wall_ms.append(float(wall_ms[i]))
     ledger.masks = list(masks)
     ledger.norms = list(rows("norms").astype(np.float32))
+    for k, v in dev_evals:
+        ledger.acc_rounds.append(int(k))
+        ledger.acc.append(float(v))
     ledger.wall_s = wall_s
     steady = rounds - 1
     if steady > 0 and steady_s > 0:
@@ -408,8 +485,9 @@ def run_scenario(
     scenario,
     *,
     reduced: bool = False,
-    mode: str = "host",
+    mode: str = "prefetch",
     rounds: int | None = None,
+    rounds_per_scan: int = 8,
     seed: int | None = None,
     init_fn=None,
     mesh=None,
@@ -432,7 +510,7 @@ def run_scenario(
     sc = get_scenario(scenario) if isinstance(scenario, str) else scenario
     if reduced:
         sc = sc.reduced()
-    _check_mode(mode, mesh is not None or sc.sharded)
+    _check_mode(mode, mesh is not None or sc.sharded, rounds_per_scan)
     if mesh is None:
         device = resolve_device(device)
     ds = sc.build_dataset(reduced=reduced)
@@ -444,7 +522,7 @@ def run_scenario(
         return run_simulation(
             ds, init_fn or model_init, loss_fn, sc.fl,
             rounds if rounds is not None else sc.rounds,
-            batch_size=sc.batch_size, mode=mode,
+            batch_size=sc.batch_size, mode=mode, rounds_per_scan=rounds_per_scan,
             seed=sc.seed if seed is None else seed, mesh=mesh, system=sc.system,
             scenario_name=sc.name, artifact=artifact, obs=obs,
             checkpoint=checkpoint, resume=resume, device=device,

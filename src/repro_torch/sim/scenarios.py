@@ -1,13 +1,14 @@
 """Scenario registry: the cells of the paper's Sec. 4 grid that the port runs.
 
 A copy of the reference's registry (``repro/sim/scenarios.py``) restricted
-to what the port can run so far — the MLP cells on the vmap and scan engines
-and on the mesh round, with or without compression, without the client-state
-layer — with field values identical to the reference's, so one name means
-one run in both packages:
+to what the port can run so far — the MLP and char-LM cells on the vmap and
+scan engines and on the mesh round, with or without compression, without
+the client-state layer — with field values identical to the reference's, so
+one name means one run in both packages:
 
 * ``femnist{1,2,3}-fedavg-{full,aocs,uniform}`` (Sec. 4.2, Figs. 3-5)
 * ``femnist1-dsgd-{optimal,uniform}`` (Sec. 4.1)
+* ``charlm-fedavg-{aocs,uniform}`` (Sec. 4.2, Figs. 6-7: the 2-layer GRU)
 * ``cifar-fedavg-aocs`` (Appendix G)
 * ``femnist1-fedavg-aocs-q0.7`` (Appendix E)
 * ``femnist1-fedavg-aocs-randk`` (Sec. 6 future work: rand-k x OCS)
@@ -34,7 +35,7 @@ class Scenario:
     """One cell of the paper's experiment grid, fully parameterized.
 
     ``dataset`` names a synthetic factory (``femnist1|femnist2|femnist3``,
-    ``cifar``); ``dataset_kw`` overrides its defaults; ``paper`` records the
+    ``charlm``, ``cifar``); ``dataset_kw`` overrides its defaults; ``paper`` records the
     section/figure the cell reproduces.  ``sharded`` cells run the mesh round
     (``run_scenario`` builds a mesh with ``build_client_mesh`` when none is
     given).  ``system`` keeps the reference's field and is always ``None`` in
@@ -74,7 +75,7 @@ class Scenario:
 
     def build_dataset(self, reduced: bool = False):
         """Instantiate the scenario's (optionally reduced) synthetic dataset."""
-        from repro_torch.data import cifar_like, femnist_like
+        from repro_torch.data import charlm, cifar_like, femnist_like
 
         kw = dict(self.dataset_kw)
         if self.dataset.startswith("femnist"):
@@ -87,6 +88,13 @@ class Scenario:
             else:
                 kw.setdefault("n_clients", 96)
             return femnist_like(dataset_id=did, seed=0, **kw)
+        if self.dataset == "charlm":
+            if reduced:
+                kw.setdefault("n_clients", 24)
+                kw.setdefault("chars_per_client", 120)
+            else:
+                kw.setdefault("n_clients", 240)
+            return charlm(seed=3, **kw)
         if self.dataset == "cifar":
             if reduced:
                 kw.setdefault("n_clients", 24)
@@ -99,9 +107,12 @@ class Scenario:
         raise ValueError(f"scenario {self.name!r}: unknown dataset {self.dataset!r}")
 
     def build_model(self, dataset):
-        """Returns ``(init_fn, loss_fn, accuracy_fn)`` for the scenario's MLP."""
-        from repro_torch.models.simple import mlp_classifier
+        """Returns ``(init_fn, loss_fn, accuracy_fn)`` for the scenario's
+        model (the GRU for ``charlm``, else the MLP), sized by ``hidden``."""
+        from repro_torch.models.simple import gru_lm, mlp_classifier
 
+        if self.dataset == "charlm":
+            return gru_lm(dataset.num_classes, hidden=self.hidden, layers=2)
         return mlp_classifier(dataset.input_dim, dataset.num_classes, hidden=self.hidden)
 
 
@@ -160,6 +171,15 @@ def _build_grid():
             fl=_fl(algorithm="dsgd", sampler=sampler, local_steps=1,
                    lr_local=lr, lr_global=0.5),
             paper=f"Sec. 4.1 (DSGD, {sampler})",
+        ))
+    # Shakespeare-like char LM (Sec. 4.2, Figs. 6-7).
+    for sampler, lr in (("aocs", 1.0), ("uniform", 0.5)):
+        register(Scenario(
+            name=f"charlm-fedavg-{sampler}",
+            dataset="charlm",
+            fl=_fl(sampler=sampler, expected_clients=2, local_steps=6, lr_local=lr),
+            batch_size=8,
+            paper=f"Sec. 4.2 Figs. 6-7 (Shakespeare, {sampler})",
         ))
     register(Scenario(
         name="cifar-fedavg-aocs",

@@ -787,3 +787,47 @@ def test_reduced_hybrid_prefill_on_the_card_equals_the_cpu(cuda):
     assert (fa.flash_attention_cuda.launches - before[0],
             ss.ssd_scan_cuda.launches - before[1]) == (1, 5)
     assert float((got.cpu() - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ("femnist1-fedavg-aocs", "charlm-fedavg-aocs"))
+def test_prefetch_gather_on_the_card_is_the_host_batch(cuda, name):
+    # the pool's side-stream gather of a plan, claimed on the current
+    # stream, bitwise the numpy batch of the same generator state; ten
+    # rounds through the two pinned staging slots, the last block a mesh rank's
+    from repro_torch.sim import pool
+    from repro_torch.sim.scenarios import get_scenario
+
+    ds = get_scenario(name).build_dataset()
+    cpool = pool.ClientPool(ds, device=cuda)
+    r_host, r_pool = np.random.default_rng(5), np.random.default_rng(5)
+    pending = []
+    for k in range(10):
+        clients = r_pool.choice(ds.n_clients, size=32, replace=False)
+        lo, count = (8, 8) if k == 9 else (0, None)
+        host_clients = r_host.choice(ds.n_clients, size=32, replace=False)
+        pending.append((cpool.gather(cpool.plan(r_pool, clients, 6, 8), lo, count),
+                        ds.sample_round_batches(r_host, host_clients, 6, 8), lo, count))
+    for (batch, ready), host, lo, count in pending:
+        got = pool.claim_batch(batch, ready)
+        hi = 32 if count is None else lo + count
+        for k in host:
+            assert got[k].device.type == "cuda"
+            np.testing.assert_array_equal(got[k].cpu().numpy(), host[k][lo:hi])
+    assert r_host.integers(1 << 30) == r_pool.integers(1 << 30)
+
+
+@pytest.mark.cuda
+def test_charlm_on_the_card_is_bitwise_across_runs_and_modes(cuda):
+    from repro_torch.kernels.ops import tree_leaves
+    from repro_torch.sim.driver import run_scenario
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = [run_scenario("charlm-fedavg-aocs", rounds=3, mode=mode)
+            for mode in ("prefetch", "prefetch", "host")]
+    (p0, l0) = runs[0]
+    assert l0.workload["model_dim"] == 60630
+    for p, led in runs[1:]:
+        assert led.loss == l0.loss and led.sent == l0.sent
+        assert all(bool((a == b).all()) for a, b in zip(led.masks, l0.masks))
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p), tree_leaves(p0)))

@@ -108,15 +108,14 @@ def test_one_round_matches_reference(algorithm, backend, availability):
 
 def test_unported_axes_raise():
     # the scan engine and compression are ported (tests/test_torch_scan_engine.py),
-    # and the mesh round (tests/test_torch_shard_round.py), which rejects a
-    # server optimizer for good, as the reference does; a server optimizer,
-    # the diag step, the sampler zoo and an availability trace are not ported
+    # the mesh round (tests/test_torch_shard_round.py), which rejects a
+    # server optimizer for good, as the reference does, and the server
+    # optimizer (below); the diag step, the sampler zoo and an availability
+    # trace are not ported
     kw, _, _, _, tloss = _setup("fedavg")
     for sampler in ("clustered", "cyclic", "threshold"):
         with pytest.raises(NotImplementedError, match="not ported"):
             engine.RoundEngine(tloss, FLConfig(**kw, sampler=sampler), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        engine.RoundEngine(tloss, FLConfig(**kw), server_opt=object(), device="cpu")
     with pytest.raises(ValueError, match="server_opt is not supported on the shard_map path"):
         engine.make_engine(tloss, FLConfig(**kw), server_opt=object(), mesh=object())
     for memory in ("vmap", "scan"):
@@ -144,3 +143,101 @@ def test_mlp_module_matches_reference_logits():
     h = jax.nn.relu(h @ jp["w2"] + jp["b2"])
     want = h @ jp["w3"] + jp["b3"]
     _close(module(torch.from_numpy(x)).detach(), want)
+
+
+def _parity_workload():
+    # the reference's tests/conftest.py::parity_workload (n=8, din=12, 3 classes)
+    init, jloss, _ = j_mlp(12, 3, hidden=8)
+    _, tloss, _ = mlp_classifier(12, 3, hidden=8)
+    r = np.random.default_rng(1)
+    batch = {"x": r.normal(size=(8, 2, 4, 12)).astype("float32"),
+             "y": r.integers(0, 3, (8, 2, 4)).astype("int32")}
+    return init, jloss, tloss, batch
+
+
+@pytest.mark.parametrize("memory,backend,cache_groups,opt", (
+    ("vmap", "jnp", None, "sgd-momentum"), ("scan", "pallas", 1, "sgd-momentum"),
+    ("vmap", "pallas", None, "adam"), ("scan", "jnp", 0, "adam")))
+def test_server_optimizer_matches_reference(memory, backend, cache_groups, opt):
+    # the reference's test_engine_matrix_parity_server_opt, port against reference:
+    # three rounds of a stateful server optimizer on each engine, the same masks
+    # and final parameters within its atol 1e-5
+    from repro.optim import adam as j_adam
+    from repro.optim import sgd as j_sgd
+    from repro_torch.optim import adam, sgd
+
+    init, jloss, tloss, batch = _parity_workload()
+    kw = dict(n_clients=8, expected_clients=3, sampler="optimal", local_steps=2, lr_local=0.1)
+    make = {"sgd-momentum": (lambda: j_sgd(0.5, momentum=0.9), lambda: sgd(0.5, momentum=0.9)),
+            "adam": (lambda: j_adam(0.01), lambda: adam(0.01))}[opt]
+    oj, ot = make[0](), make[1]()
+    ekw = dict(memory=memory, backend=backend, scan_group=2, cache_groups=cache_groups)
+    jstep = j_engine.RoundEngine(jloss, JFLConfig(**kw), oj, interpret=True, **ekw).make_step()
+    tstep = engine.RoundEngine(tloss, FLConfig(**kw), ot, device="cpu", **ekw).make_step()
+    pj = init(jax.random.PRNGKey(0))
+    pt = params_from_jax(jax.device_get(pj))
+    sj, st = oj.init(pj), ot.init(pt)
+    bj = {k: jnp.asarray(v) for k, v in batch.items()}
+    bt = {k: torch.as_tensor(v) for k, v in batch.items()}
+    wj, wt = jnp.full((8,), 1 / 8, jnp.float32), client_weights(FLConfig(**kw), device="cpu")
+    key_j, key_t = jax.random.PRNGKey(11), rng.PRNGKey(11)
+    for k in range(3):
+        pj, sj, mj = jstep(pj, sj, bj, wj, jax.random.fold_in(key_j, k))
+        pt, st, mt = tstep(pt, st, bt, wt, rng.fold_in(key_t, k))
+        np.testing.assert_array_equal(mt.mask.numpy(), np.asarray(mj.mask))
+    for name in pj:
+        np.testing.assert_allclose(pt[name].numpy(), np.asarray(pj[name]), atol=1e-5)
+    if opt == "adam":
+        assert int(st["t"]) == int(sj["t"]) == 3
+
+
+@pytest.mark.parametrize("algorithm", ("fedavg",))
+def test_local_update_of_a_nested_tree_matches_reference(algorithm):
+    # gru_lm's parameters nest (gru0: {wx, wh, b}): the local update maps
+    # leaf by leaf and keeps the nesting
+    from repro.models.simple import gru_lm as j_gru_lm
+    from repro_torch.models.simple import gru_lm
+
+    kw = dict(n_clients=4, expected_clients=2, local_steps=3 if algorithm == "fedavg" else 1,
+              algorithm=algorithm, lr_local=0.5)
+    init, jloss, _ = j_gru_lm(86, hidden=8, layers=2, embed=4)
+    _, tloss, _ = gru_lm(86, hidden=8, layers=2, embed=4)
+    r = np.random.default_rng(6)
+    steps = kw["local_steps"]
+    batch = {"tokens": r.integers(0, 86, (4, steps, 2, 5)).astype(np.int32),
+             "targets": r.integers(0, 86, (4, steps, 2, 5)).astype(np.int32),
+             "_step_mask": np.array([[1, 1, 0][:steps]] * 4, np.float32)}
+    p0 = jax.device_get(init(jax.random.PRNGKey(2)))
+    jlu = j_engine.make_local_update(jloss, JFLConfig(**kw))
+    tlu = engine.make_local_update(tloss, FLConfig(**kw))
+    uj, lj = jax.vmap(jlu, in_axes=(None, 0))(p0, {k: jnp.asarray(v) for k, v in batch.items()})
+    ut, lt = vmap(tlu, in_dims=(None, 0))(params_from_jax(p0),
+                                          {k: torch.as_tensor(v) for k, v in batch.items()})
+    _close(lt, lj)
+    assert set(ut["gru1"]) == {"wx", "wh", "b"}
+    leaves_j = jax.tree_util.tree_leaves(uj)
+    from repro_torch.kernels.ops import tree_leaves
+
+    assert len(tree_leaves(ut)) == len(leaves_j) == 9
+    for a, b in zip(tree_leaves(ut), leaves_j):
+        assert tuple(a.shape) == tuple(b.shape)
+        _close(a, b)
+
+
+def test_make_round_is_the_engine_step():
+    # the reference's stable entry point: make_round(loss, fl, server_opt,
+    # mode, scan_group, backend) overrides the config's engine axes
+    from repro_torch.fl import make_round
+
+    kw, batch, p0, _, tloss = _setup("fedavg")
+    fl = FLConfig(**kw)
+    bt = {k: torch.as_tensor(v) for k, v in batch.items()}
+    wt = client_weights(fl, device="cpu")
+    key = rng.fold_in(rng.PRNGKey(5), 1000)
+    pa, _, ma = make_round(tloss, fl, mode="scan", scan_group=4, backend="pallas",
+                           device="cpu")(params_from_jax(p0), (), bt, wt, key)
+    pb, _, mb = engine.RoundEngine(tloss, fl, memory="scan", scan_group=4, backend="pallas",
+                                   device="cpu").make_step()(params_from_jax(p0), (), bt, wt, key)
+    assert torch.equal(ma.mask, mb.mask)
+    for name in pa:
+        assert torch.equal(pa[name], pb[name])

@@ -1,8 +1,8 @@
 """The port's slice as a whole against the reference: reduced scenario runs.
 
-``run_scenario(name, reduced=True, mode="host", rounds=3)`` on both packages,
-the port on the CPU from the reference's initial parameters
-(``convert.params_from_jax`` through ``init_fn``):
+``run_scenario(name, reduced=True, mode="host", rounds=3)`` on both packages
+(the femnist and charlm cells), the port on the CPU from the reference's
+initial parameters (``convert.params_from_jax`` through ``init_fn``):
 
 * the ``sent`` series and the per-round masks are equal;
 * the ``loss`` series agrees to rtol 1e-4 (three rounds compound float32
@@ -12,9 +12,14 @@ the port on the CPU from the reference's initial parameters
 * with ``device=None`` the port raises when there is no CUDA device;
 * a sharded cell (the mesh round, at one rank here) draws the masks and
   bills the uplink bits of the same cell unsharded and of the reference's
-  run, and its parameters equal the unsharded run's bitwise.
+  run, and its parameters equal the unsharded run's bitwise;
+* every registered cell runs under the default ``mode="prefetch"``, its
+  ledger minus ``wall_ms`` and its parameters bitwise ``mode="host"``'s
+  (a sharded cell on a world-size-1 mesh), and the ledger carries the
+  pool's bytes.
 """
 
+import copy
 import dataclasses
 
 import jax
@@ -25,9 +30,11 @@ import torch
 from repro.sim import driver as j_driver
 from repro.sim import scenarios as j_scenarios
 from repro_torch.convert import params_from_jax
+from repro_torch.kernels.ops import tree_leaves
 from repro_torch.sim import driver, scenarios
 
-CELLS = ("femnist1-fedavg-aocs-pallas", "femnist1-dsgd-optimal")
+CELLS = ("femnist1-fedavg-aocs-pallas", "femnist1-dsgd-optimal", "charlm-fedavg-aocs",
+         "charlm-fedavg-uniform")
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -47,8 +54,8 @@ def test_reduced_scenario_matches_reference(name):
     assert lt.uplink_bits == lj.uplink_bits and lt.downlink_bits == lj.downlink_bits
     assert lt.fl == lj.fl
     assert lt.workload["model_dim"] == lj.workload["model_dim"]
-    for k in p0:
-        np.testing.assert_allclose(pt[k].numpy(), np.asarray(pj[k]), rtol=1e-4, atol=1e-6)
+    for a, b in zip(tree_leaves(pt), jax.tree_util.tree_leaves(pj)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-6)
     doc = lt.to_json(include_masks=True)
     j_driver.validate_ledger(doc)
     driver.validate_ledger(doc)
@@ -73,6 +80,7 @@ def test_registry_cells_equal_reference():
     assert scenarios.list_scenarios() == sorted([
         *(f"femnist{d}-fedavg-{s}" for d in (1, 2, 3) for s in ("full", "aocs", "uniform")),
         "femnist1-dsgd-optimal", "femnist1-dsgd-uniform", "cifar-fedavg-aocs",
+        "charlm-fedavg-aocs", "charlm-fedavg-uniform",
         "femnist1-fedavg-aocs-q0.7", "femnist1-fedavg-aocs-pallas",
         "femnist1-fedavg-aocs-randk", "femnist1-fedavg-aocs-scan",
         "femnist1-fedavg-aocs-shard", "femnist1-fedavg-aocs-shard-randk",
@@ -111,13 +119,53 @@ def test_default_device_needs_cuda():
         driver.run_scenario("femnist1-fedavg-aocs-pallas", reduced=True, rounds=1)
 
 
-def test_unported_modes_and_options_raise():
-    # the mesh is ported (tests/test_torch_shard_round.py and below)
-    for kw in (dict(mode="prefetch"), dict(mode="scan"), dict(obs=object()),
-               dict(checkpoint="x"), dict(resume="x")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            driver.run_scenario("femnist1-fedavg-aocs", reduced=True, rounds=1,
-                                device="cpu", **kw)
+@pytest.mark.parametrize("kw", (dict(mode="scan"), dict(obs=object()), dict(checkpoint="x"),
+                                dict(resume="x")), ids=("scan", "obs", "checkpoint", "resume"))
+def test_unported_modes_and_options_raise(kw):
+    # the mesh (tests/test_torch_shard_round.py and below) and the prefetch
+    # mode (below) are ported
+    with pytest.raises(NotImplementedError, match="not ported"):
+        driver.run_scenario("femnist1-fedavg-aocs", reduced=True, rounds=1,
+                            device="cpu", **kw)
+
+
+def test_rounds_per_scan_is_checked_as_the_reference_does():
+    with pytest.raises(ValueError, match="rounds_per_scan"):
+        driver.run_scenario("femnist1-fedavg-aocs", reduced=True, rounds=1, device="cpu",
+                            mode="scan", rounds_per_scan=0)
+    with pytest.raises(ValueError, match="unknown sim mode"):
+        driver.run_scenario("femnist1-fedavg-aocs", reduced=True, rounds=1, device="cpu",
+                            mode="pipelined")
+
+
+def _timing_free(ledger):
+    doc = copy.deepcopy(ledger.to_json(include_masks=True))
+    doc["metrics"].pop("wall_ms")
+    for key in ("mode", "wall_s", "rounds_per_sec"):
+        doc.pop(key)
+    doc["workload"].pop("pool_bytes", None)
+    return doc
+
+
+@pytest.mark.parametrize("name", scenarios.list_scenarios())
+def test_prefetch_matches_host(name):
+    # the default mode: the pool on the device, round k+1's gather
+    # dispatched before round k's step; bitwise the host loop's run
+    ph, lh = driver.run_scenario(name, reduced=True, rounds=3, device="cpu", mode="host")
+    pp, lp = driver.run_scenario(name, reduced=True, rounds=3, device="cpu")
+    assert lp.mode == "prefetch" and lh.mode == "host"
+    assert _timing_free(lp) == _timing_free(lh)
+    assert len(lp.wall_ms) == 3 and "pool_bytes" not in lh.workload
+    sc = scenarios.get_scenario(name).reduced()
+    ds = sc.build_dataset(reduced=True)
+    assert lp.workload["pool_bytes"] == sum(
+        len(ds.client_data) * int(ds.sizes().max()) * v[0].nbytes
+        for v in ds.client_data[0].values())
+    for a, b in zip(tree_leaves(pp), tree_leaves(ph)):
+        assert torch.equal(a, b)
+    assert lp.workload.get("mesh_axis_size") == (1 if sc.sharded else None)
+    driver.validate_ledger(lp.to_json())
+    j_driver.validate_ledger(lp.to_json())
 
 
 SHARD_CELL = "femnist1-fedavg-aocs-shard-randk"
