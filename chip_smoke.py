@@ -70,16 +70,29 @@ nvcc (one process per source, all at once), then:
   ``agg_backend="pallas"`` (kernel 1 once per round on its (32, 60,630)
   update matrix, which is also held against the plain version and timed);
   a server optimizer (sgd with momentum, adam) through the vmap and scan
-  engines, which agree within atol 1e-5; and a child process
-  (``--profile prefetch``) that profiles the main path and the charlm cell
-  in both modes (idle share, device ops per round) and counts the runtime
-  calls that wait for the device between two prefetch round dispatches,
-  which must be 0;
+  engines, which agree within atol 1e-5;
+* the driver's ``'scan'`` mode (blocks of rounds; each round after the first
+  one replay of a CUDA graph of the round body): the main path (blocks of 8,
+  8 and 4) and the charlm cell (blocks of 3, and with its accuracy on the
+  eval grid), each bitwise the host and prefetch runs (masks, the ledger
+  minus timing, parameters, ``acc_rounds``), a second run and the CPU's
+  reduced run; a scan run's device launches are its eager first round's
+  plus its CUDA graph's kernel nodes (read from the graph's DOT dump) times
+  its replays, read in that run (4 + 4 of kernels 3 and 4 per round on the
+  main path, kernel 1 once on charlm with kernel 1); a child process
+  (``--profile modes``) profiles the main path and the charlm cell in the
+  three modes (and charlm with kernel 1 in scan mode): the idle share and
+  the device ops per round, the runtime calls that wait for the device
+  between two prefetch round dispatches and within and between scan blocks
+  (must be 0), one ``cudaGraphLaunch`` per replayed round, and the kernels
+  of a replayed round by name in the trace; then rounds/s and the median
+  per-round ms of the three modes on both cells;
 * ``femnist1-fedavg-aocs-shard-randk`` on 4 ranks sharing the one card (gloo,
   every rank on ``cuda:0``): each rank's launches, masks equal across ranks,
   the first round's mask equal to the world-size-1 run's and the parameters
-  within 1e-5 of it; its times are those of 4 ranks sharing one card, not of
-  4 GPUs;
+  within 1e-5 of it; then the same ranks under prefetch from the sharded
+  pool (each rank holding a quarter of its rows), bitwise their host run;
+  its times are those of 4 ranks sharing one card, not of 4 GPUs;
 * the serving path of the fourth slice, ``repro_torch.launch.serve.serve``,
   at full width with random weights from a seeded generator on the card:
   zamba2-2.7b (54 layers, d 2,560, bf16; batch 2, prompt 4,096, gen 32),
@@ -107,12 +120,15 @@ it is not run from a checkout.  It imports neither jax nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from collections import defaultdict
 from pathlib import Path
 
@@ -126,12 +142,18 @@ CHARLM_CELL = "charlm-fedavg-aocs"            # the 2-layer GRU, D = 60,630
 CHARLM_ROUNDS = 10
 CHARLM_DIM = 60630
 MAIN_DIM = 58430
-SYNC_ROUNDS = 4              # profiled rounds per mode; the sync window spans 2
+SYNC_ROUNDS = 4              # profiled host/prefetch rounds; the window spans 3
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
               "cudaMemcpy", "cudaMemcpy2D", "cudaMemcpyFromSymbol", "cudaMemcpyToSymbol")
 SERVER_OPT_ROUNDS = 3        # the reference's test_engine_matrix_parity_server_opt
 SERVER_OPT_ATOL = 1e-5
 PATH_ROUNDS = 20
+SCAN_BLOCK = 8               # the main path's rounds_per_scan: blocks of 8, 8 and 4
+CHARLM_SCAN_BLOCK = 3        # charlm's: blocks end on the eval grid too
+CHARLM_EVAL_EVERY = 5
+SCAN_PROFILE_ROUNDS = 10     # profiled scan runs: blocks of 4, 4 and 2
+SCAN_PROFILE_BLOCK = 4
+TRACE_TAIL = 4096            # small kernels after a profiled run (and 1/16 before it)
 SHARD_ROUNDS = 10            # = VMAP_ROUNDS = SLICE1_ROUNDS: compared bitwise
 MESH4_RANKS = 4
 MESH4_ROUNDS = 5
@@ -1670,20 +1692,33 @@ def vmap_scenario():
                     fl=dataclasses.replace(sc.fl, agg_backend="pallas"))
 
 
-def path_phase(torch, sc, rounds, per_round, out_dir, mode="host", dim=MAIN_DIM):
+def path_phase(torch, sc, rounds, per_round, out_dir, mode="host", dim=MAIN_DIM,
+               rounds_per_scan=SCAN_BLOCK):
     """One path at full width in driver mode ``mode``: ``rounds`` rounds
     through the kernels (``per_round`` launches each), reproduced bitwise,
     and a reduced run on the card against the CPU.  A sharded cell runs the
     mesh round at world size 1 (NCCL on the card, gloo for the CPU run).
-    Returns the counts, the parameters and the ledger of the run."""
+    In ``'scan'`` mode (blocks of ``rounds_per_scan``) a round is a CUDA-graph
+    replay and the wrappers count their host calls (the eager first round's,
+    and the capture's, which launch nothing): the run's device launches are
+    its eager round's plus its graph's kernel nodes (:func:`scan_census`)
+    times its replays, all read in this run; the child's trace of the same
+    cell's replayed rounds (:func:`mode_profile_report`) must show
+    ``per_round`` too.  Returns the device launches of the run, the
+    parameters and the ledger."""
     from repro_torch.kernels.ops import tree_leaves
     from repro_torch.sim.driver import run_scenario, validate_ledger
 
     label = f"{sc.name} [{mode}]"
+    kw = {"mode": mode, **({"rounds_per_scan": rounds_per_scan} if mode == "scan" else {})}
+    census = []
     reset_counts()
     t0 = time.perf_counter()
-    params, ledger = run_scenario(sc, mode=mode, rounds=rounds)
+    with scan_census(census, out_dir, sc.name) if mode == "scan" else contextlib.nullcontext():
+        params, ledger = run_scenario(sc, rounds=rounds, **kw)
     counts = read_counts()
+    if mode == "scan":
+        counts = scan_launches(label, counts, census, rounds)
     want = {name: per_round.get(name, 0) * rounds for name in counts}
     if counts != want:
         raise AssertionError(f"{label}: launches {counts}, want {want}")
@@ -1693,7 +1728,8 @@ def path_phase(torch, sc, rounds, per_round, out_dir, mode="host", dim=MAIN_DIM)
         raise AssertionError(f"bad loss series {ledger.loss}")
     if (ledger.workload["model_dim"] != dim or ledger.workload["backend_platform"] != "cuda"
             or ledger.workload.get("mesh_axis_size") != (1 if sc.sharded else None)
-            or ("pool_bytes" in ledger.workload) != (mode == "prefetch")):
+            or ledger.workload.get("rounds_per_scan") != kw.get("rounds_per_scan")
+            or ("pool_bytes" in ledger.workload) != (mode != "host")):
         raise AssertionError(f"unexpected workload {ledger.workload}")
     for i, p in enumerate(tree_leaves(params)):
         if p.device.type != "cuda" or not bool(torch.isfinite(p).all()):
@@ -1703,19 +1739,22 @@ def path_phase(torch, sc, rounds, per_round, out_dir, mode="host", dim=MAIN_DIM)
           f"{time.perf_counter() - t0:.1f} s; launches per round "
           f"{ {k: v / rounds for k, v in counts.items() if v} }; loss {ledger.loss[0]} -> "
           f"{ledger.loss[-1]}; sent {ledger.sent}; uplink bits {ledger.uplink_bits[-1]}")
-    cadence = " (dispatch cadence: no sync per round)" if mode == "prefetch" else ""
-    print(f"path {label} timing: {ledger.rounds_per_sec} rounds/s after the first round; "
+    cadence = {"prefetch": " (dispatch cadence: no sync per round)",
+               "scan": f" (each its block's time over its span; blocks of {rounds_per_scan})",
+               }.get(mode, "")
+    first = "first round" if mode != "scan" else "first block"
+    print(f"path {label} timing: {ledger.rounds_per_sec} rounds/s after the {first}; "
           f"per-round ms{cadence} median {statistics.median(walls)}, min {min(walls)}, "
           f"max {max(walls)}; set-up (first round) {ledger.wall_ms[0]} ms; run "
           f"{ledger.wall_s * 1e3} ms; pool bytes {ledger.workload.get('pool_bytes')}; "
           f"{card_line()}")
 
     same_run(torch, f"{label}, a second run", (params, ledger),
-             run_scenario(sc, mode=mode, rounds=rounds))
+             run_scenario(sc, rounds=rounds, **kw))
 
     # a reference on a small input: the same reduced run on the CPU
-    _, red_cpu = run_scenario(sc, reduced=True, rounds=3, device="cpu", mode=mode)
-    _, red_gpu = run_scenario(sc, reduced=True, rounds=3, mode=mode)
+    _, red_cpu = run_scenario(sc, reduced=True, rounds=3, device="cpu", **kw)
+    _, red_gpu = run_scenario(sc, reduced=True, rounds=3, **kw)
     if not all(bool((a == b).all()) for a, b in zip(red_cpu.masks, red_gpu.masks)):
         raise AssertionError(f"{label} reduced: masks differ between the card and the CPU")
     for a, b in zip(red_cpu.loss, red_gpu.loss):
@@ -1728,7 +1767,140 @@ def path_phase(torch, sc, rounds, per_round, out_dir, mode="host", dim=MAIN_DIM)
         suffix = "" if mode == "host" else f"_{mode}"
         (out_dir / f"chip_smoke_ledger_{sc.name}{suffix}.json").write_text(
             json.dumps(doc, indent=1))
+    if mode == "scan":
+        traced = mode_profile_report()["launches"].get(sc.name, {})
+        print(f"path {label}: device launches per replayed round in the trace of the child's "
+              f"scan run ({SCAN_PROFILE_ROUNDS} rounds in blocks of {SCAN_PROFILE_BLOCK}, not "
+              f"this run) {traced}")
+        if traced != {name: float(n) for name, n in per_round.items()}:
+            raise AssertionError(f"{label}: the child's trace shows {traced} launches per "
+                                 f"replayed round, want {per_round}")
     return counts, params, ledger
+
+
+@contextlib.contextmanager
+def scan_census(records: list, out_dir, cell: str):
+    """Within the block, every scan run's ``_ScanRounds`` appends to
+    ``records``: the wrappers' counts in its eager warm-up round
+    (``eager``) and in its capture (``captured``), its graph's kernel nodes
+    by :data:`TRACE_KERNELS` name and in all (``nodes``,
+    ``kernel_nodes``, from the graph's DOT dump, written to ``out_dir`` when
+    given) and, at the end, its ``replays``."""
+    from repro_torch.sim import driver
+
+    base = driver._ScanRounds
+
+    class Counted(base):
+        def step(self):
+            if self.graph is None and self.stream is not None:
+                self.census = {"start": read_counts()}
+                records.append(self.census)
+            super().step()
+            if self.graph is not None:
+                self.census["replays"] = self.replays
+
+        def _capture(self):
+            import torch
+
+            before = read_counts()
+            # kept past the capture, so that it can be dumped; instantiated
+            # here, as the driver's graph is at the capture's end
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            graph.enable_debug_mode()
+            with torch.cuda.graph(graph, stream=self.stream):
+                self._body()
+            graph.instantiate()
+            after = read_counts()
+            with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
+                # torch announces every dump by a warning
+                warnings.simplefilter("ignore", UserWarning)
+                path = Path(tmp) / "round.dot"
+                graph.debug_dump(str(path))
+                dot = path.read_text()
+            if out_dir is not None:
+                (out_dir / f"chip_smoke_graph_{cell}.dot").write_text(dot)
+            nodes = graph_kernel_nodes(dot)
+            start = self.census.pop("start")
+            self.census.update(
+                eager={k: before[k] - start[k] for k in before},
+                captured={k: after[k] - before[k] for k in after}, **nodes)
+            return graph
+
+    driver._ScanRounds = Counted
+    try:
+        yield records
+    finally:
+        driver._ScanRounds = base
+
+
+def graph_kernel_nodes(dot: str) -> dict:
+    """``{"nodes": {name: kernel nodes}, "kernel_nodes": n, "sample": text}``
+    and ``"nodes_total"`` of a CUDA graph's DOT dump
+    (``cudaGraphDebugDotPrint``, verbose): the text is cut at each node's
+    definition and a kernel node counts once for the first
+    :data:`TRACE_KERNELS` pattern its label matches (the labels escape
+    ``<`` and ``>``; the escapes are dropped first)."""
+    import re
+
+    # a node's definition starts a line; an edge's target is followed by
+    # " [" too, mid-line
+    chunks = re.split(r'(?m)^(?="graph_\d+_node_\d+"\[)', dot.replace("\\", ""))[1:]
+    kernels = [c for c in chunks if "KERNEL" in c]
+    nodes = {name: 0 for name in TRACE_KERNELS}
+    for c in kernels:
+        for name, pat in TRACE_KERNELS.items():
+            if re.search(pat, c):
+                nodes[name] += 1
+                break
+    return {"nodes": nodes, "kernel_nodes": len(kernels), "nodes_total": len(chunks),
+            "sample": next((c[:600] for c in kernels if "fused" in c or "masked" in c),
+                           kernels[0][:600] if kernels else dot[:600])}
+
+
+def scan_launches(label, counts, census, rounds) -> dict:
+    """The device launches of a scan run from its census (one
+    ``_ScanRounds``): each kernel's eager launches plus its graph nodes
+    times the replays.  Fails unless the wrappers' counts are the eager
+    round's and the capture's, each wrapper call in the capture is one node
+    of its kernel, and every round after the first is a replay."""
+    if len(census) != 1 or "nodes" not in census[0]:
+        raise AssertionError(f"{label}: {len(census)} captured graphs in the run, want 1")
+    c = census[0]
+    print(f"path {label}: the graph: {c['nodes_total']} nodes, {c['kernel_nodes']} kernel "
+          f"nodes, of them {c['nodes']}; replays {c['replays']}; the wrappers' calls in the "
+          f"eager round { {k: v for k, v in c['eager'].items() if v} } and in the capture "
+          f"{ {k: v for k, v in c['captured'].items() if v} }")
+    for name, n in counts.items():
+        if n != c["eager"][name] + c["captured"][name]:
+            raise AssertionError(f"{label}: {name}: {n} wrapper calls, not the eager round's "
+                                 f"and the capture's")
+        nodes = c["nodes"].get(name)
+        if nodes is None and c["captured"][name]:
+            raise AssertionError(f"{label}: {name} was captured, and its nodes have no pattern")
+        if nodes is not None and nodes != c["captured"][name]:
+            raise AssertionError(f"{label}: {name}: {c['captured'][name]} wrapper calls in the "
+                                 f"capture but {nodes} kernel nodes in the graph; a kernel "
+                                 f"node of the dump: {c['sample']!r}")
+    if c["replays"] != rounds - 1:
+        raise AssertionError(f"{label}: {c['replays']} replays of {rounds} rounds, want "
+                             f"{rounds - 1}")
+    launches = {name: c["eager"][name] + c["nodes"].get(name, 0) * c["replays"]
+                for name in counts}
+    print(f"path {label}: device launches in this run (eager round + graph nodes x replays) "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def timing_free(doc: dict) -> dict:
+    """A ledger document without its timing fields and its mode's own
+    workload keys (``rounds_per_scan``, ``pool_bytes``)."""
+    doc = json.loads(json.dumps(doc))
+    doc["metrics"].pop("wall_ms")
+    for key in ("mode", "wall_s", "rounds_per_sec"):
+        doc.pop(key)
+    for key in ("rounds_per_scan", "pool_bytes"):
+        doc["workload"].pop(key, None)
+    return doc
 
 
 def same_run(torch, what, a, b) -> None:
@@ -1864,73 +2036,123 @@ def server_opt_phase(torch, dev):
               f"final parameters within {err} of vmap+jnp's (atol {SERVER_OPT_ATOL})")
 
 
-def prefetch_profile(torch, dev) -> dict:
-    """The main path and the charlm cell in host and prefetch modes under
-    torch.profiler (``SYNC_ROUNDS`` rounds after a warm-up run each): device
-    busy ms, device ops per round and the run's wall ms; and, for the
-    prefetch runs, the CUDA runtime calls that wait for the device
-    (``SYNC_CALLS``) from the end of the first round's sync to the dispatch
-    of the last round's step, with every round step and the driver's syncs
-    marked by ``record_function``.  Then a few prefetch rounds under
-    ``torch.cuda.set_sync_debug_mode('warn')``, whose warnings name the
-    lines that synchronise.  Run in a process of its own."""
-    import warnings
+# device kernels by name (the demangled templates of csrc/norm_aggregate.cu
+# and csrc/masked_aggregate.cu, kind 0 is "none", 1 rand-k, as the profiler
+# names them; and as a CUDA graph's DOT dump may, mangled)
+TRACE_KERNELS = {
+    "norm_scale_aggregate": r"fused_kernel(<float, 0,|IfLi0E)",
+    "compress_norm_scale_aggregate": r"fused_kernel(<float, 1,|IfLi1E)",
+    "masked_scale_aggregate": r"masked_scale_aggregate_kernel(<float>|IfE)",
+}
+
+
+def mode_profile(torch, dev) -> dict:
+    """The main path and the charlm cell in the three driver modes (and
+    charlm with kernel 1 on its aggregate in scan mode) under torch.profiler:
+    host and prefetch ``SYNC_ROUNDS`` rounds, scan ``SCAN_PROFILE_ROUNDS`` in
+    blocks of ``SCAN_PROFILE_BLOCK``.  A run's window opens at the end of
+    its first sync (the first round, or the first block) and closes at its
+    last: per round in it, the host's ``cudaGraphLaunch`` calls and the
+    runtime calls that wait for the device (``SYNC_CALLS``) up to the last
+    sync's start, and the device ops and the launches of kernels 1, 3 and 4
+    by name between two marker kernels (``torch.cuda._sleep``), one where
+    the window opens and one after each sync: the device's clock is not the
+    host's, so the device side is cut by markers in stream order; the
+    window's device busy time and idle share.  A window that lost a marker
+    is run again (up to 3 times).  Then a few prefetch rounds under
+    ``torch.cuda.set_sync_debug_mode('warn')``, whose warnings name the lines
+    that synchronise.  Run in a process of its own."""
+    import re
 
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.sim import driver
 
-    make_engine, sync = driver.make_engine, driver._sync
-
-    def marked_engine(*args, **kw):
-        step = make_engine(*args, **kw)
-
-        def round_step(*a):
-            with record_function("chip_smoke.round_step"):
-                return step(*a)
-
-        return round_step
-
-    def marked_sync(d):
-        with record_function("chip_smoke.sync"):
-            sync(d)
-
-    driver.make_engine, driver._sync = marked_engine, marked_sync
+    sync = driver._sync
     torch.backends.cuda.matmul.allow_tf32 = False
+
+    def window(ds, init_fn, loss_fn, sc, mode, rounds):
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        state = {"on": False}
+
+        def marked_sync(d):
+            if not state["on"]:
+                sync(d)
+                prof.start()
+                state["on"] = True
+                pad = torch.empty((1,), device=d)
+                for _ in range(TRACE_TAIL // 16):
+                    pad.zero_()
+            else:
+                with record_function("chip_smoke.sync"):
+                    sync(d)
+            torch.cuda._sleep(1)
+
+        driver._sync = marked_sync
+        try:
+            ledger = driver.run_simulation(
+                ds, init_fn, loss_fn, sc.fl, rounds, mode=mode,
+                rounds_per_scan=SCAN_PROFILE_BLOCK, batch_size=sc.batch_size, seed=sc.seed)[1]
+            # a tail of small kernels: the profiler lost the last device
+            # events of a window (the last round's, and the marker)
+            pad = torch.empty((1,), device=dev)
+            for _ in range(TRACE_TAIL):
+                pad.zero_()
+            torch.cuda.synchronize(dev)
+        finally:
+            driver._sync = sync
+            if state["on"]:
+                prof.stop()
+        return prof.events(), ledger
+
     out = {}
-    for sc in (main_scenario(), charlm_scenario()):
+    cells = ((main_scenario(), ("host", "prefetch", "scan")),
+             (charlm_scenario(), ("host", "prefetch", "scan")),
+             (charlm_scenario("pallas"), ("scan",)))
+    for sc, modes in cells:
         ds = sc.build_dataset()
         init_fn, loss_fn, _ = sc.build_model(ds)
-        for mode in ("host", "prefetch"):
-            def run(rounds):
-                return driver.run_simulation(ds, init_fn, loss_fn, sc.fl, rounds, mode=mode,
-                                             batch_size=sc.batch_size, seed=sc.seed)[1]
-            run(2)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                ledger = run(SYNC_ROUNDS)
-            events = prof.events()
-            on_card = [str(e.device_type).endswith("CUDA") for e in events]
-            # the markers' device-side spans (gpu_user_annotation) are not ops
-            device = [e for e, c in zip(events, on_card)
-                      if c and not e.name.startswith("chip_smoke.")]
+        for mode in modes:
+            rounds = SCAN_PROFILE_ROUNDS if mode == "scan" else SYNC_ROUNDS
+            first = min(SCAN_PROFILE_BLOCK, rounds) if mode == "scan" else 1
+            # host mode syncs after every round, the others after the first
+            # round (block) only; each run ends in a sync
+            syncs = rounds - first + 1 if mode == "host" else 1
+            for attempt in range(3):
+                events, ledger = window(ds, init_fn, loss_fn, sc, mode, rounds)
+                on_card = [str(e.device_type).endswith("CUDA") for e in events]
+                marks = sorted(e.time_range.start for e, c in zip(events, on_card)
+                               if c and "spin_kernel" in e.name)
+                if len(marks) == 1 + syncs:
+                    break
+            else:
+                raise AssertionError(f"{sc.name} [{mode}]: 3 traces held {len(marks)} of the "
+                                     f"{1 + syncs} marker kernels: they lost device events")
             host = [e for e, c in zip(events, on_card) if not c]
-            steps = sorted(e.time_range.start for e in host
-                           if e.name == "chip_smoke.round_step")
-            first_sync = min((e.time_range.end for e in host if e.name == "chip_smoke.sync"),
-                             default=None)
-            res = {"rounds": SYNC_ROUNDS, "wall_ms": ledger.wall_s * 1e3,
-                   "sum_round_ms": sum(ledger.wall_ms),
-                   "busy_ms": sum(e.time_range.elapsed_us() for e in device) / 1e3,
-                   "device_ops_per_round": len(device) / SYNC_ROUNDS,
-                   "round_steps_marked": len(steps)}
-            if mode == "prefetch" and first_sync is not None and len(steps) == SYNC_ROUNDS:
-                lo, hi = first_sync, steps[-1]
-                inside = [e.name for e in host if lo <= e.time_range.start < hi]
-                res["window_rounds"] = sum(lo <= t < hi for t in steps)
-                res["sync_calls"] = {n: inside.count(n) for n in SYNC_CALLS}
-                res["memcpy_async_calls"] = inside.count("cudaMemcpyAsync")
-                res["stream_wait_calls"] = inside.count("cudaStreamWaitEvent")
-            out[f"{sc.name} [{mode}]"] = res
+            # the run's last sync: the host's dispatches end where it starts;
+            # on the device the rounds' work lies between the first marker
+            # and the last (the ledger's reads follow it)
+            last = max(e.time_range.start for e in host if e.name == "chip_smoke.sync")
+            inside = [e.name for e in host if e.time_range.start < last]
+            t0, t1 = marks[0], marks[-1]
+            device = [e for e, c in zip(events, on_card)
+                      if c and not e.name.startswith("chip_smoke.") and "spin_kernel" not in e.name
+                      and t0 < e.time_range.start < t1]
+            n = rounds - first
+            launches = {k: sum(bool(re.search(pat, e.name)) for e in device) / n
+                        for k, pat in TRACE_KERNELS.items()}
+            out[f"{sc.name} [{mode}]"] = {
+                "window_rounds": n, "traces": attempt + 1,
+                "busy_ms": sum(e.time_range.elapsed_us() for e in device) / 1e3,
+                "wall_ms": (t1 - t0) / 1e3,
+                "device_ops_per_round": len(device) / n,
+                "graph_launches_per_round": inside.count("cudaGraphLaunch") / n,
+                "sync_calls": {c: inside.count(c) for c in SYNC_CALLS},
+                "memcpy_async_calls": inside.count("cudaMemcpyAsync"),
+                "stream_wait_calls": inside.count("cudaStreamWaitEvent"),
+                "launches": {k: v for k, v in launches.items() if v},
+                "rounds_per_sec": ledger.rounds_per_sec,
+            }
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -1947,37 +2169,87 @@ def prefetch_profile(torch, dev) -> dict:
     return out
 
 
-def prefetch_profile_report() -> dict:
-    """Print :func:`prefetch_profile` (run in a child) and fail unless no
-    call that waits for the device lies between two prefetch round
-    dispatches.  Returns the child's numbers."""
-    prof = profile_in_child("prefetch")
+def mode_profile_report() -> dict:
+    """Print :func:`mode_profile` (run once, in a child) and fail unless no
+    call waits for the device between two prefetch round dispatches or
+    within and between scan blocks, and each replayed scan round is one
+    ``cudaGraphLaunch``.  Returns ``{"launches": {cell: {kernel: device
+    launches per replayed round in the child's scan run}}, "profile": the
+    child's JSON}``."""
+    if "modes_report" in _PROFILES:
+        return _PROFILES["modes_report"]
+    prof = profile_in_child("modes")
+    launches = {}
     for name, res in prof.items():
         if name == "sync_debug_warnings":
             continue
-        idle = 1 - res["busy_ms"] / res["wall_ms"]
-        print(f"profile {name}: {res['rounds']} rounds under the profiler (a young process), "
-              f"run {res['wall_ms']} ms (rounds' wall_ms sum {res['sum_round_ms']}), device "
-              f"busy {res['busy_ms']} ms, idle share {idle}; device ops per round "
-              f"{res['device_ops_per_round']}; {card_line()}")
-        if "[prefetch]" not in name:
-            continue
-        if "sync_calls" not in res:
-            raise AssertionError(f"{name}: the profiler saw {res['round_steps_marked']} of "
-                                 f"{res['rounds']} marked round steps; no sync window")
+        idle = 1 - res["busy_ms"] / res["wall_ms"] if res["wall_ms"] else float("nan")
         waits = sum(res["sync_calls"].values())
-        print(f"profile {name}: from the first round's sync to the last step's dispatch "
-              f"({res['window_rounds']} rounds): calls that wait for the device "
-              f"{res['sync_calls']} (total {waits}); cudaMemcpyAsync "
-              f"{res['memcpy_async_calls']}, cudaStreamWaitEvent {res['stream_wait_calls']}")
+        print(f"profile {name}: {res['window_rounds']} rounds after the first sync (a young "
+              f"process, trace {res['traces']} of 3): device ops per round "
+              f"{res['device_ops_per_round']}; cudaGraphLaunch per round "
+              f"{res['graph_launches_per_round']}; device busy {res['busy_ms']} ms of "
+              f"{res['wall_ms']} ms, idle share {idle} (under the profiler); kernel launches "
+              f"per round {res['launches']}; calls that wait for the device {res['sync_calls']} "
+              f"(total {waits}); cudaMemcpyAsync {res['memcpy_async_calls']}, "
+              f"cudaStreamWaitEvent {res['stream_wait_calls']}; {card_line()}")
+        if name.endswith("[host]"):
+            continue
+        if res["device_ops_per_round"] == 0:
+            raise AssertionError(f"{name}: the profiler saw no device op of the window's rounds")
         if waits:
             raise AssertionError(f"{name}: {waits} calls wait for the device between two round "
                                  f"dispatches: {res['sync_calls']}; set_sync_debug_mode "
                                  f"warnings: {prof['sync_debug_warnings']}")
+        if not name.endswith("[scan]"):
+            continue
+        if res["graph_launches_per_round"] != 1:
+            raise AssertionError(f"{name}: {res['graph_launches_per_round']} cudaGraphLaunch "
+                                 f"per round, want 1")
+        cell = name[:-len(" [scan]")]
+        host = prof.get(f"{cell} [host]")
+        if host is not None:
+            print(f"profile {cell}: device ops per round, scan minus host "
+                  f"{res['device_ops_per_round'] - host['device_ops_per_round']}")
+        launches[cell] = res["launches"]
     print(f"profile: set_sync_debug_mode('warn') over 4 prefetch rounds of the main path "
           f"(the first round's sync, the run's last sync and the ledger's reads included): "
           f"{prof['sync_debug_warnings']}")
-    return prof
+    _PROFILES["modes_report"] = {"launches": launches, "profile": prof}
+    return _PROFILES["modes_report"]
+
+
+def charlm_eval_phase(torch):
+    """The charlm cell at full width with its accuracy on the eval grid
+    (``eval_every=CHARLM_EVAL_EVERY``, a held-out charlm pool), under
+    prefetch and under scan (blocks of ``CHARLM_SCAN_BLOCK``, shrunk to end
+    on the grid): the same ``acc_rounds``, and the ledger (the eval curve
+    included) minus timing and the parameters bitwise equal."""
+    import numpy as np
+
+    from repro_torch.data import charlm
+    from repro_torch.sim.driver import run_simulation
+
+    sc = charlm_scenario()
+    ds = sc.build_dataset()
+    init_fn, loss_fn, acc_fn = sc.build_model(ds)
+    held = charlm(n_clients=8, seed=999)
+    ev = {k: np.concatenate([c[k] for c in held.client_data])[:512]
+          for k in held.client_data[0]}
+    runs = {mode: run_simulation(ds, init_fn, loss_fn, sc.fl, CHARLM_ROUNDS, mode=mode,
+                                 rounds_per_scan=CHARLM_SCAN_BLOCK, batch_size=sc.batch_size,
+                                 seed=sc.seed, eval_fn=acc_fn, eval_batch=ev,
+                                 eval_every=CHARLM_EVAL_EVERY)
+            for mode in ("prefetch", "scan")}
+    grid = [k for k in range(CHARLM_ROUNDS)
+            if k % CHARLM_EVAL_EVERY == 0 or k == CHARLM_ROUNDS - 1]
+    (_, lp), (_, ls) = runs["prefetch"], runs["scan"]
+    if not lp.acc_rounds == ls.acc_rounds == grid:
+        raise AssertionError(f"charlm eval grid: prefetch {lp.acc_rounds}, scan {ls.acc_rounds}, "
+                             f"want {grid}")
+    same_run(torch, f"{CHARLM_CELL} with eval: scan vs prefetch", runs["scan"], runs["prefetch"])
+    print(f"path {CHARLM_CELL} with eval: acc at rounds {ls.acc_rounds}: {ls.acc}; scan "
+          f"{ls.rounds_per_sec} vs prefetch {lp.rounds_per_sec} rounds/s")
 
 
 def _mesh4_rank(mesh, rounds):
@@ -1987,6 +2259,8 @@ def _mesh4_rank(mesh, rounds):
 
     from repro_torch.kernels import ops
     from repro_torch.sim.driver import run_scenario
+    from repro_torch.sim.pool import ClientPool
+    from repro_torch.sim.scenarios import get_scenario
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2000,16 +2274,30 @@ def _mesh4_rank(mesh, rounds):
     ops.sharded_compress_aggregate_cuda = recorded
     reset_counts()
     params, ledger = run_scenario(SHARD_RANDK_CELL, rounds=rounds, mesh=mesh, mode="host")
-    counts = read_counts()
+    counts, host_shapes = read_counts(), list(shapes)
+    # the prefetch leg: the sharded pool, each rank holding its rows
+    reset_counts()
+    pre_params, pre_ledger = run_scenario(SHARD_RANDK_CELL, rounds=rounds, mesh=mesh,
+                                          mode="prefetch")
+    pre_counts = read_counts()
+    spool = ClientPool(get_scenario(SHARD_RANDK_CELL).build_dataset(), mesh=mesh)
     return {"rank": mesh.rank, "backend": mesh.backend, "device": str(mesh.device),
-            "counts": counts, "shapes": shapes,
+            "counts": counts, "shapes": host_shapes,
             "params": {k: v.cpu() for k, v in params.items()},
-            "doc": ledger.to_json(include_masks=True)}
+            "doc": ledger.to_json(include_masks=True),
+            "prefetch_counts": pre_counts,
+            "prefetch_params": {k: v.cpu() for k, v in pre_params.items()},
+            "prefetch_doc": pre_ledger.to_json(include_masks=True),
+            "pool_local_bytes": sum(b.numel() * b.element_size()
+                                    for b in spool.buffers.values()),
+            "pool_nbytes": spool.nbytes}
 
 
 def mesh4_phase(torch, out_dir):
     """``femnist1-fedavg-aocs-shard-randk`` on MESH4_RANKS gloo ranks sharing
-    the one card, against the world-size-1 run of the same rounds."""
+    the one card, against the world-size-1 run of the same rounds; then the
+    same ranks under prefetch from the sharded pool (each rank a quarter of
+    its rows), bitwise their host leg."""
     from repro_torch.fl.mesh import spawn_mesh
     from repro_torch.sim.driver import run_scenario, validate_ledger
 
@@ -2024,7 +2312,8 @@ def mesh4_phase(torch, out_dir):
     for r in ranks:
         want = {name: 0 for name in r["counts"]}
         want["sharded_compress_aggregate"] = MESH4_ROUNDS
-        if r["counts"] != want or r["backend"] != "gloo" or r["device"] != "cuda:0":
+        if (r["counts"] != want or r["prefetch_counts"] != want or r["backend"] != "gloo"
+                or r["device"] != "cuda:0"):
             raise AssertionError(f"rank {r['rank']}: launches {r['counts']} on {r['backend']} "
                                  f"{r['device']}, want {want} on gloo cuda:0")
         if len(r["shapes"]) != MESH4_ROUNDS or set(r["shapes"]) != {(k, 58430)}:
@@ -2032,6 +2321,13 @@ def mesh4_phase(torch, out_dir):
                                  f"unpadded ({k}, 58430)")
         if r["doc"] != doc0:
             raise AssertionError(f"rank {r['rank']}: its ledger differs from rank 0's")
+        if timing_free(r["prefetch_doc"]) != timing_free(r["doc"]) or not all(
+                torch.equal(p, r["params"][name]) for name, p in r["prefetch_params"].items()):
+            raise AssertionError(f"rank {r['rank']}: the prefetch leg differs from the host leg")
+        if (4 * r["pool_local_bytes"] != r["pool_nbytes"]
+                or r["prefetch_doc"]["workload"]["pool_bytes"] != r["pool_nbytes"]):
+            raise AssertionError(f"rank {r['rank']}: pool bytes {r['pool_local_bytes']} of "
+                                 f"{r['pool_nbytes']}, want a quarter")
         for name, p in r["params"].items():
             if not torch.equal(p, ranks[0]["params"][name]):
                 raise AssertionError(f"rank {r['rank']}: parameter {name} differs from rank 0's")
@@ -2060,6 +2356,12 @@ def mesh4_phase(torch, out_dir):
           f"rank) median {statistics.median(walls)}, min {min(walls)}, max {max(walls)}; "
           f"set-up (first round) {doc0['metrics']['wall_ms'][0]} ms; world size 1 on the "
           f"same card: median {statistics.median(ref_ledger.wall_ms[1:])} ms")
+    pre0 = ranks[0]["prefetch_doc"]
+    print(f"mesh 4 ranks, prefetch from the sharded pool: every rank's ledger minus timing "
+          f"and parameters bitwise its host leg's; each rank holds "
+          f"{ranks[0]['pool_local_bytes']} of the pool's {ranks[0]['pool_nbytes']} bytes; "
+          f"{pre0['rounds_per_sec']} rounds/s after the first round, median "
+          f"{statistics.median(pre0['metrics']['wall_ms'][1:])} ms per round (slowest rank)")
     if out_dir is not None:
         (out_dir / f"chip_smoke_ledger_{SHARD_RANDK_CELL}_4ranks.json").write_text(
             json.dumps(doc0, indent=1))
@@ -2407,7 +2709,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
                     help="directory for the full-width ledgers and the profile traces")
-    ap.add_argument("--profile", choices=("norm", "ssd", "prefetch"), default=None,
+    ap.add_argument("--profile", choices=("norm", "ssd", "modes"), default=None,
                     help="only print that profiler pass's JSON (the kernel phases run this)")
     args = ap.parse_args()
 
@@ -2428,7 +2730,7 @@ def main() -> int:
     torch.cuda.set_device(dev)
     if args.profile is not None:
         profile = {"norm": norm_profile, "ssd": ssd_profile,
-                   "prefetch": prefetch_profile}[args.profile]
+                   "modes": mode_profile}[args.profile]
         print(json.dumps(profile(torch, dev)))
         return 0
     kind = torch.cuda.get_device_name(0)
@@ -2479,17 +2781,41 @@ def main() -> int:
     print(f"path {main_sc.name}: host {main_ledger.rounds_per_sec} vs prefetch "
           f"{pre_ledger.rounds_per_sec} rounds/s after the first round; ClientPool.nbytes "
           f"{pre_ledger.workload['pool_bytes']}")
+    # the scan-over-rounds mode: blocks of 8, 8 and 4, each round one replay
+    # of a CUDA graph of the round body
+    scan_counts, scan_params, scan_ledger = path_phase(
+        torch, main_sc, PATH_ROUNDS, main_per_round, args.out, mode="scan")
+    for other, (p_o, l_o) in (("host", (main_params, main_ledger)),
+                              ("prefetch", (pre_params, pre_ledger))):
+        same_run(torch, f"{main_sc.name}: scan vs {other}", (scan_params, scan_ledger), (p_o, l_o))
+        if timing_free(scan_ledger.to_json(True)) != timing_free(l_o.to_json(True)):
+            raise AssertionError(f"{main_sc.name}: the scan ledger differs from {other}'s")
 
-    # the charlm cell at full width, both modes, and with kernel 1 on its aggregate
+    # the charlm cell at full width, the three modes, and with kernel 1 on its aggregate
     c_host = path_phase(torch, charlm_scenario(), CHARLM_ROUNDS, {}, args.out, dim=CHARLM_DIM)
     c_pre = path_phase(torch, charlm_scenario(), CHARLM_ROUNDS, {}, args.out,
                        mode="prefetch", dim=CHARLM_DIM)
     same_run(torch, f"{CHARLM_CELL}: prefetch vs host", c_pre[1:], c_host[1:])
+    c_scan = path_phase(torch, charlm_scenario(), CHARLM_ROUNDS, {}, args.out, mode="scan",
+                        dim=CHARLM_DIM, rounds_per_scan=CHARLM_SCAN_BLOCK)
+    same_run(torch, f"{CHARLM_CELL}: scan vs prefetch", c_scan[1:], c_pre[1:])
+    if timing_free(c_scan[2].to_json(True)) != timing_free(c_pre[2].to_json(True)):
+        raise AssertionError(f"{CHARLM_CELL}: the scan ledger differs from prefetch's")
+    charlm_eval_phase(torch)
     charlm_counts, _, _ = path_phase(torch, charlm_scenario("pallas"), CHARLM_ROUNDS,
                                      {"masked_scale_aggregate": 1}, args.out,
                                      mode="prefetch", dim=CHARLM_DIM)
+    charlm_scan_counts, _, _ = path_phase(torch, charlm_scenario("pallas"), CHARLM_ROUNDS,
+                                          {"masked_scale_aggregate": 1}, args.out, mode="scan",
+                                          dim=CHARLM_DIM, rounds_per_scan=CHARLM_SCAN_BLOCK)
+    for cell, runs in ((main_sc.name, ((main_ledger, "host"), (pre_ledger, "prefetch"),
+                                       (scan_ledger, "scan"))),
+                       (CHARLM_CELL, ((c_host[2], "host"), (c_pre[2], "prefetch"),
+                                      (c_scan[2], "scan")))):
+        print(f"modes {cell}: " + "; ".join(
+            f"{mode} {led.rounds_per_sec} rounds/s, median {statistics.median(led.wall_ms[1:])} "
+            f"ms per round" for led, mode in runs) + f"; {card_line()}")
     server_opt_phase(torch, dev)
-    prefetch_profile_report()
     vmap_counts, vmap_params, vmap_ledger = path_phase(
         torch, vmap_scenario(), VMAP_ROUNDS, {"compress_norm_scale_aggregate": 1}, args.out)
     from repro_torch.sim.scenarios import get_scenario
@@ -2530,8 +2856,18 @@ def main() -> int:
     kernels[3]["vmap_path_launches"] = vmap_counts["compress_norm_scale_aggregate"]
     kernels[0]["charlm_launches"] = charlm_counts["masked_scale_aggregate"]
     kernels[0]["charlm_path"] = f"{CHARLM_CELL}+pallas [prefetch]"
+    # device launches of the scan runs (the eager round's, and the graph's
+    # nodes times its replays, read in that run); beside them the child's
+    # trace of its own scan run, per replayed round
+    child = mode_profile_report()["launches"]
+    kernels[0]["charlm_scan_launches"] = charlm_scan_counts["masked_scale_aggregate"]
+    kernels[0]["charlm_scan_child_trace_per_round"] = child[f"{CHARLM_CELL}+pallas"].get(
+        "masked_scale_aggregate", 0)
     for k in (2, 3):
         kernels[k]["prefetch_launches"] = pre_counts[kernels[k]["name"]]
+        kernels[k]["scan_launches"] = scan_counts[kernels[k]["name"]]
+        kernels[k]["scan_path"] = f"{main_sc.name} [scan]"
+        kernels[k]["scan_child_trace_per_round"] = child[main_sc.name].get(kernels[k]["name"], 0)
     kernels[7]["mamba2_130m_launches"] = serves["mamba2-130m"]["counts"]["ssd_scan"]
     kernels[7]["mamba2_130m_path"] = mamba
 

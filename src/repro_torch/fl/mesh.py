@@ -76,6 +76,17 @@ class ClientMesh:
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
         return x
 
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of the ``(world_size * k, ...)`` tensor
+        ``x``, of which this rank keeps its ``rank``-th block of axis 0:
+        ``(k, ...)`` (``jax.lax.psum_scatter(x, axis, scatter_dimension=0,
+        tiled=True)``).  One ``reduce_scatter_tensor`` on either backend."""
+        x = x.contiguous()
+        out = torch.empty((x.shape[0] // self.world_size,) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=self.group)
+        return out
+
     def all_max(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise maximum over the ranks, written into ``x`` as
         :meth:`all_reduce` does."""

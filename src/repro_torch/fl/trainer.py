@@ -5,9 +5,9 @@ ported from ``repro/fl/trainer.py``.
 and integration tests call it) and delegates every round to
 :func:`repro_torch.sim.driver.run_simulation`: by default the
 double-buffered ``'prefetch'`` pipeline of the device-resident client pool,
-with ``'host'`` selectable through ``mode`` (``'scan'`` is not ported yet and
-raises).  Both modes draw the reference's per-round participation masks for
-a fixed seed.
+with ``'host'`` and ``'scan'`` (blocks of ``rounds_per_scan`` rounds, each
+round one CUDA-graph replay on a card) selectable through ``mode``.  All
+three draw the reference's per-round participation masks for a fixed seed.
 """
 
 from __future__ import annotations
@@ -64,9 +64,9 @@ def run_training(
     ``local_epoch``: the paper's setting — each client runs one epoch over
     its local data per round, so the number of local steps varies with the
     client's size (capped at ``fl.local_steps`` batches of ``batch_size``).
-    ``mode`` selects the driver's path (``'prefetch'`` or ``'host'``; same
-    masks and parameters); ``eval_fn(params, eval_batch)`` runs on the
-    ``eval_every`` grid.  ``device`` is the run's (``None`` means CUDA and
+    ``mode`` selects the driver's path (``'prefetch'``, ``'host'`` or
+    ``'scan'`` with ``rounds_per_scan``; same masks and parameters);
+    ``eval_fn(params, eval_batch)`` runs on the ``eval_every`` grid.  ``device`` is the run's (``None`` means CUDA and
     raises without one; pass ``device='cpu'``).  ``obs``, ``checkpoint`` and
     ``resume`` are not ported yet and raise ``NotImplementedError``.
     """

@@ -1,1 +1,2 @@
-"""Launch: the serving driver (``serve``)."""
+"""Launch: the serving driver (``serve``) and the training driver's
+``--scenario`` branch (``train``)."""

@@ -91,6 +91,15 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return torch.cat([y0, y1])
 
 
+def fold_in_many(key: torch.Tensor, data) -> torch.Tensor:
+    """``(len(data), 2)`` keys, row ``i`` bitwise ``fold_in(key, data[i])``,
+    in one cipher call (the driver's scan mode draws a block's round keys so,
+    on the host)."""
+    data = torch.tensor([int(d) & _MASK for d in data], dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(data), data)
+    return torch.stack([y0, y1], dim=-1)
+
+
 def bits(key: torch.Tensor, shape=()) -> torch.Tensor:
     """``jax.random.bits`` (uint32): the two cipher words of each element's
     flat row-major index XORed, returned as int64 in ``[0, 2**32)``.

@@ -1,7 +1,7 @@
 """Multi-round simulation driver: the paper's Sec. 4 evaluation loop, with a
 structured metrics ledger and versioned JSON artifacts.
 
-Ported from ``repro/sim/driver.py`` for two of its three modes:
+Ported from ``repro/sim/driver.py`` with its three modes:
 
 * ``'prefetch'`` (the default, as in the reference) — the
   :class:`~repro_torch.sim.pool.ClientPool` pipeline: the dataset is padded
@@ -12,14 +12,23 @@ Ported from ``repro/sim/driver.py`` for two of its three modes:
   and at the end, so ``wall_ms`` after the first round is the dispatch
   cadence, as in the reference;
 * ``'host'`` — numpy batch assembly and upload every round, synchronous with
-  the round step (each ``wall_ms`` ends in a device sync).
+  the round step (each ``wall_ms`` ends in a device sync);
+* ``'scan'`` — scan-over-rounds: blocks of ``rounds_per_scan`` rounds.  A
+  block's cohorts, plans and round keys are drawn on the host in round
+  order and go up in ONE pinned upload; each round's body gathers its batch
+  from the device-resident pool and runs the round step (the reference's
+  ``lax.scan`` body).  On a card the body is captured once into a CUDA graph
+  and each round is one replay (:class:`_ScanRounds`), with no host sync
+  inside a block or between blocks; on the CPU the same body runs eagerly.
+  Block spans shrink to end on the eval grid, so ``acc_rounds`` are the
+  other modes'; ``wall_ms`` is each round's share of its block's time.
 
-Both consume the host RNG (cohort draw without replacement, per-client
+All three consume the host RNG (cohort draw without replacement, per-client
 example permutations) and the round keys (``fold_in(PRNGKey(seed), 1000 +
 k)``) in the reference's exact order, and :mod:`repro_torch.rng` reproduces
 jax's keys, so a run draws the reference's cohorts, batches and — whenever
-the norms agree — its participation masks, in either mode; the two modes'
-ledgers (minus timing) and parameters are bitwise equal.  ``eval_fn``
+the norms agree — its participation masks, in any mode; the modes' ledgers
+(minus timing) and parameters are bitwise equal.  ``eval_fn``
 evaluates on the reference's ``eval_every`` grid (and after the last round),
 filling the ledger's ``acc_rounds`` / ``acc``; ``server_opt`` applies the
 aggregate with a :mod:`repro_torch.optim` optimizer.
@@ -32,15 +41,14 @@ With a ``mesh`` (a :class:`~repro_torch.fl.mesh.ClientMesh`,
 :func:`build_client_mesh`) the loop runs the mesh round of
 ``fl/shard_round.py`` on every rank: each rank replays the same numpy
 generator, so every rank draws the reference's cohorts and batches, and
-uploads (host) or gathers (prefetch) only its block of the cohort.  Under
-prefetch every rank holds the whole pool (the reference shards its rows over
-the mesh).  The ledger is the same on every rank.
+uploads (host) or gathers (prefetch, from the sharded
+:class:`~repro_torch.sim.pool.ClientPool`: each rank holds its block of the
+pool's rows) only its block of the cohort.  The ledger is the same on every
+rank.  ``'scan'`` with a mesh raises ``ValueError``, as in the reference:
+the mesh round cannot run inside a block of rounds.
 
-Not ported yet: the ``'scan'`` mode (``rounds_per_scan`` is accepted),
-telemetry (``obs``), checkpoint/resume and the client-state layer
-(``system``); each raises ``NotImplementedError`` (``'scan'`` with a mesh
-raises ``ValueError``, as in the reference: the mesh round cannot run inside
-a block of rounds).
+Not ported yet: telemetry (``obs``), checkpoint/resume and the client-state
+layer (``system``); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -61,7 +69,7 @@ from repro_torch.fl.engine import make_engine
 from repro_torch.fl.mesh import ClientMesh, local_client_mesh
 from repro_torch.fl.round import client_weights, round_bits_duplex
 from repro_torch.fl.shard_round import validate_shard_config
-from repro_torch.kernels.ops import tree_leaves
+from repro_torch.kernels.ops import tree_leaves, tree_map
 from repro_torch.sim.pool import ClientPool, claim_batch
 from repro_torch.sim.scenarios import get_scenario
 
@@ -249,11 +257,6 @@ def _check_mode(mode, on_mesh: bool, rounds_per_scan: int = 8) -> None:
             "inside the scan-over-rounds block — use mode='host' or mode='prefetch' "
             "with the mesh, or drop the mesh to keep scan-over-rounds"
         )
-    if mode == "scan":
-        raise NotImplementedError(
-            "sim mode 'scan' is not ported yet: it lands with the driver-modes "
-            "slice of the port (use mode='prefetch' or mode='host')"
-        )
 
 
 def _reject_unported(mode, mesh, rounds_per_scan, **given):
@@ -266,6 +269,126 @@ def _reject_unported(mode, mesh, rounds_per_scan, **given):
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+# the RoundMetrics fields the ledger reads; the scan mode keeps them per round
+LEDGER_FIELDS = ("loss", "alpha", "gamma", "sent_clients", "expected_clients",
+                 "selected_clients", "mask", "norms")
+
+
+def _tensors(tree) -> list:
+    """The tensors of a parameter or optimizer-state tree (``()``: none)."""
+    return [] if isinstance(tree, tuple) else tree_leaves(tree)
+
+
+def _pack_block(pool, plans, keys: torch.Tensor) -> tuple:
+    """A block's plans and round keys as ``(span, width)`` int32 rows (each
+    round's :meth:`~repro_torch.sim.pool.ClientPool.pack` words, then its
+    key's two words), and the plans' layout."""
+    packed = [pool.pack(p) for p in plans]
+    words = np.stack([w for w, _ in packed])
+    return np.concatenate([words, keys.numpy().astype(np.uint32).view(np.int32)],
+                          axis=1), packed[0][1]
+
+
+class _ScanRounds:
+    """The round body of ``mode='scan'`` over static buffers.
+
+    ``block`` holds a block's packed rows (:func:`_pack_block`, one row per
+    round), written by one upload per block (:meth:`load`); the device
+    counters ``slot`` (the next round's row) and ``index`` (its ledger slot)
+    advance in the body, so a round takes no host value.  The body gathers
+    the round's batch from the pool (``ClientPool.gather_packed``), takes
+    the weights from the cohort (``weights_of``) and the key from the row,
+    runs ``round_step``, copies the new parameters and optimizer state into
+    ``params`` / ``opt_state`` (clones of the run's initial ones) and writes
+    the round's metrics into ``out[name][index]``.
+
+    On the CPU each :meth:`step` runs the body eagerly.  On a card the first
+    runs it eagerly on a side stream (the capture's warm-up: lazy set-up,
+    and the kernels' ticket counters of that stream), the body is then
+    captured into one ``torch.cuda.CUDAGraph`` on that stream
+    (:meth:`_capture`), and every later step is one replay (``replays``
+    counts them).  A failed capture or replay raises.
+    """
+
+    def __init__(self, pool, round_step, weights_of, params, opt_state, rounds: int,
+                 rows: int):
+        dev = pool.device
+        self.pool, self.round_step, self.weights_of = pool, round_step, weights_of
+        self.params = tree_map(torch.clone, params)
+        self.opt_state = opt_state if opt_state == () else tree_map(torch.clone, opt_state)
+        self.rounds, self.rows = rounds, rows
+        self.block = self.layout = None
+        self.slot = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.index = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.out = None
+        self.graph = None
+        self.replays = 0
+        self.stream = None
+        if dev.type == "cuda":
+            self.stream = torch.cuda.Stream(dev)
+            # the pool's buffers went up on the pool's stream
+            torch.cuda.current_stream(dev).wait_stream(pool.stream)
+
+    def load(self, packed: np.ndarray, layout) -> None:
+        """Write a block's rows (one pinned ``non_blocking`` upload on a
+        card) and point ``slot`` at its first."""
+        if self.block is None:
+            # made once: the graph reads the block at this address
+            self.block = torch.zeros((self.rows, packed.shape[1]), dtype=torch.int32,
+                                     device=self.slot.device)
+            self.layout = layout
+        host = torch.from_numpy(packed)
+        if self.stream is None:
+            self.block[:len(packed)].copy_(host)
+        else:
+            self.block[:len(packed)].copy_(host.pin_memory(), non_blocking=True)
+        self.slot.zero_()
+
+    def step(self) -> None:
+        """Run the next round: eagerly, or as one replay of the graph."""
+        if self.graph is not None:
+            self.graph.replay()
+            self.replays += 1
+        elif self.stream is None:
+            self._body()
+        else:
+            cur = torch.cuda.current_stream(self.block.device)
+            self.stream.wait_stream(cur)
+            with torch.cuda.stream(self.stream):
+                self._body()
+            if self.rounds > 1:
+                self.graph = self._capture()
+            cur.wait_stream(self.stream)
+
+    def _capture(self):
+        """One ``torch.cuda.CUDAGraph`` of the round body, captured on the
+        side stream."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=self.stream):
+            self._body()
+        return graph
+
+    def _body(self) -> None:
+        row = self.block.index_select(0, self.slot).view(-1)
+        plan, key = row[:-2], row[-2:]
+        batch = self.pool.gather_packed(plan, self.layout)
+        params, opt_state, metrics = self.round_step(
+            self.params, self.opt_state, batch, self.weights_of(self.layout.rows(plan)),
+            key.to(torch.int64) & 0xFFFFFFFF)
+        for dst, src in zip(_tensors(self.params) + _tensors(self.opt_state),
+                            _tensors(params) + _tensors(opt_state)):
+            dst.copy_(src)
+        if self.out is None:
+            self.out = {name: torch.empty((self.rounds,) + tuple(getattr(metrics, name).shape),
+                                          dtype=getattr(metrics, name).dtype,
+                                          device=self.block.device)
+                        for name in LEDGER_FIELDS}
+        for name in LEDGER_FIELDS:
+            self.out[name].index_copy_(0, self.index, getattr(metrics, name).unsqueeze(0))
+        self.slot.add_(1)
+        self.index.add_(1)
 
 
 def run_simulation(
@@ -302,7 +425,9 @@ def run_simulation(
     (``None`` means CUDA and raises without one; pass ``device='cpu'``):
     under ``mode='prefetch'`` from the device-resident pool, with the next
     round's gather dispatched first; under ``'host'`` from a numpy batch,
-    waiting for each round (module docstring).  ``init_fn(key)`` gets
+    waiting for each round; under ``'scan'`` in blocks of
+    ``rounds_per_scan`` rounds, each round one CUDA-graph replay on a card
+    (module docstring).  ``init_fn(key)`` gets
     ``fold_in(PRNGKey(seed), 1)``.  ``fl.weights == 'data_size'`` takes each
     cohort's slice of ``dataset.sizes()``, normalised per round.
     ``eval_fn(params, eval_batch)`` (``eval_batch`` a dict of arrays or
@@ -313,10 +438,11 @@ def run_simulation(
 
     With a ``mesh`` (call it on every rank) the round is the mesh round, on
     the mesh's device: every rank draws the whole cohort and uploads (host)
-    or gathers (prefetch) its block of the batch and the weights.  The
-    ledger is the same on every rank (``wall_ms`` is the slowest rank's) and
-    records ``workload["mesh_axis_size"]``.  ``artifact`` (a path) serialises
-    the ledger on completion (rank 0 only).
+    or gathers (prefetch, from the sharded pool) its block of the batch and
+    the weights.  The ledger is the same on every rank (``wall_ms`` is the
+    slowest rank's) and records ``workload["mesh_axis_size"]``; ``'scan'``
+    with a mesh raises ``ValueError``.  ``artifact`` (a path) serialises the
+    ledger on completion (rank 0 only).
     """
     _reject_unported(mode, mesh, rounds_per_scan, system=system,
                      obs=obs, checkpoint=checkpoint, resume=resume)
@@ -363,7 +489,7 @@ def run_simulation(
     dev_metrics, dev_evals, wall_ms = [], [], []
     pool = None
     t_start = time.perf_counter()
-    t_first = None
+    t_first, first_units = None, 1
     if mode == "host":
         for k in range(rounds):
             t_round = time.perf_counter()
@@ -386,16 +512,15 @@ def run_simulation(
             if t_first is None:
                 t_first = time.perf_counter()
             wall_ms.append((time.perf_counter() - t_round) * 1e3)
-    else:
-        pool = ClientPool(dataset, device=dev)
+    elif mode == "prefetch":
+        pool = ClientPool(dataset, mesh=mesh, device=dev)
 
         def draw_round(k):
             # called strictly in round order: the host RNG and the keys are
             # consumed as in the host loop, only earlier
             clients = draw_cohort()
             plan = pool.plan(rng, clients, fl.local_steps, batch_size, local_epoch)
-            return (pool.gather(plan, lo, k_local), cohort_weights(clients),
-                    trng.fold_in(key, 1000 + k))
+            return (pool.gather(plan), cohort_weights(clients), trng.fold_in(key, 1000 + k))
 
         nxt = draw_round(0)
         for k in range(rounds):
@@ -415,6 +540,48 @@ def run_simulation(
                 _sync(dev)
                 t_first = time.perf_counter()
             wall_ms.append((time.perf_counter() - t_round) * 1e3)
+    else:  # scan-over-rounds
+        pool = ClientPool(dataset, device=dev)
+        if fl.weights == "data_size":
+            # the cohort's weights from its ids, inside the body: the same
+            # ops on the same device as cohort_weights'
+            sizes_dev = torch.from_numpy(sizes).to(dev)
+
+            def weights_of(clients):
+                return client_weights(fl, sizes_dev.index_select(0, clients.long()))
+        else:
+            def weights_of(clients):
+                return uniform_w
+        scan = _ScanRounds(pool, round_step, weights_of, params, opt_state, rounds,
+                           min(rounds_per_scan, rounds))
+        host_key = trng.PRNGKey(seed, device="cpu")
+        done = 0
+        while done < rounds:
+            t_blk = time.perf_counter()
+            span = min(rounds_per_scan, rounds - done)
+            if eval_fn is not None:
+                # the next eval round ends a block, so acc_rounds are the
+                # other modes' round for round
+                nxt = done
+                while not want_eval(nxt):
+                    nxt += 1
+                span = min(span, nxt - done + 1)
+            plans = [pool.plan(rng, draw_cohort(), fl.local_steps, batch_size, local_epoch)
+                     for _ in range(span)]
+            keys = trng.fold_in_many(host_key, range(1000 + done, 1000 + done + span))
+            scan.load(*_pack_block(pool, plans, keys))
+            for _ in range(span):
+                scan.step()
+            done += span
+            if want_eval(done - 1):
+                dev_evals.append((done - 1, eval_fn(scan.params, eval_batch)))
+            if t_first is None:
+                # the only mid-run sync: it ends the first block (the
+                # warm-up round and the capture)
+                _sync(dev)
+                t_first, first_units = time.perf_counter(), span
+            wall_ms.extend([(time.perf_counter() - t_blk) * 1e3 / span] * span)
+        params = scan.params
     _sync(dev)
     t_end = time.perf_counter()
     wall_s = t_end - t_start
@@ -437,12 +604,15 @@ def run_simulation(
             "seed": seed,
             "local_epoch": bool(local_epoch),
             "backend_platform": dev.type,
+            **({"rounds_per_scan": rounds_per_scan} if mode == "scan" else {}),
             **({"pool_bytes": pool.nbytes} if pool is not None else {}),
             **({"mesh_axis_size": mesh.world_size} if mesh is not None else {}),
         },
     )
 
     def rows(name):
+        if mode == "scan":
+            return scan.out[name].cpu().numpy()
         return torch.stack([getattr(m, name) for m in dev_metrics]).cpu().numpy()
 
     masks = rows("mask").astype(bool)
@@ -471,7 +641,7 @@ def run_simulation(
         ledger.acc_rounds.append(int(k))
         ledger.acc.append(float(v))
     ledger.wall_s = wall_s
-    steady = rounds - 1
+    steady = rounds - first_units
     if steady > 0 and steady_s > 0:
         ledger.rounds_per_sec = steady / steady_s
     else:
@@ -510,7 +680,12 @@ def run_scenario(
     sc = get_scenario(scenario) if isinstance(scenario, str) else scenario
     if reduced:
         sc = sc.reduced()
-    _check_mode(mode, mesh is not None or sc.sharded, rounds_per_scan)
+    if mode == "scan" and (mesh is not None or sc.sharded):
+        raise ValueError(
+            f"scenario {sc.name!r} runs on a mesh, which sim mode 'scan' does not "
+            "support — use mode 'host' or 'prefetch'"
+        )
+    _check_mode(mode, mesh is not None, rounds_per_scan)
     if mesh is None:
         device = resolve_device(device)
     ds = sc.build_dataset(reduced=reduced)

@@ -23,10 +23,15 @@ the round path waits for the stream.  :meth:`ClientPool.gather` returns the
 batch with a ready event; :func:`claim_batch` makes the current stream wait
 for it and records the batch's tensors on that stream.
 
-Not ported: the reference's sharded pool (``ClientPool(mesh=...)``, rows
-placed over the client mesh and a gather plus ``psum_scatter``).  On a mesh
-every rank holds the whole pool and gathers its own block of the plan
-(``gather(plan, lo, count)``); the client-state layer (``SystemConfig``,
+**Sharded mode** (``ClientPool(dataset, mesh=...)``, the reference's):
+the pool's rows are padded to a multiple of the mesh's world size and each
+rank uploads only its block of ``rows_per_shard`` rows.  A gather then runs
+on every rank: the host computes each cohort position's owner rank and
+local row (the cohort's order is untouched), each rank gathers the
+positions it owns from its block (the others read row 0 and are zeroed),
+and one :meth:`~repro_torch.fl.mesh.ClientMesh.reduce_scatter` hands each
+rank its ``(n / world_size, R, b, ...)`` block of the cohort (the
+reference's ``psum_scatter``).  The client-state layer (``SystemConfig``,
 ``ClientState``) comes with the system-realism slice.
 """
 
@@ -55,6 +60,20 @@ class RoundPlan(NamedTuple):
     clients: np.ndarray
     take: np.ndarray
     step_mask: np.ndarray
+
+
+class PlanLayout(NamedTuple):
+    """Where the parts of a packed plan (:meth:`ClientPool.pack`) lie:
+    ``shape`` the ``(n, R, b)`` of its example rows, ``sizes`` the words of
+    each part, in order."""
+
+    shape: tuple
+    sizes: tuple
+
+    def rows(self, packed):
+        """The packed plan's first part: the cohort's pool rows (its client
+        ids without a mesh)."""
+        return packed[:self.sizes[0]]
 
 
 def plan_cohort(rng, sizes, clients, max_steps, batch_size, local_epoch=True) -> RoundPlan:
@@ -111,29 +130,46 @@ class ClientPool:
     largest client; plans address real rows only, so padding is never read).
     Built once per simulation; each round is then index generation on the
     host and a gather on the device.
+
+    With ``mesh`` (a :class:`~repro_torch.fl.mesh.ClientMesh`; the pool then
+    lies on the mesh's device) the pool is sharded (module docstring): the
+    rows pad to a multiple of ``mesh.world_size``, this rank's ``buffers``
+    hold its ``rows_per_shard`` rows, and :meth:`gather` returns this rank's
+    block of the cohort.
     """
 
-    def __init__(self, dataset, device=None):
+    def __init__(self, dataset, mesh=None, device=None):
+        if mesh is not None:
+            if device is not None and resolve_device(device).type != mesh.device.type:
+                raise ValueError(f"device={device!r}, but the mesh's rank lies on {mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.n_clients = dataset.n_clients
         self.sizes = np.asarray(dataset.sizes())
         self.max_examples = int(self.sizes.max())
+        shards = 1 if mesh is None else mesh.world_size
+        rows = self.n_clients + (-self.n_clients) % shards
+        self.rows_per_shard = rows // shards
+        lo = 0 if mesh is None else mesh.rank * self.rows_per_shard
         cuda = self.device.type == "cuda"
         self.stream = torch.cuda.Stream(self.device) if cuda else None
         self._slots: list = []          # pinned staging: [tensor, event or None] x 2
         self._turn = 0
         buffers = {}
         for k, first in dataset.client_data[0].items():
-            buf = np.zeros((self.n_clients, self.max_examples) + first.shape[1:], first.dtype)
+            buf = np.zeros((rows, self.max_examples) + first.shape[1:], first.dtype)
             for i, d in enumerate(dataset.client_data):
                 buf[i, : len(d[k])] = d[k]
-            buffers[k] = self._upload(torch.from_numpy(buf))
+            buffers[k] = self._upload(torch.from_numpy(buf[lo:lo + self.rows_per_shard]))
         self.buffers = buffers
 
     @property
     def nbytes(self) -> int:
-        """Device bytes held by the padded pool buffers."""
-        return sum(b.numel() * b.element_size() for b in self.buffers.values())
+        """Device bytes held by the padded pool buffers (global: every
+        rank's block, as the reference counts a sharded pool)."""
+        shards = 1 if self.mesh is None else self.mesh.world_size
+        return shards * sum(b.numel() * b.element_size() for b in self.buffers.values())
 
     def plan(self, rng, clients, max_steps, batch_size, local_epoch=True) -> RoundPlan:
         """:func:`plan_cohort` bound to this pool's client sizes."""
@@ -157,43 +193,68 @@ class ClientPool:
             slot[1].synchronize()       # only if its gather two rounds ago still runs
         return slot
 
-    def gather(self, plan: RoundPlan, lo: int = 0, count: int | None = None) -> tuple:
-        """Dispatch the device gather of one round's batch, or of the
-        cohort block ``[lo, lo + count)`` (a mesh rank's); returns
-        ``(batch, ready)``.
+    def pack(self, plan: RoundPlan) -> tuple:
+        """One round's plan as flat int32 words and their :class:`PlanLayout`:
+        the cohort's pool rows (on a mesh: each position's local row, then
+        after the example rows which positions this rank owns), the example
+        rows, and the float bits of the step mask (on a mesh: this rank's
+        block of it).  :meth:`gather_packed` reads them."""
+        rows, step_mask = plan.clients, plan.step_mask
+        parts = [rows, plan.take.reshape(-1)]
+        if self.mesh is not None:
+            # the owner rank and local row of every cohort position, in
+            # cohort order; this rank's block of the step mask
+            own = rows // self.rows_per_shard == self.mesh.rank
+            rows = np.where(own, rows % self.rows_per_shard, 0)
+            k = len(rows) // self.mesh.world_size
+            step_mask = step_mask[self.mesh.rank * k:(self.mesh.rank + 1) * k]
+            parts = [rows, plan.take.reshape(-1), own]
+        parts.append(np.ascontiguousarray(step_mask, np.float32).view(np.int32).reshape(-1))
+        parts = [np.asarray(p).astype(np.int32) for p in parts]
+        return np.concatenate(parts), PlanLayout(plan.take.shape, tuple(p.size for p in parts))
 
-        On a CUDA device the plan goes up as one packed int32 array (client
-        ids, example rows, the step mask's bits) from a pinned staging slot,
-        and the copy and the gather run on the pool's stream; ``ready`` is an
-        event recorded after them (``None`` on the CPU).  Hand both to
+    def gather(self, plan: RoundPlan) -> tuple:
+        """Dispatch the device gather of one round's batch (this rank's
+        block of it on a mesh); returns ``(batch, ready)``.
+
+        On a CUDA device the plan goes up as one packed int32 array
+        (:meth:`pack`) from a pinned staging slot, and the copy, the gather
+        and the mesh's reduce-scatter run on the pool's stream; ``ready`` is
+        an event recorded after them (``None`` on the CPU).  Hand both to
         :func:`claim_batch` before the batch is read on another stream.
         """
-        hi = len(plan.clients) if count is None else lo + count
-        clients = plan.clients[lo:hi]
-        take = plan.take[lo:hi]
-        n, r, b = take.shape
-        parts = (clients.astype(np.int32), take.reshape(-1).astype(np.int32),
-                 np.ascontiguousarray(plan.step_mask[lo:hi], np.float32).view(np.int32))
-        sizes = [p.size for p in parts]
+        words, layout = self.pack(plan)
         if self.stream is None:
-            packed = torch.from_numpy(np.concatenate([p.reshape(-1) for p in parts]))
-            return self._gather_packed(packed, n, r, b, sizes), None
-        slot = self._stage(sum(sizes))
-        np.concatenate([p.reshape(-1) for p in parts], out=slot[0].numpy())
+            return self.gather_packed(torch.from_numpy(words), layout), None
+        slot = self._stage(words.size)
+        np.copyto(slot[0].numpy(), words)
         with torch.cuda.stream(self.stream):
             packed = slot[0].to(self.device, non_blocking=True)
-            batch = self._gather_packed(packed, n, r, b, sizes)
+            batch = self.gather_packed(packed, layout)
             # one event: the slot is free to refill, and the batch is ready
             slot[1] = ready = torch.cuda.Event()
             ready.record(self.stream)
         return batch, ready
 
-    def _gather_packed(self, packed, n, r, b, sizes) -> dict:
-        c_end, t_end = sizes[0], sizes[0] + sizes[1]
-        clients = packed[:c_end]
-        take = packed[c_end:t_end].view(n, r, b)
-        step_mask = packed[t_end:].view(torch.float32).view(n, r)
-        return gather_batch(self.buffers, clients, take, step_mask)
+    def gather_packed(self, packed: torch.Tensor, layout: PlanLayout) -> dict:
+        """The batch of a packed plan (:meth:`pack`) that lies on this pool's
+        device, gathered on the current stream (the scan mode calls it inside
+        its captured round body)."""
+        parts = torch.split(packed, layout.sizes)
+        shape = layout.shape
+        rows, take, step_mask = parts[0], parts[1].view(shape), parts[-1].view(torch.float32)
+        step_mask = step_mask.view(-1, shape[1])
+        batch = gather_batch(self.buffers, rows, take, step_mask)
+        if self.mesh is None:
+            return batch
+        other = parts[2] == 0
+        for k, v in batch.items():
+            if k != "_step_mask":
+                # positions another rank owns are zero here, so the sum over
+                # the ranks is each position's owner's rows, bit for bit
+                v = v.masked_fill(other.view((-1,) + (1,) * (v.dim() - 1)), 0)
+                batch[k] = self.mesh.reduce_scatter(v)
+        return batch
 
 
 def claim_batch(batch: dict, ready) -> dict:

@@ -794,27 +794,55 @@ def test_reduced_hybrid_prefill_on_the_card_equals_the_cpu(cuda):
 def test_prefetch_gather_on_the_card_is_the_host_batch(cuda, name):
     # the pool's side-stream gather of a plan, claimed on the current
     # stream, bitwise the numpy batch of the same generator state; ten
-    # rounds through the two pinned staging slots, the last block a mesh rank's
+    # rounds through the two pinned staging slots, the last through the
+    # sharded pool of a world-size-1 NCCL mesh (gather + reduce-scatter)
+    from repro_torch.fl.mesh import local_client_mesh
     from repro_torch.sim import pool
     from repro_torch.sim.scenarios import get_scenario
 
     ds = get_scenario(name).build_dataset()
     cpool = pool.ClientPool(ds, device=cuda)
-    r_host, r_pool = np.random.default_rng(5), np.random.default_rng(5)
-    pending = []
-    for k in range(10):
-        clients = r_pool.choice(ds.n_clients, size=32, replace=False)
-        lo, count = (8, 8) if k == 9 else (0, None)
-        host_clients = r_host.choice(ds.n_clients, size=32, replace=False)
-        pending.append((cpool.gather(cpool.plan(r_pool, clients, 6, 8), lo, count),
-                        ds.sample_round_batches(r_host, host_clients, 6, 8), lo, count))
-    for (batch, ready), host, lo, count in pending:
-        got = pool.claim_batch(batch, ready)
-        hi = 32 if count is None else lo + count
-        for k in host:
-            assert got[k].device.type == "cuda"
-            np.testing.assert_array_equal(got[k].cpu().numpy(), host[k][lo:hi])
-    assert r_host.integers(1 << 30) == r_pool.integers(1 << 30)
+    mesh = local_client_mesh(cuda)
+    try:
+        spool = pool.ClientPool(ds, mesh=mesh)
+        r_host, r_pool = np.random.default_rng(5), np.random.default_rng(5)
+        pending = []
+        for k in range(10):
+            clients = r_pool.choice(ds.n_clients, size=32, replace=False)
+            host_clients = r_host.choice(ds.n_clients, size=32, replace=False)
+            use = spool if k == 9 else cpool
+            pending.append((use.gather(use.plan(r_pool, clients, 6, 8)),
+                            ds.sample_round_batches(r_host, host_clients, 6, 8)))
+        for (batch, ready), host in pending:
+            got = pool.claim_batch(batch, ready)
+            for k in host:
+                assert got[k].device.type == "cuda"
+                np.testing.assert_array_equal(got[k].cpu().numpy(), host[k])
+        assert r_host.integers(1 << 30) == r_pool.integers(1 << 30)
+        assert spool.nbytes == cpool.nbytes
+    finally:
+        mesh.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ("femnist1-fedavg-aocs-scan", "charlm-fedavg-aocs"))
+def test_scan_mode_on_the_card_is_bitwise_host(cuda, name):
+    # the scan mode's rounds are CUDA-graph replays after an eager first
+    # round: masks, ledger series and parameters bitwise the host loop's,
+    # with a remainder block, and bitwise a second scan run
+    from repro_torch.kernels.ops import tree_leaves
+    from repro_torch.sim.driver import run_scenario
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    host = run_scenario(name, reduced=True, rounds=5, mode="host")
+    scans = [run_scenario(name, reduced=True, rounds=5, mode="scan", rounds_per_scan=2)
+             for _ in range(2)]
+    for p, led in scans:
+        assert led.workload["rounds_per_scan"] == 2 and led.workload["backend_platform"] == "cuda"
+        for series in ("loss", "alpha", "gamma", "sent", "uplink_bits"):
+            assert getattr(led, series) == getattr(host[1], series), series
+        assert all(bool((a == b).all()) for a, b in zip(led.masks, host[1].masks))
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p), tree_leaves(host[0])))
 
 
 @pytest.mark.cuda

@@ -5,8 +5,11 @@ host path (on the CPU).
   in lockstep with it (the port's twin of the reference's
   ``test_pool_gather_matches_host_batches``);
 * ``ClientPool.gather`` of a plan is bitwise ``sample_round_batches`` of the
-  same generator state, for the femnist and charlm pools, and a cohort
-  block ``[lo, lo + count)`` (a mesh rank's) is bitwise that block;
+  same generator state, for the femnist and charlm pools;
+* the sharded pool on 4 gloo ranks (``spawn_mesh``, a pool of 22 clients
+  padded to 24 rows): each rank holds its 6 rows, and its gather is bitwise
+  its block of the replicated pool's gather and of the reference's
+  ``gather_batch``; ``nbytes`` counts the reference's padded rows;
 * ``nbytes`` equals the reference's pool's, and ``stack_plans`` its stacks;
 * ``device=None`` means CUDA and raises without one.
 """
@@ -57,14 +60,42 @@ def test_pool_gather_matches_host_batches(name):
     assert r_host.integers(1 << 30) == r_pool.integers(1 << 30)
 
 
+def _sharded_dataset():
+    from repro_torch.data import femnist_like
+
+    return femnist_like(1, n_clients=22, dim=48, num_classes=10, base_examples=24, seed=0)
+
+
+def _sharded_rank(mesh, clients):
+    ds = _sharded_dataset()
+    spool = pool.ClientPool(ds, mesh=mesh, device="cpu")
+    batch, ready = spool.gather(spool.plan(np.random.default_rng(2), clients, 2, 4))
+    return {"batch": pool.claim_batch(batch, ready), "nbytes": spool.nbytes,
+            "rows": {k: tuple(b.shape) for k, b in spool.buffers.items()},
+            "local_bytes": sum(b.numel() * b.element_size() for b in spool.buffers.values())}
+
+
 def test_pool_gathers_a_cohort_block():
-    ds = _dataset("charlm-fedavg-aocs")
+    from repro_torch.fl.mesh import spawn_mesh
+
+    ds = _sharded_dataset()
+    clients = np.array([21, 3, 0, 7, 11, 20, 6, 14])     # every rank owns some
+    ranks = spawn_mesh(_sharded_rank, 4, "gloo", 120, device="cpu", args=(clients,))
     cpool = pool.ClientPool(ds, device="cpu")
-    plan = cpool.plan(np.random.default_rng(2), np.arange(8), 2, 4)
+    plan = cpool.plan(np.random.default_rng(2), clients, 2, 4)
     whole, _ = cpool.gather(plan)
-    block, _ = cpool.gather(plan, 2, 4)
-    for k in whole:
-        assert torch.equal(block[k], whole[k][2:6]), k
+    dj = _sharded_dataset()
+    want = j_pool.gather_batch(j_pool.ClientPool(dj).buffers, plan.clients, plan.take,
+                               plan.step_mask)
+    row_bytes = cpool.nbytes // ds.n_clients
+    for r, out in enumerate(ranks):
+        assert out["nbytes"] == 24 * row_bytes == 4 * out["local_bytes"]
+        assert all(shape[0] == 6 for shape in out["rows"].values())
+        assert set(out["batch"]) == set(whole)
+        for k in whole:
+            assert torch.equal(out["batch"][k], whole[k][2 * r:2 * r + 2]), k
+            np.testing.assert_array_equal(out["batch"][k].numpy(),
+                                          np.asarray(want[k])[2 * r:2 * r + 2])
 
 
 @pytest.mark.parametrize("name", CELLS)

@@ -8,8 +8,10 @@ rounding of log1p and the polynomial).
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro_torch import rng
 
@@ -40,6 +42,19 @@ def test_key_split_fold_in_bitwise(seed):
     kk_j = jax.random.split(jax.random.fold_in(kj, 1003))
     kk_t = rng.split(rng.fold_in(kt, 1003))
     np.testing.assert_array_equal(_np(kk_j), kk_t.numpy())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fold_in_many_is_a_stack_of_fold_ins(seed):
+    # the scan mode's block of round keys, drawn in one cipher call
+    kj, kt = jax.random.PRNGKey(seed), rng.PRNGKey(seed)
+    data = [1000, 1001, 1007, 2**31 + 5, 2**32 - 1]
+    got = rng.fold_in_many(kt, data)
+    assert got.shape == (5, 2) and got.dtype == torch.int64
+    np.testing.assert_array_equal(_np(jnp.stack([jax.random.fold_in(kj, d) for d in data])),
+                                  got.numpy())
+    for d, row in zip(data, got):
+        assert torch.equal(row, rng.fold_in(kt, d))
 
 
 @pytest.mark.parametrize("shape", SHAPES)

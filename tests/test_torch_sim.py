@@ -15,8 +15,16 @@ initial parameters (``convert.params_from_jax`` through ``init_fn``):
   run, and its parameters equal the unsharded run's bitwise;
 * every registered cell runs under the default ``mode="prefetch"``, its
   ledger minus ``wall_ms`` and its parameters bitwise ``mode="host"``'s
-  (a sharded cell on a world-size-1 mesh), and the ledger carries the
-  pool's bytes.
+  (a sharded cell on a world-size-1 mesh, from the sharded pool), and the
+  ledger carries the pool's bytes;
+* every registered cell that needs no mesh runs under ``mode="scan"`` at
+  ``rounds=5, rounds_per_scan=2`` (a remainder block), its ledger minus the
+  timing fields and its parameters bitwise host's and prefetch's; its masks
+  equal the reference's scan mode's and its parameters agree with the
+  reference's at the parity tolerance above; at ``rounds_per_scan=3`` the
+  eval grid's ``acc_rounds`` are prefetch's and the reference's;
+* a 4-rank gloo mesh (``spawn_mesh``) runs prefetch from the sharded pool,
+  its ledger minus timing and its parameters bitwise the same ranks' host run.
 """
 
 import copy
@@ -119,11 +127,11 @@ def test_default_device_needs_cuda():
         driver.run_scenario("femnist1-fedavg-aocs-pallas", reduced=True, rounds=1)
 
 
-@pytest.mark.parametrize("kw", (dict(mode="scan"), dict(obs=object()), dict(checkpoint="x"),
-                                dict(resume="x")), ids=("scan", "obs", "checkpoint", "resume"))
+@pytest.mark.parametrize("kw", (dict(obs=object()), dict(checkpoint="x"), dict(resume="x")),
+                         ids=("obs", "checkpoint", "resume"))
 def test_unported_modes_and_options_raise(kw):
     # the mesh (tests/test_torch_shard_round.py and below) and the prefetch
-    # mode (below) are ported
+    # and scan modes (below) are ported
     with pytest.raises(NotImplementedError, match="not ported"):
         driver.run_scenario("femnist1-fedavg-aocs", reduced=True, rounds=1,
                             device="cpu", **kw)
@@ -144,6 +152,7 @@ def _timing_free(ledger):
     for key in ("mode", "wall_s", "rounds_per_sec"):
         doc.pop(key)
     doc["workload"].pop("pool_bytes", None)
+    doc["workload"].pop("rounds_per_scan", None)
     return doc
 
 
@@ -213,3 +222,108 @@ def test_sharded_cell_rejects_scan_mode():
             driver.run_simulation(ds, init, loss, sc.fl, 1, mode="scan", mesh=mesh)
     finally:
         mesh.close()
+
+
+UNSHARDED = [n for n in scenarios.list_scenarios() if not scenarios.get_scenario(n).sharded]
+SCAN_CELLS = ("femnist1-fedavg-aocs-scan", "femnist1-fedavg-aocs-randk", "charlm-fedavg-aocs")
+
+
+@pytest.mark.parametrize("name", UNSHARDED)
+def test_scan_matches_host_and_prefetch(name):
+    # blocks of 2, 2 and 1 rounds: the remainder block runs
+    ph, lh = driver.run_scenario(name, reduced=True, rounds=5, device="cpu", mode="host")
+    pp, lp = driver.run_scenario(name, reduced=True, rounds=5, device="cpu", mode="prefetch")
+    ps, ls = driver.run_scenario(name, reduced=True, rounds=5, device="cpu", mode="scan",
+                                 rounds_per_scan=2)
+    assert ls.mode == "scan"
+    assert _timing_free(ls) == _timing_free(lh) == _timing_free(lp)
+    for a, b, c in zip(tree_leaves(ps), tree_leaves(ph), tree_leaves(pp)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert ls.workload["rounds_per_scan"] == 2
+    assert ls.workload["pool_bytes"] == lp.workload["pool_bytes"]
+    assert list(ls.workload).index("rounds_per_scan") < list(ls.workload).index("pool_bytes")
+    # each round's wall_ms is its block's time over its span
+    assert ls.wall_ms[0] == ls.wall_ms[1] and ls.wall_ms[2] == ls.wall_ms[3]
+    assert ls.rounds_per_sec > 0
+    driver.validate_ledger(ls.to_json())
+    j_driver.validate_ledger(ls.to_json())
+
+
+@pytest.mark.parametrize("name", SCAN_CELLS)
+def test_scan_masks_match_reference_scan(name):
+    sc = j_scenarios.get_scenario(name).reduced()
+    ds = sc.build_dataset(reduced=True)
+    init, _, _ = sc.build_model(ds)
+    p0 = jax.device_get(init(jax.random.fold_in(jax.random.PRNGKey(sc.seed), 1)))
+    pj, lj = j_driver.run_scenario(name, reduced=True, mode="scan", rounds=5, rounds_per_scan=2)
+    pt, lt = driver.run_scenario(name, reduced=True, mode="scan", rounds=5, rounds_per_scan=2,
+                                 device="cpu",
+                                 init_fn=lambda key: params_from_jax(p0, key.device))
+    assert len(lt.masks) == len(lj.masks) == 5
+    for a, b in zip(lt.masks, lj.masks):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    assert lt.sent == lj.sent and lt.uplink_bits == lj.uplink_bits
+    assert lt.workload == {**lj.workload, "backend_platform": "cpu"}
+    np.testing.assert_allclose(lt.loss, lj.loss, rtol=1e-4)
+    for a, b in zip(tree_leaves(pt), jax.tree_util.tree_leaves(pj)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-6)
+
+
+def test_scan_blocks_keep_the_eval_grid():
+    # the reference's test_sim property: blocks of up to 3 rounds end on
+    # the eval_every grid, so acc_rounds are prefetch's and the reference's
+    name = "femnist1-fedavg-aocs"
+    sc = j_scenarios.get_scenario(name).reduced()
+    dj = sc.build_dataset(reduced=True)
+    j_init, j_loss, j_acc = sc.build_model(dj)
+    p0 = jax.device_get(j_init(jax.random.fold_in(jax.random.PRNGKey(sc.seed), 1)))
+    ev = {k: v[:64] for k, v in dj.client_data[0].items()}
+    kw = dict(batch_size=sc.batch_size, eval_every=4, seed=sc.seed)
+    _, lj = j_driver.run_simulation(dj, j_init, j_loss, sc.fl, 10, mode="scan",
+                                    rounds_per_scan=3, eval_fn=jax.jit(j_acc),
+                                    eval_batch={k: jax.numpy.asarray(v) for k, v in ev.items()},
+                                    **kw)
+    t_sc = scenarios.get_scenario(name).reduced()
+    dt = t_sc.build_dataset(reduced=True)
+    _, t_loss, t_acc = t_sc.build_model(dt)
+    t_init = lambda key: params_from_jax(p0, key.device)
+    runs = {mode: driver.run_simulation(dt, t_init, t_loss, t_sc.fl, 10, mode=mode,
+                                        rounds_per_scan=3, eval_fn=t_acc, eval_batch=ev,
+                                        device="cpu", **kw)[1]
+            for mode in ("scan", "prefetch")}
+    assert runs["scan"].acc_rounds == runs["prefetch"].acc_rounds == lj.acc_rounds == [0, 4, 8, 9]
+    assert runs["scan"].acc == runs["prefetch"].acc
+    np.testing.assert_allclose(runs["scan"].acc, lj.acc, rtol=1e-4)
+    # spans 1 | 3 | 1 | 3 | 1 | 1: block times repeat within a block only
+    w = runs["scan"].wall_ms
+    assert w[1] == w[2] == w[3] and w[5] == w[6] == w[7]
+
+
+def test_scan_with_a_system_config_raises():
+    sc = scenarios.get_scenario("femnist1-fedavg-aocs").reduced()
+    ds = sc.build_dataset(reduced=True)
+    init, loss, _ = sc.build_model(ds)
+    with pytest.raises(NotImplementedError, match="system"):
+        driver.run_simulation(ds, init, loss, sc.fl, 2, mode="scan", system=object(),
+                              device="cpu")
+
+
+def _prefetch_and_host_rank(mesh, rounds):
+    legs = {}
+    for mode in ("host", "prefetch"):
+        params, ledger = driver.run_scenario(SHARD_CELL, reduced=True, rounds=rounds, mesh=mesh,
+                                             mode=mode, device="cpu")
+        legs[mode] = ({k: v.clone() for k, v in params.items()}, _timing_free(ledger))
+    return legs
+
+
+def test_prefetch_on_four_ranks_matches_host():
+    from repro_torch.fl.mesh import spawn_mesh
+
+    ranks = spawn_mesh(_prefetch_and_host_rank, 4, "gloo", 240, device="cpu", args=(2,))
+    for legs in ranks:
+        (ph, dh), (pp, dp) = legs["host"], legs["prefetch"]
+        assert dp == dh == ranks[0]["host"][1]
+        assert dh["workload"]["mesh_axis_size"] == 4
+        for k in ph:
+            assert torch.equal(pp[k], ph[k]) and torch.equal(ph[k], ranks[0]["host"][0][k])

@@ -2,7 +2,7 @@
 
 A reduced femnist workload (8 of 24 clients, 2 local steps, batch 4, 5
 rounds, eval every 2 rounds on a held-out split), the port on the CPU from
-the reference's initial parameters, in both driver modes:
+the reference's initial parameters, in the three driver modes:
 
 * ``bits``, ``sent`` and ``acc_rounds`` are equal (the masks are);
 * ``loss`` and ``acc`` agree to rtol 1e-4, ``alpha``/``gamma`` to rtol 1e-4
@@ -66,7 +66,7 @@ def plain_reference():
     return _reference()
 
 
-@pytest.mark.parametrize("mode", ("prefetch", "host"))
+@pytest.mark.parametrize("mode", ("prefetch", "host", "scan"))
 def test_history_matches_reference(plain_reference, mode):
     p0, hj = plain_reference
     _, ht = _port(p0, mode)
