@@ -87,6 +87,17 @@ nvcc (one process per source, all at once), then:
   (must be 0), one ``cudaGraphLaunch`` per replayed round, and the kernels
   of a replayed round by name in the trace; then rounds/s and the median
   per-round ms of the three modes on both cells;
+* the client-state layer and the sampler zoo at full width:
+  ``femnist1-fedavg-aocs-straggler`` (Markov chains, deadline, dropout, 2x
+  over-selection) for 8 rounds in host, prefetch and scan mode (blocks of
+  4: one replay per round after the capture; the child profiles its
+  prefetch and scan runs too), bitwise across the modes, with deadline
+  misses and dropouts in some round; ``femnist1-fedavg-clustered-markov``
+  run twice, bitwise (no atomics reach ``p``); ``femnist1-fedavg-threshold``
+  in scan mode bitwise its host run; the mesh cells
+  ``femnist1-fedavg-threshold-shard`` and
+  ``femnist1-fedavg-aocs-straggler-shard`` at world size 1 (kernel 2.5 once
+  per round), each bitwise its single-device twin on kernel 2.1;
 * ``femnist1-fedavg-aocs-shard-randk`` on 4 ranks sharing the one card (gloo,
   every rank on ``cuda:0``): each rank's launches, masks equal across ranks,
   the first round's mask equal to the world-size-1 run's and the parameters
@@ -104,7 +115,13 @@ nvcc (one process per source, all at once), then:
   prefill's last logits against the same prefill with the eager cores, and
   takes profiler passes (zamba2's prefill also with the earlier attention
   wiring, which copied q, k, v and out); then the reduced zamba2 in f32 at
-  prompt 2,100 (both kernels, and the SSD's padding) against the CPU;
+  prompt 2,100 (both kernels, and the SSD's padding) against the CPU; the
+  gradient of ``Model.loss`` of ``mamba2-130m-reduced`` and
+  ``zamba2-2.7b-reduced`` (prompt 2,100) under ``loss.backward()`` and
+  ``torch.func.grad`` against the CPU's (within 1e-4 of the gradient's
+  largest entry), with no kernel launched in the gradient passes (the
+  kernels have no backward; a recorded call takes the eager forms) and the
+  kernels launched by the same loss without a gradient;
 * a profiler pass (device ops per round among its numbers) of the main
   path, of the vmap + rand-k + pallas path, of the first slice's path and of
   the mesh round, and a per-layer breakdown of the main path, of the first
@@ -223,6 +240,17 @@ SERVE_BLOCK_MAX, SERVE_BLOCK_RMS = 2.0 ** -6, 2.0 ** -8
 SERVE_LOGIT_RTOL = 5e-2
 REDUCED_ARCH, REDUCED_PROMPT, REDUCED_GEN = "zamba2-2.7b-reduced", 2100, 8
 REDUCED_LOGIT_ATOL = 1e-4     # f32, TF32 off: the card against the CPU
+# the client-state layer and the sampler zoo at full width (femnist1: pool
+# 96, cohort 32, D = 58,430): rounds per run, the scan mode's block
+SYSTEM_CELL = "femnist1-fedavg-aocs-straggler"
+CLUSTERED_CELL = "femnist1-fedavg-clustered-markov"
+THRESHOLD_CELL = "femnist1-fedavg-threshold"
+SYSTEM_SHARD_CELLS = ("femnist1-fedavg-threshold-shard", "femnist1-fedavg-aocs-straggler-shard")
+SYSTEM_ROUNDS, SYSTEM_SCAN_BLOCK = 8, 4
+# the gradient of Model.loss: (arch, batch, prompt); zamba2's prompt reaches
+# the chunked attention (>= CHUNK_THRESHOLD) and pads the SSD.  The card
+# against the CPU within REDUCED_LOGIT_ATOL times the gradient's largest entry
+GRAD_CASES = (("mamba2-130m-reduced", 2, 256), ("zamba2-2.7b-reduced", 1, 2100))
 
 
 def card_line() -> str:
@@ -1693,7 +1721,7 @@ def vmap_scenario():
 
 
 def path_phase(torch, sc, rounds, per_round, out_dir, mode="host", dim=MAIN_DIM,
-               rounds_per_scan=SCAN_BLOCK):
+               rounds_per_scan=SCAN_BLOCK, child_trace=True):
     """One path at full width in driver mode ``mode``: ``rounds`` rounds
     through the kernels (``per_round`` launches each), reproduced bitwise,
     and a reduced run on the card against the CPU.  A sharded cell runs the
@@ -1703,7 +1731,8 @@ def path_phase(torch, sc, rounds, per_round, out_dir, mode="host", dim=MAIN_DIM,
     and the capture's, which launch nothing): the run's device launches are
     its eager round's plus its graph's kernel nodes (:func:`scan_census`)
     times its replays, all read in this run; the child's trace of the same
-    cell's replayed rounds (:func:`mode_profile_report`) must show
+    cell's replayed rounds (:func:`mode_profile_report`, unless
+    ``child_trace`` is false: a cell the child does not profile) must show
     ``per_round`` too.  Returns the device launches of the run, the
     parameters and the ledger."""
     from repro_torch.kernels.ops import tree_leaves
@@ -1767,8 +1796,8 @@ def path_phase(torch, sc, rounds, per_round, out_dir, mode="host", dim=MAIN_DIM,
         suffix = "" if mode == "host" else f"_{mode}"
         (out_dir / f"chip_smoke_ledger_{sc.name}{suffix}.json").write_text(
             json.dumps(doc, indent=1))
-    if mode == "scan":
-        traced = mode_profile_report()["launches"].get(sc.name, {})
+    if mode == "scan" and child_trace:
+        traced = mode_profile_report()["launches"][sc.name]
         print(f"path {label}: device launches per replayed round in the trace of the child's "
               f"scan run ({SCAN_PROFILE_ROUNDS} rounds in blocks of {SCAN_PROFILE_BLOCK}, not "
               f"this run) {traced}")
@@ -2105,10 +2134,13 @@ def mode_profile(torch, dev) -> dict:
                 prof.stop()
         return prof.events(), ledger
 
+    from repro_torch.sim.scenarios import get_scenario
+
     out = {}
     cells = ((main_scenario(), ("host", "prefetch", "scan")),
              (charlm_scenario(), ("host", "prefetch", "scan")),
-             (charlm_scenario("pallas"), ("scan",)))
+             (charlm_scenario("pallas"), ("scan",)),
+             (get_scenario(SYSTEM_CELL), ("prefetch", "scan")))
     for sc, modes in cells:
         ds = sc.build_dataset()
         init_fn, loss_fn, _ = sc.build_model(ds)
@@ -2217,6 +2249,143 @@ def mode_profile_report() -> dict:
           f"{prof['sync_debug_warnings']}")
     _PROFILES["modes_report"] = {"launches": launches, "profile": prof}
     return _PROFILES["modes_report"]
+
+
+def system_phase(torch, out_dir) -> None:
+    """The client-state layer at full width: :data:`SYSTEM_CELL` (Markov
+    chains, deadline, dropout, 2x over-selection) in the three driver modes
+    (``path_phase``: a second run, the CPU's reduced run; in scan mode one
+    replay per round after the capture), bitwise across the modes, with
+    deadline misses and dropouts in some round."""
+    from repro_torch.sim.scenarios import get_scenario
+
+    t0 = time.perf_counter()
+    sc = get_scenario(SYSTEM_CELL)
+    runs = {mode: path_phase(torch, sc, SYSTEM_ROUNDS, {}, out_dir, mode=mode,
+                             rounds_per_scan=SYSTEM_SCAN_BLOCK)
+            for mode in ("host", "prefetch", "scan")}
+    host = runs["host"][2]
+    for mode in ("prefetch", "scan"):
+        same_run(torch, f"{SYSTEM_CELL}: {mode} vs host", runs[mode][1:], runs["host"][1:])
+        if timing_free(runs[mode][2].to_json(True)) != timing_free(host.to_json(True)):
+            raise AssertionError(f"{SYSTEM_CELL}: the {mode} ledger differs from host's")
+    if not any(host.deadline_misses) or not any(host.dropouts):
+        raise AssertionError(f"{SYSTEM_CELL}: no deadline miss or no dropout in "
+                             f"{SYSTEM_ROUNDS} rounds: {host.deadline_misses} {host.dropouts}")
+    print(f"phase system {SYSTEM_CELL}: {host.workload['system']}; over_selected "
+          f"{host.over_selected}, deadline_misses {host.deadline_misses}, dropouts "
+          f"{host.dropouts}, sent {host.sent}; host {host.rounds_per_sec}, prefetch "
+          f"{runs['prefetch'][2].rounds_per_sec}, scan {runs['scan'][2].rounds_per_sec} "
+          f"rounds/s; {time.perf_counter() - t0:.1f} s; {card_line()}")
+
+
+def zoo_phase(torch, out_dir) -> None:
+    """The sampler zoo at full width: :data:`CLUSTERED_CELL` run twice (its
+    cluster sums have a fixed order, so a second run draws the same ``p``
+    and masks), and :data:`THRESHOLD_CELL` (its ``SamplerState`` a buffer of
+    the captured round) in scan mode against host."""
+    from repro_torch.sim.scenarios import get_scenario
+
+    t0 = time.perf_counter()
+    _, _, clustered = path_phase(torch, get_scenario(CLUSTERED_CELL), SYSTEM_ROUNDS, {},
+                                 out_dir, mode="prefetch")
+    sc = get_scenario(THRESHOLD_CELL)
+    host = path_phase(torch, sc, SYSTEM_ROUNDS, {}, out_dir)
+    scan = path_phase(torch, sc, SYSTEM_ROUNDS, {}, out_dir, mode="scan",
+                      rounds_per_scan=SYSTEM_SCAN_BLOCK, child_trace=False)
+    same_run(torch, f"{THRESHOLD_CELL}: scan vs host", scan[1:], host[1:])
+    if timing_free(scan[2].to_json(True)) != timing_free(host[2].to_json(True)):
+        raise AssertionError(f"{THRESHOLD_CELL}: the scan ledger differs from host's")
+    print(f"phase zoo: {CLUSTERED_CELL} two runs bitwise (sent {clustered.sent}); "
+          f"{THRESHOLD_CELL} scan bitwise host (sent {host[2].sent}); "
+          f"{time.perf_counter() - t0:.1f} s; {card_line()}")
+
+
+def system_shard_phase(torch, out_dir) -> dict:
+    """The new mesh cells at world size 1 (NCCL), kernel 2.5 once per
+    round, each bitwise its single-device twin (the same cell unsharded:
+    kernel 2.1 on the same pallas backend).  Returns kernel 2.5's device
+    launches per cell."""
+    from repro_torch.sim.scenarios import get_scenario
+
+    t0 = time.perf_counter()
+    launches = {}
+    for cell in SYSTEM_SHARD_CELLS:
+        sc = get_scenario(cell)
+        twin = sc.with_(name=f"{cell}+single-device", sharded=False)
+        t_run = path_phase(torch, twin, SYSTEM_ROUNDS, {"masked_scale_aggregate": 1}, out_dir)
+        counts, params, ledger = path_phase(torch, sc, SYSTEM_ROUNDS,
+                                            {"sharded_masked_aggregate": 1}, out_dir)
+        same_run(torch, f"{cell} (world size 1) vs {twin.name}", (params, ledger), t_run[1:])
+        launches[cell] = counts["sharded_masked_aggregate"]
+    print(f"phase system shard: kernel 2.5 launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s; {card_line()}")
+    return launches
+
+
+def grad_phase(torch) -> dict:
+    """The gradient of ``Model.loss`` on the card against the CPU's, for each
+    of :data:`GRAD_CASES`, under ``loss.backward()`` and ``torch.func.grad``:
+    the kernels have no backward, so a recorded call takes the eager forms
+    (no kernel launch in the phase), and the gradient is within
+    ``REDUCED_LOGIT_ATOL`` of the CPU's, relative to its largest entry.  The
+    same loss without a gradient launches the kernels.  Returns each
+    kernel's launches in the gradient passes."""
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.kernels.ops import tree_leaves, tree_map
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    total = {"flash_attention": 0, "ssd_scan": 0}
+    for arch, bsz, seq in GRAD_CASES:
+        cfg = get(arch)
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                                   (bsz, seq + 1)))
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+        def grad_of(p, b):
+            return tree_leaves(torch.func.grad(lambda q: model.loss(q, b)[0])(p))
+
+        want = grad_of(params, batch)
+        scale = max(float(w.abs().max()) for w in want)
+        g_params = tree_map(lambda t: t.to(dev), params)
+        g_batch = {k: v.to(dev) for k, v in batch.items()}
+        reset_counts()
+        leaves = tree_map(lambda t: t.clone().requires_grad_(), g_params)
+        model.loss(leaves, g_batch)[0].backward()
+        grads = {"loss.backward()": [t.grad for t in tree_leaves(leaves)],
+                 "torch.func.grad": grad_of(g_params, g_batch)}
+        torch.cuda.synchronize(dev)
+        counts = {k: v for k, v in read_counts().items() if k in total}
+        reset_counts()
+        with torch.inference_mode():
+            model.loss(g_params, g_batch)
+        forward = {k: v for k, v in read_counts().items() if v}
+        errs = {route: max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+                for route, got in grads.items()}
+        print(f"phase grad {arch} (f32, TF32 off, batch {bsz}, prompt {seq}): the card's "
+              f"gradient against the CPU's, max abs diff {errs} (bound {REDUCED_LOGIT_ATOL} x "
+              f"the largest entry {scale}); kernel launches in the gradient passes {counts}, "
+              f"in the same loss without a gradient {forward}; {card_line()}")
+        if any(counts.values()):
+            raise AssertionError(f"{arch}: a recorded gradient launched a kernel: {counts}")
+        if not forward.get("ssd_scan"):
+            raise AssertionError(f"{arch}: the loss without a gradient launched no SSD kernel")
+        if seq >= 2048 and cfg.shared_attn_every and not forward.get("flash_attention"):
+            raise AssertionError(f"{arch}: the loss at prompt {seq} launched no attention kernel")
+        for route, err in errs.items():
+            if not err <= REDUCED_LOGIT_ATOL * scale:
+                raise AssertionError(f"{arch} {route}: the card's gradient differs from the "
+                                     f"CPU's by {err} (bound {REDUCED_LOGIT_ATOL * scale})")
+        for k in total:
+            total[k] += counts[k]
+    print(f"phase grad: {time.perf_counter() - t0:.1f} s; {card_line()}")
+    return total
 
 
 def charlm_eval_phase(torch):
@@ -2712,6 +2881,7 @@ def main() -> int:
     ap.add_argument("--profile", choices=("norm", "ssd", "modes"), default=None,
                     help="only print that profiler pass's JSON (the kernel phases run this)")
     args = ap.parse_args()
+    t_main = time.perf_counter()
 
     import torch
 
@@ -2834,10 +3004,14 @@ def main() -> int:
         args.out)
     same_run(torch, f"{SHARD_CELL} (world size 1) vs {SLICE1_CELL}",
              (shard_params, shard_ledger), (slice1_params, slice1_ledger))
+    system_phase(torch, args.out)
+    zoo_phase(torch, args.out)
+    system_shard_launches = system_shard_phase(torch, args.out)
     mesh4_phase(torch, args.out)
     serves = {arch: serve_phase(torch, dev, arch, gen, per_prefill, args.out)
               for arch, gen, per_prefill in SERVE_PATHS}
     serve_reduced_phase(torch, dev)
+    grad_launches = grad_phase(torch)
     zamba, mamba = (f"{arch} serve" for arch, _, _ in SERVE_PATHS)
     launches = {
         "masked_scale_aggregate": (slice1_counts, SLICE1_CELL),
@@ -2870,6 +3044,10 @@ def main() -> int:
         kernels[k]["scan_child_trace_per_round"] = child[main_sc.name].get(kernels[k]["name"], 0)
     kernels[7]["mamba2_130m_launches"] = serves["mamba2-130m"]["counts"]["ssd_scan"]
     kernels[7]["mamba2_130m_path"] = mamba
+    by_name = {k["name"]: k for k in kernels}
+    by_name["sharded_masked_aggregate"]["system_shard_launches"] = system_shard_launches
+    for name, n in grad_launches.items():
+        by_name[name]["grad_phase_launches"] = n
 
     profile_phase(torch, main_sc, args.out)
     profile_phase(torch, vmap_scenario(), args.out)
@@ -2879,6 +3057,7 @@ def main() -> int:
     breakdown_phase(torch)
     shard_breakdown_phase(torch)
 
+    print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s in all, the builds included")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,7 @@
 
   sampling.optimal_probabilities   — exact Eq. (7)
   sampling.aocs_probabilities      — Algorithm 2
+  sampling.SAMPLERS                — the zoo: also clustered, cyclic, threshold
   ocs.sampling_plan                — norms -> probabilities -> mask -> scale
   ocs.sample_and_aggregate         — one round of sampling + Eq. 2 aggregate
   improvement.improvement_factors  — alpha^k, gamma^k (Defs. 11/12)

@@ -1,6 +1,6 @@
 """Client->master uplink accounting (the paper's x-axis metric).
 
-A copy of ``repro/core/bits.py`` for the paper's samplers: the paper plots
+A copy of ``repro/core/bits.py``: the paper plots
 loss against bits sent from clients to the master, including Algorithm 2's
 overhead (Remark 3: O(j_max) extra floats per client), and excludes the
 master->client broadcast (footnote 5), which the ledger reports apart:
@@ -9,6 +9,8 @@ master->client broadcast (footnote 5), which the ledger reports apart:
   uniform sampling   : |S| * d * bits_per_param            (|S| ~ Binomial)
   OCS (Alg. 1)       : |S| * d * bits + n * f              (norm upload)
   AOCS (Alg. 2)      : |S| * d * bits + n * f * (1 + 2*j_used)
+  clustered          : |S| * d * bits + n * f              (norm upload)
+  cyclic, threshold  : |S| * d * bits   (a fixed schedule; local self-selection)
 
 with f = 32 (one float).  Under a compressor each sent update is billed at
 ``compression.compressed_bits_per_update`` instead of ``d * 32``.
@@ -29,6 +31,9 @@ _OVERHEAD_FLOATS = {
     "uniform": lambda j: 0,
     "optimal": lambda j: 1,
     "aocs": lambda j: 1 + 2 * j,
+    "clustered": lambda j: 1,
+    "cyclic": lambda j: 0,
+    "threshold": lambda j: 0,
 }
 
 
@@ -52,7 +57,7 @@ class BitsLedger:
                    compression: str = "none", compression_param: float = 0.0):
         """Uplink bits for one communication round given the realized mask."""
         if sampler not in _OVERHEAD_FLOATS:
-            raise ValueError(f"unknown or not yet ported sampler {sampler!r}")
+            raise ValueError(f"unknown sampler {sampler!r}")
         per_update = (
             self.update_bits()
             if compression == "none"

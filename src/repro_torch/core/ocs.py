@@ -8,9 +8,9 @@ the same norms and key give bitwise the same mask; ``aggregate_updates`` is
 the swappable heavy contraction (``'jnp'``: per-leaf torch contraction;
 ``'pallas'``: the hand-written CUDA kernel via ``kernels/ops.py``).
 
-Availability enters as the scalar ``q`` of Appendix E; the per-client
-``AvailabilityTrace`` of the reference's system-realism layer comes with that
-slice of the port.
+Availability enters as the scalar ``q`` of Appendix E, or as a per-client
+:class:`AvailabilityTrace` from the client-state layer
+(``sim/pool.py::step_client_state``), which generalises it.
 """
 
 from __future__ import annotations
@@ -47,6 +47,10 @@ class SamplingPlan(NamedTuple):
     ``scale`` is the per-client coefficient of the unbiased estimator
     ``mask_i * w_i / (p_i * q)`` (zero for unsampled clients), so any backend
     realises the aggregate as the single contraction ``sum_i scale_i U_i``.
+    ``selected`` is the Bernoulli draw before deadline and dropout attrition
+    (``mask`` on the scalar-availability paths); ``sampler_state`` the
+    advanced :class:`~repro_torch.core.sampling.SamplerState` of a stateful
+    sampler, ``None`` otherwise.
     """
 
     probs: torch.Tensor
@@ -58,6 +62,25 @@ class SamplingPlan(NamedTuple):
     alpha: torch.Tensor
     gamma: torch.Tensor
     expected_clients: torch.Tensor
+    sampler_state: Any = None
+
+
+class AvailabilityTrace(NamedTuple):
+    """One round's realised client-state availability for the (n,) cohort.
+
+    ``up`` is the Markov chain's state, known before sampling (a down
+    client's norm is zeroed and it is never selected); ``on_time`` and
+    ``kept`` are attrition after selection (a selected client can miss the
+    deadline or drop mid-round).  ``include_prob`` is each client's marginal
+    inclusion probability over the whole process, ``P(up) P(on_time)
+    P(kept)``, which the estimator divides by.  Made by
+    :func:`repro_torch.sim.pool.step_client_state`.
+    """
+
+    up: torch.Tensor            # (n,) bool
+    on_time: torch.Tensor       # (n,) bool
+    kept: torch.Tensor          # (n,) bool
+    include_prob: torch.Tensor  # (n,) f32
 
 
 def client_norms(updates: Any, weights: torch.Tensor) -> torch.Tensor:
@@ -78,29 +101,39 @@ def sampling_plan(
     key: torch.Tensor,
     sampler: str | Callable = "aocs",
     j_max: int = 4,
-    availability: float = 1.0,
+    availability: float | AvailabilityTrace = 1.0,
+    sampler_state: Any = None,
 ) -> SamplingPlan:
     """Norms -> probabilities -> Bernoulli mask -> estimator coefficients.
 
     Inclusion probabilities ``p_i`` (Eq. 7 exact via ``sampler='optimal'``,
-    Alg. 2 via ``'aocs'``, or ``'uniform'``/``'full'``), the independent
+    Alg. 2 via ``'aocs'``, or any other ``SAMPLERS`` entry), the independent
     Bernoulli participation draw (Alg. 1 line 5), partial availability
     (Appendix E, when ``availability < 1``: a split of ``key`` draws who is
     reachable, and unreachable clients get norm 0), the improvement factors
     alpha/gamma (Defs. 11/12), and ``scale_i = mask_i * w_i / (p_i * q)``.
 
+    ``availability`` may instead be an :class:`AvailabilityTrace`: down
+    clients get norm 0, the draw is recorded as ``selected``, the mask is
+    ``selected & on_time & kept``, and the estimator divides by the trace's
+    ``include_prob``.  The trace is drawn outside (from its own fold of the
+    round key), so this path consumes ``key`` exactly as ``availability ==
+    1`` does.  Stateful samplers (``cyclic``, ``threshold``) take
+    ``sampler_state`` (a fresh one when ``None``) and return the advanced
+    state in the plan's ``sampler_state``.
+
     Deterministic in ``key``, which it consumes in the reference's order, so
     the same norms and key give bitwise the reference's mask.
     """
-    if not isinstance(availability, (int, float)):
-        raise NotImplementedError(
-            "an AvailabilityTrace is not ported yet: it lands with the "
-            "system-realism slice of the port"
-        )
     fn = sampling.resolve_sampler(sampler)
     u = norms
     n = u.shape[0]
-    if availability < 1.0:
+    trace = availability if isinstance(availability, AvailabilityTrace) else None
+    if trace is not None:
+        avail = trace.up & trace.on_time & trace.kept
+        u = torch.where(trace.up, u, torch.zeros_like(u))     # down clients never send
+        q = trace.include_prob
+    elif availability < 1.0:
         k_avail, key = rng.split(key)
         avail = rng.bernoulli(k_avail, availability, shape=(n,)).to(u.device)
         u = torch.where(avail, u, torch.zeros_like(u))
@@ -110,10 +143,19 @@ def sampling_plan(
         q = 1.0
     if fn is sampling.aocs_probabilities:
         p = fn(u, m, j_max)
+    elif sampling.is_stateful(fn):
+        if sampler_state is None:
+            sampler_state = sampling.init_sampler_state(u.device)
+        p, sampler_state = fn(u, m, sampler_state)
     else:
         p = fn(u, m)
+        sampler_state = None
     bern = rng.bernoulli(key, torch.clamp(p, 0.0, 1.0), shape=(n,)).to(u.device)
-    mask = bern & avail
+    if trace is not None:
+        selected = bern & trace.up
+        mask = selected & trace.on_time & trace.kept
+    else:
+        selected = mask = bern & avail
     w = weights.to(torch.float32)
     scale = torch.where(mask & (p > _EPS), w / torch.clamp(p * q, min=_EPS),
                         torch.zeros_like(w))
@@ -123,11 +165,12 @@ def sampling_plan(
         mask=mask,
         scale=scale,
         avail=avail,
-        selected=mask,
+        selected=selected,
         norms=u,
         alpha=alpha,
         gamma=gamma,
         expected_clients=torch.sum(p),
+        sampler_state=sampler_state,
     )
 
 

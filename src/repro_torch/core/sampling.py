@@ -1,4 +1,4 @@
-"""Client inclusion-probability rules: the paper's own samplers.
+"""The sampler zoo: client inclusion-probability rules under one contract.
 
 Each rule maps the vector of weighted update norms ``u_i = ||w_i U_i||``
 (shape ``(n,)``, float32) to inclusion probabilities ``p``;
@@ -7,21 +7,52 @@ and unbiased estimator coefficients.  Ported from ``repro/core/sampling.py``
 op for op in float32, so the probabilities agree with the reference to
 float32 rounding:
 
-* ``optimal`` — exact optimal probabilities, Eq. (7);
-* ``aocs``    — the aggregation-only approximation, Algorithm 2;
-* ``uniform`` and ``full`` — the baselines.
+* ``optimal``   — exact optimal probabilities, Eq. (7);
+* ``aocs``      — the aggregation-only approximation, Algorithm 2;
+* ``uniform`` and ``full`` — the baselines;
+* ``clustered`` — one expected representative per cluster of a strided rank
+  partition (arXiv 2105.05883);
+* ``cyclic``    — deterministic participation windows (arXiv 2302.03662);
+* ``threshold`` — adaptive norm threshold (arXiv 2007.15197).
 
 Norm-driven samplers give clients with ``u_i == 0`` probability 0.  The
-reference's zoo baselines (``clustered``, ``cyclic``, ``threshold``) come
-with the system-realism slice of the port and raise ``NotImplementedError``
-here.
+stateful samplers (``cyclic``, ``threshold``) take and return a
+:class:`SamplerState`, which the driver carries from round to round on the
+device.  Every reduction that feeds ``p`` has a fixed order (no atomics),
+so two runs on a card draw the same masks.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 _EPS = 1e-12
+
+# EMA rate of the threshold sampler's running norm-quantile estimate:
+# tau <- (1 - beta) tau + beta target
+THRESHOLD_BETA = 0.2
+# its two coefficients as float32 scalars, as jax rounds the weak Python floats
+_KEEP = float(np.float32(1.0 - THRESHOLD_BETA))
+_BETA = float(np.float32(THRESHOLD_BETA))
+
+
+class SamplerState(NamedTuple):
+    """Cross-round state of the stateful samplers: ``step`` (() int32, the
+    rounds the sampler has seen; the cyclic window derives from it) and
+    ``threshold`` (() f32, the threshold sampler's running estimate tau)."""
+
+    step: torch.Tensor
+    threshold: torch.Tensor
+
+
+def init_sampler_state(device=None) -> SamplerState:
+    """A fresh :class:`SamplerState` on ``device``: round 0, threshold 0
+    (``threshold`` lets every client send on its first round)."""
+    return SamplerState(step=torch.zeros((), dtype=torch.int32, device=device),
+                        threshold=torch.zeros((), dtype=torch.float32, device=device))
 
 
 def optimal_probabilities(u: torch.Tensor, m: int) -> torch.Tensor:
@@ -47,8 +78,7 @@ def optimal_probabilities(u: torch.Tensor, m: int) -> torch.Tensor:
     scale = (m + l - n) / torch.clamp(denom, min=_EPS)
     p_small = u * scale
     # the n - l largest norms get 1; ranks break ties exactly like the sort
-    ranks = torch.empty(n, dtype=torch.int64, device=u.device)
-    ranks[order] = torch.arange(n, device=u.device)
+    ranks = torch.empty_like(order).scatter(0, order, torch.arange(n, device=u.device))
     in_a = ranks >= l
     p = torch.where(in_a, torch.ones_like(p_small), p_small)
     p = torch.clamp(p, 0.0, 1.0)
@@ -93,32 +123,86 @@ def full_probabilities(u: torch.Tensor, m: int) -> torch.Tensor:
     return torch.ones((u.shape[0],), dtype=torch.float32, device=u.device)
 
 
+def clustered_probabilities(u: torch.Tensor, m: int) -> torch.Tensor:
+    """Clustered sampling (arXiv 2105.05883): one representative per cluster.
+
+    Rank the norms descending (a stable sort, as ``jnp.argsort``: ties keep
+    client order) and put rank ``r`` into cluster ``r mod m``; each cluster
+    nominates one expected representative, ``p_i = u_i / sum_{j in
+    cluster(i)} u_j``.  With at least ``m`` non-zero norms every cluster has
+    mass, so ``sum(p) == m``.  The cluster sums are a fixed-order reduction:
+    the descending norms, zero-padded to a multiple of ``m`` and viewed as
+    ``(ceil(n/m), m)`` rows, summed over the rows (the reference's
+    ``segment_sum``, whose CUDA counterpart ``index_add_`` would add with
+    atomics).  ``m`` is a Python int.
+    """
+    n = u.shape[0]
+    order = torch.argsort(-u, stable=True)
+    ranks = torch.empty_like(order).scatter(0, order, torch.arange(n, device=u.device))
+    ordered = torch.nn.functional.pad(u[order], (0, (-n) % m))
+    sums = ordered.view(-1, m).sum(dim=0)
+    denom = sums[ranks % m]
+    p = torch.where(u > _EPS, u / torch.clamp(denom, min=_EPS), torch.zeros_like(u))
+    return torch.clamp(p, 0.0, 1.0)
+
+
+def cyclic_probabilities(u: torch.Tensor, m: int, state: SamplerState) -> tuple:
+    """Cyclic client participation (arXiv 2302.03662): deterministic windows.
+
+    Round ``k`` selects the ``m`` clients from offset ``(k mod ceil(n/m)) *
+    m`` (wrapping modulo ``n``): every client takes part once per cycle of
+    ``ceil(n/m)`` rounds, norm-obliviously, with ``p`` exactly 0 or 1.  The
+    window position comes from ``state.step`` on the device.  Returns ``(p,
+    state advanced one round)``.
+    """
+    n = u.shape[0]
+    n_windows = -(-n // m)
+    pos = state.step % n_windows
+    offsets = (torch.arange(n, dtype=torch.int32, device=u.device) - pos * m) % n
+    p = (offsets < m).to(torch.float32)
+    return p, state._replace(step=state.step + 1)
+
+
+def threshold_probabilities(u: torch.Tensor, m: int, state: SamplerState) -> tuple:
+    """Adaptive norm-threshold selection (Ribero-Vikalo, arXiv 2007.15197).
+
+    Only clients whose norm reaches the running threshold ``tau`` send
+    (``p_i = 1``, zero norms never); ``tau`` is an EMA estimate of the m-th
+    largest norm, ``tau <- (1 - beta) tau + beta * sort(u)[n - m]`` in
+    float32 (beta = :data:`THRESHOLD_BETA`).  From the cold start ``tau =
+    0`` every client sends in round 1, then the sender count anneals toward
+    ``m``.  Returns ``(p, advanced state)``.
+    """
+    n = u.shape[0]
+    p = ((u > _EPS) & (u >= state.threshold)).to(torch.float32)
+    target = torch.sort(u).values[n - m]
+    new_tau = _KEEP * state.threshold + _BETA * target
+    return p, SamplerState(step=state.step + 1, threshold=new_tau)
+
+
 SAMPLERS = {
     "optimal": optimal_probabilities,
     "aocs": aocs_probabilities,
     "uniform": uniform_probabilities,
     "full": full_probabilities,
+    "clustered": clustered_probabilities,
+    "cyclic": cyclic_probabilities,
+    "threshold": threshold_probabilities,
 }
 
-# the reference's zoo baselines; cyclic and threshold carry a SamplerState
-NOT_PORTED = ("clustered", "cyclic", "threshold")
+# samplers whose probability rule takes and returns a SamplerState
 STATEFUL_SAMPLERS = ("cyclic", "threshold")
+_STATEFUL_FNS = (cyclic_probabilities, threshold_probabilities)
 
 
 def resolve_sampler(sampler):
     """Resolve a sampler name (or callable) to its probability function.
 
-    A name of the reference's zoo that this slice does not run raises
-    ``NotImplementedError``; any other unknown name raises ``ValueError``
-    listing ``SAMPLERS``.  Both happen before any key is consumed.
+    Callables pass through; an unknown name raises ``ValueError`` listing
+    ``SAMPLERS``, before any key is consumed.
     """
     if callable(sampler):
         return sampler
-    if sampler in NOT_PORTED:
-        raise NotImplementedError(
-            f"sampler {sampler!r} is not ported yet: it lands with the "
-            f"system-realism and sampler-zoo slice of the port"
-        )
     fn = SAMPLERS.get(sampler)
     if fn is None:
         raise ValueError(
@@ -129,5 +213,8 @@ def resolve_sampler(sampler):
 
 
 def is_stateful(sampler) -> bool:
-    """True iff ``sampler`` names a sampler that carries a sampler state."""
-    return not callable(sampler) and sampler in STATEFUL_SAMPLERS
+    """True iff ``sampler`` (a name or one of this module's callables)
+    carries a :class:`SamplerState`."""
+    if callable(sampler):
+        return sampler in _STATEFUL_FNS
+    return sampler in STATEFUL_SAMPLERS

@@ -28,7 +28,11 @@ engines and backends.
 The step consumes its key exactly as the reference's does
 (``k_sample, k_comp = split(key)``; ``k_sample`` feeds ``sampling_plan``),
 so the same key gives bitwise the reference's mask whenever the norms agree.
-Partial availability (Appendix E) is the scalar ``fl.availability``.
+Partial availability (Appendix E) is the scalar ``fl.availability``, or the
+round's :class:`~repro_torch.core.ocs.AvailabilityTrace` from the
+client-state layer (the step's ``trace`` argument); a stateful sampler's
+:class:`~repro_torch.core.sampling.SamplerState` rides in as
+``sampler_state`` and out in ``RoundMetrics.sampler_state``.
 
 ``local_update`` follows the paper:
   * fedavg: R local SGD steps with lr eta_l, update U_i = x^k - y_{i,R}
@@ -50,7 +54,7 @@ Not ported yet, raising ``NotImplementedError``: the observability step
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 from torch.func import grad_and_value, vmap
@@ -69,8 +73,14 @@ MEMORY_POLICIES = ("vmap", "scan")
 class RoundMetrics(NamedTuple):
     """Per-round observables: loss, alpha/gamma (Defs. 11/12), probs/mask.
 
-    The system-layer counters are zero and ``selected_clients ==
-    sent_clients``: the availability-trace layer is not ported yet.
+    The trailing system-layer counters are zero (and ``selected_clients ==
+    sent_clients``) when the round ran without an
+    :class:`~repro_torch.core.ocs.AvailabilityTrace`: ``selected_clients``
+    is the Bernoulli draw before attrition, ``deadline_misses`` the selected
+    clients that missed the deadline, ``dropouts`` the selected on-time
+    clients lost mid-round.  ``sampler_state`` is a stateful sampler's
+    advanced :class:`~repro_torch.core.sampling.SamplerState` (``None``
+    otherwise), which the caller feeds into the next round.
     """
 
     loss: torch.Tensor
@@ -84,11 +94,17 @@ class RoundMetrics(NamedTuple):
     selected_clients: torch.Tensor
     deadline_misses: torch.Tensor
     dropouts: torch.Tensor
+    sampler_state: Any = None
 
 
-def round_metrics(plan: ocs.SamplingPlan, loss: torch.Tensor) -> RoundMetrics:
-    """The round's :class:`RoundMetrics` from its plan and mean loss."""
-    zero = torch.zeros((), dtype=torch.int32, device=loss.device)
+def round_metrics(plan: ocs.SamplingPlan, loss: torch.Tensor, trace=None) -> RoundMetrics:
+    """The round's :class:`RoundMetrics` from its plan, mean loss and
+    availability trace (``None``: the system counters are zero)."""
+    if trace is None:
+        misses = drops = torch.zeros((), dtype=torch.int32, device=loss.device)
+    else:
+        misses = torch.sum(plan.selected & ~trace.on_time).to(torch.int32)
+        drops = torch.sum(plan.selected & trace.on_time & ~trace.kept).to(torch.int32)
     return RoundMetrics(
         loss=loss,
         alpha=plan.alpha,
@@ -99,8 +115,9 @@ def round_metrics(plan: ocs.SamplingPlan, loss: torch.Tensor) -> RoundMetrics:
         norms=plan.norms,
         mask=plan.mask,
         selected_clients=torch.sum(plan.selected).to(torch.int32),
-        deadline_misses=zero,
-        dropouts=zero,
+        deadline_misses=misses,
+        dropouts=drops,
+        sampler_state=plan.sampler_state,
     )
 
 
@@ -176,7 +193,8 @@ def make_engine(loss_fn: Callable, fl: FLConfig, server_opt=None, *,
                 mesh=None, device=None) -> Callable:
     """Round-step factory: the entry point callers should use.
 
-    Returns ``round_step(params, opt_state, batch, weights, key)``:
+    Returns ``round_step(params, opt_state, batch, weights, key, trace=None,
+    sampler_state=None)``:
 
     * ``mesh=None`` — the single-device :class:`RoundEngine` configured by
       ``fl.round_engine`` x ``fl.agg_backend`` on ``device`` (``None`` means
@@ -202,12 +220,15 @@ def make_engine(loss_fn: Callable, fl: FLConfig, server_opt=None, *,
 class RoundEngine:
     """Builds ``round_step`` for one (memory, backend) pair.
 
-    ``round_step(params, opt_state, batch, weights, key) -> (params,
-    opt_state, RoundMetrics)`` — one communication round of Algorithm 3:
+    ``round_step(params, opt_state, batch, weights, key, trace=None,
+    sampler_state=None) -> (params, opt_state, RoundMetrics)`` — one
+    communication round of Algorithm 3:
     local updates, norms ``u_i = ||w_i U_i||`` (Alg. 1 line 3),
     probabilities ``p_i`` (Eq. 7 exact / Alg. 2 approximate), independent
     Bernoulli participation, and the unbiased masked aggregate (Eq. 2).
-    Every tensor it is given must lie on the engine's device.
+    ``trace`` is the round's :class:`~repro_torch.core.ocs.AvailabilityTrace`
+    (replacing ``fl.availability``), ``sampler_state`` a stateful sampler's
+    carry.  Every tensor it is given must lie on the engine's device.
 
     Defaults come from the config (``fl.round_engine`` / ``fl.agg_backend`` /
     ``fl.scan_group`` / ``fl.cache_groups``); keyword arguments override them
@@ -275,11 +296,14 @@ class RoundEngine:
                     f"{name} lies on {t.device}, the engine runs on {self.device}"
                 )
 
-    def _plan(self, u, weights, k_sample) -> ocs.SamplingPlan:
+    def _plan(self, u, weights, k_sample, trace=None,
+              sampler_state=None) -> ocs.SamplingPlan:
         fl = self.fl
         return ocs.sampling_plan(
             u, weights, fl.cohort_target(), k_sample,
-            sampler=fl.sampler, j_max=fl.j_max, availability=fl.availability,
+            sampler=fl.sampler, j_max=fl.j_max,
+            availability=fl.availability if trace is None else trace,
+            sampler_state=sampler_state,
         )
 
     def _apply_server(self, params, opt_state, aggregate):
@@ -302,7 +326,8 @@ class RoundEngine:
     def _make_vmap_step(self) -> Callable:
         fl = self.fl
 
-        def round_step(params, opt_state, batch, weights, key):
+        def round_step(params, opt_state, batch, weights, key, trace=None,
+                       sampler_state=None):
             self._check_devices(weights, key)
             k_sample, k_comp = rng.split(key)
             updates, losses = self._batched_update(params, batch)
@@ -314,7 +339,8 @@ class RoundEngine:
                 comp_keys = rng.split(k_comp, fl.n_clients)
                 mats = client_compression_material(updates, comp_keys, fl)
                 sendables = client_apply_compression(updates, mats, fl)
-            plan = self._plan(ocs.client_norms(sendables, weights), weights, k_sample)
+            plan = self._plan(ocs.client_norms(sendables, weights), weights, k_sample,
+                              trace, sampler_state)
             if fl.compression == "none":
                 aggregate = ocs.aggregate_updates(updates, plan.scale, backend=self.backend)
             elif self.backend == "pallas":
@@ -331,7 +357,7 @@ class RoundEngine:
             else:
                 aggregate = ocs.aggregate_updates(sendables, plan.scale, backend="jnp")
             new_params, new_opt = self._apply_server(params, opt_state, aggregate)
-            return new_params, new_opt, round_metrics(plan, torch.mean(losses))
+            return new_params, new_opt, round_metrics(plan, torch.mean(losses), trace)
 
         return round_step
 
@@ -343,7 +369,8 @@ class RoundEngine:
         # bounded cache; the n_groups - n_cached beyond it recompute post-plan
         n_cached = update_cache.num_slots(self.cache_groups, n_groups)
 
-        def round_step(params, opt_state, batch, weights, key):
+        def round_step(params, opt_state, batch, weights, key, trace=None,
+                       sampler_state=None):
             self._check_devices(weights, key)
             k_sample, k_comp = rng.split(key)
             # the vmap path's per-client compression keys, re-derived for the
@@ -374,7 +401,8 @@ class RoundEngine:
                 loss_parts.append(losses)
                 if j < n_cached:
                     kops.tree_to_client_matrix(upd, out=cache[j])
-            plan = self._plan(torch.cat(norm_parts), weights, k_sample)
+            plan = self._plan(torch.cat(norm_parts), weights, k_sample, trace,
+                              sampler_state)
             scale_g = plan.scale.reshape(n_groups, g)
 
             # post-plan: one flat f32 (D,) accumulator, group by group; the
@@ -401,6 +429,7 @@ class RoundEngine:
                 agg_flat = agg_flat + part
             aggregate = kops.client_matrix_to_tree(agg_flat, params, strip_client_axis=False)
             new_params, new_opt = self._apply_server(params, opt_state, aggregate)
-            return new_params, new_opt, round_metrics(plan, torch.mean(torch.cat(loss_parts)))
+            return new_params, new_opt, round_metrics(plan, torch.mean(torch.cat(loss_parts)),
+                                                      trace)
 
         return round_step

@@ -16,7 +16,10 @@ its slice of the same ``split(k_comp, n)`` per-client keys the
 single-device engines derive, so the norms (hence the masks, hence the
 uplink bill) are the engines'.  Every rank runs the same
 ``ocs.sampling_plan`` on the gathered norms and weights, so the plan is
-replicated.
+replicated.  The round's :class:`~repro_torch.core.ocs.AvailabilityTrace`
+and a stateful sampler's ``SamplerState`` are replicated too: every rank
+steps the same client state from the same round key (the reference passes
+them in with ``P()``), so no collective carries them.
 
 Eq. 2's aggregate follows ``fl.agg_backend``:
 
@@ -74,10 +77,12 @@ def validate_shard_config(fl: FLConfig, axis_size: int) -> None:
 
 
 def make_shard_map_round(loss_fn: Callable, fl: FLConfig, mesh) -> Callable:
-    """Returns ``round_step(params, opt_state, batch, weights, key) ->
-    (params, opt_state, RoundMetrics)`` for this rank of ``mesh``.
+    """Returns ``round_step(params, opt_state, batch, weights, key,
+    trace=None, sampler_state=None) -> (params, opt_state, RoundMetrics)``
+    for this rank of ``mesh``.
 
-    Called on every rank.  ``params`` and ``key`` are the same on every rank;
+    Called on every rank.  ``params``, ``key``, ``trace`` (the whole
+    cohort's) and ``sampler_state`` are the same on every rank;
     ``batch`` (leaves ``(k, ...)``) and ``weights`` (``(k,)``) are the rank's
     slices of the round's cohort, on ``mesh.device``.  Every rank returns the
     same parameters and metrics.  The config is validated here, before any
@@ -95,7 +100,7 @@ def make_shard_map_round(loss_fn: Callable, fl: FLConfig, mesh) -> Callable:
     k = n // mesh.world_size
     lo = mesh.rank * k
 
-    def round_step(params, opt_state, batch, weights, key):
+    def round_step(params, opt_state, batch, weights, key, trace=None, sampler_state=None):
         for name, t in (("weights", weights), ("key", key)):
             if t.device != mesh.device:
                 raise ValueError(f"{name} lies on {t.device}, the mesh's rank on {mesh.device}")
@@ -119,7 +124,9 @@ def make_shard_map_round(loss_fn: Callable, fl: FLConfig, mesh) -> Callable:
         w_all = mesh.all_gather(weights)
         plan = ocs.sampling_plan(
             u_all, w_all, fl.cohort_target(), k_sample,
-            sampler=fl.sampler, j_max=fl.j_max, availability=fl.availability,
+            sampler=fl.sampler, j_max=fl.j_max,
+            availability=fl.availability if trace is None else trace,
+            sampler_state=sampler_state,
         )
         scale = plan.scale[lo:lo + k]
         if fl.agg_backend == "pallas" and fl.compression != "none":
@@ -139,6 +146,6 @@ def make_shard_map_round(loss_fn: Callable, fl: FLConfig, mesh) -> Callable:
         lr = fl.lr_global
         new_params = kops.tree_map(lambda p, g: p - lr * g.to(p.dtype), params, aggregate)
         loss = mesh.pmean(torch.mean(losses))
-        return new_params, opt_state, round_metrics(plan, loss)
+        return new_params, opt_state, round_metrics(plan, loss, trace)
 
     return round_step

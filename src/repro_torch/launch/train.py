@@ -8,8 +8,10 @@ mode (each round one CUDA-graph replay on a card), and ``--shard on`` runs
 the cell on a client mesh (the mesh round with the sharded ``ClientPool``;
 ``Scenario.sharded`` cells build that mesh themselves, and ``--shard off``
 runs such a cell on one device).  Scan-over-rounds and a mesh are mutually
-exclusive.  ``--sampler`` overrides the cell's client-selection rule.  The
-ledger goes to ``benchmarks/artifacts/sim_torch/{cell}-{mode}.json``, beside
+exclusive.  ``--sampler`` overrides the cell's client-selection rule, and
+``--stragglers SPEC`` / ``--deadline T`` its client-state layer
+(:func:`parse_stragglers`; e.g. ``--stragglers
+p_up=0.35,p_down=0.15,drop=0.1,over=2 --deadline 2.0``).  The ledger goes to ``benchmarks/artifacts/sim_torch/{cell}-{mode}.json``, beside
 (never over) the reference's ``sim/`` ledgers.  ``--device`` is the port's
 own flag: the run is on the GPU unless it says ``cpu``.
 
@@ -21,8 +23,7 @@ own flag: the run is on the GPU unless it says ``cpu``.
 
 Not ported yet, each raising ``NotImplementedError`` with the ROADMAP item
 that brings it: ``--arch`` (the decoder family's training, queue 1 item 5),
-``--stragglers`` and ``--deadline`` (the client-state layer, item 3), and
-``--metrics-port``, ``--diag-every``, ``--obs-jsonl``, ``--trace-dir``,
+and ``--metrics-port``, ``--diag-every``, ``--obs-jsonl``, ``--trace-dir``,
 ``--checkpoint``, ``--ckpt-every`` and ``--resume`` (observability and
 checkpoints, item 4).
 """
@@ -35,8 +36,6 @@ import os
 
 # flag -> the ROADMAP item (queue 1) that brings it
 NOT_PORTED = {
-    "stragglers": "3 (the client-state layer)",
-    "deadline": "3 (the client-state layer)",
     "metrics_port": "4 (observability)",
     "diag_every": "4 (observability)",
     "obs_jsonl": "4 (observability)",
@@ -52,6 +51,49 @@ def _reject_unported(args) -> None:
         if getattr(args, name) is not None:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} is not ported yet (ROADMAP queue 1, item {item})")
+
+
+def parse_stragglers(spec: str | None, deadline: float | None):
+    """``--stragglers``/``--deadline`` -> ``(SystemConfig | None, over_select)``.
+
+    ``spec`` is a comma-separated k=v list over the client-state knobs,
+    ``p_up``, ``p_down``, ``latency_mu``, ``latency_sigma``, ``drop``
+    (``drop_prob``) and ``over`` (``FLConfig.over_select``); ``deadline``
+    is its own flag and composes with the defaults when given alone.
+    Returns ``(None, None)`` when neither flag was passed; a bad entry exits
+    with the reference's message.
+    """
+    if spec is None and deadline is None:
+        return None, None
+    from repro_torch.sim.pool import SystemConfig
+
+    kw, over = {}, None
+    for part in (spec.split(",") if spec else []):
+        if "=" not in part:
+            raise SystemExit(f"--stragglers entry {part!r} is not k=v")
+        k, v = part.split("=", 1)
+        k = k.strip()
+        try:
+            v = float(v)
+        except ValueError:
+            raise SystemExit(f"--stragglers {k}={v!r}: not a number") from None
+        if k == "over":
+            over = v
+        elif k == "drop":
+            kw["drop_prob"] = v
+        elif k in ("p_up", "p_down", "latency_mu", "latency_sigma"):
+            kw[k] = v
+        else:
+            raise SystemExit(
+                f"--stragglers key {k!r} unknown; want p_up, p_down, "
+                f"latency_mu, latency_sigma, drop, over"
+            )
+    if deadline is not None:
+        kw["deadline"] = deadline
+    try:
+        return SystemConfig(**kw), over
+    except ValueError as e:
+        raise SystemExit(f"--stragglers/--deadline: {e}") from None
 
 
 def run_scenario_cli(args):
@@ -74,6 +116,12 @@ def run_scenario_cli(args):
     if args.sampler:
         # --sampler overrides the cell's own rule (the engine validates it)
         sc = sc.with_(fl=dataclasses.replace(sc.fl, sampler=args.sampler))
+    system, over = parse_stragglers(args.stragglers, args.deadline)
+    if system is not None:
+        # the flags replace the cell's own system config; over= rides into
+        # the FLConfig, so the plan over-selects
+        fl = sc.fl if over is None else dataclasses.replace(sc.fl, over_select=over)
+        sc = sc.with_(system=system, fl=fl)
     if args.shard == "off":
         # an explicit off overrides even a Scenario.sharded cell
         sc = sc.with_(sharded=False)
@@ -106,8 +154,12 @@ def run_scenario_cli(args):
         if mesh is not None:
             mesh.close()
     for k, (loss, sent) in enumerate(zip(ledger.loss, ledger.sent)):
+        sys_col = ""
+        if effective.system is not None:
+            sys_col = (f"sel {ledger.over_selected[k]} miss {ledger.deadline_misses[k]} "
+                       f"drop {ledger.dropouts[k]} ")
         print(f"[round {k:3d}] loss {loss:.4f} alpha {ledger.alpha[k]:.3f} "
-              f"sent {sent}/{ledger.fl['n_clients']} "
+              f"sent {sent}/{ledger.fl['n_clients']} {sys_col}"
               f"up {ledger.uplink_bits[k] / 1e9:.2f}G down {ledger.downlink_bits[k] / 1e9:.2f}G")
     print(f"[sim] {ledger.rounds_per_sec:.1f} rounds/s (steady-state), artifact {artifact}")
     return ledger
@@ -130,8 +182,14 @@ def main(argv=None):
     ap.add_argument("--sampler", default=None,
                     choices=["optimal", "aocs", "uniform", "full",
                              "clustered", "cyclic", "threshold"],
-                    help="override the scenario's client-selection rule (clustered, "
-                         "cyclic and threshold are not ported yet: they raise)")
+                    help="override the scenario's client-selection rule")
+    ap.add_argument("--stragglers", default=None, metavar="SPEC",
+                    help="client-state layer spec, comma-separated k=v over p_up, p_down, "
+                         "latency_mu, latency_sigma, drop (drop_prob), over (over_select) "
+                         "— e.g. 'p_up=0.35,p_down=0.15,drop=0.1,over=2'")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="round deadline in latency units (enables the client-state "
+                         "layer; composes with --stragglers)")
     ap.add_argument("--shard", default="auto", choices=["auto", "on", "off"],
                     help="run on a client mesh (auto: the scenario's own setting)")
     ap.add_argument("--device", default=None,

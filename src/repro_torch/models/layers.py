@@ -8,7 +8,10 @@ drop in unchanged.
 ``apply_*`` are plain functions of tensors.  ``chunked_attention`` routes by
 device: a CUDA tensor runs the hand-written flash-attention kernel
 (``kernels/ops.py::flash_attention``), a CPU tensor the reference's blocked
-online-softmax algorithm in eager torch.
+online-softmax algorithm in eager torch.  The kernels have no backward, as
+in the reference, whose models never differentiate a Pallas kernel: a call
+that autograd would record (:func:`autograd_records`) runs the eager form
+on either device.
 """
 
 from __future__ import annotations
@@ -99,6 +102,18 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig):
     }
 
 
+def autograd_records(*tensors) -> bool:
+    """True when autograd would record an op on ``tensors``: grad mode is
+    on and one of them requires grad, or one is a ``torch.func`` wrapper
+    (under ``grad``, ``vjp`` or ``vmap``).  The model routes such a call to
+    the eager form, which is differentiable, and every other CUDA call to
+    its kernel: ``no_grad`` and ``inference_mode`` (serving) launch it."""
+    wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+    if any(wrapped(t) for t in tensors):
+        return True
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
     return x.reshape(x.shape[:-1] + (n_heads, head_dim))
 
@@ -115,10 +130,11 @@ def chunked_attention(q, k, v, *, window=None, prefix=0, block_q=512, block_k=51
 
     q, k, v: (B, S, H, hd) with kv heads already repeated; returns
     (B, S, H, hd).  On a CUDA tensor it runs the flash-attention kernel
-    (:func:`flash_attention_heads`, output in q's dtype); on a CPU tensor the
+    (:func:`flash_attention_heads`, output in q's dtype); on a CPU tensor, or
+    when autograd records the call (:func:`autograd_records`), the
     reference's blocked algorithm (:func:`chunked_attention_eager`, f32).
     """
-    if q.is_cuda:
+    if q.is_cuda and not autograd_records(q, k, v):
         return flash_attention_heads(q, k, v, window=window, prefix=prefix)
     return chunked_attention_eager(q, k, v, window=window, prefix=prefix,
                                    block_q=block_q, block_k=block_k)

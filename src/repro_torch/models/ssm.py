@@ -7,7 +7,10 @@ state.  The chunked core (:func:`ssd_chunked`) routes by device: a CUDA
 tensor runs the hand-written SSD scan kernel (``kernels/ops.py::ssd_scan_heads``)
 on the model's own views, a CPU tensor the reference's two
 eager forms (:func:`ssd_chunked_eager`: one pass over chunks when there are
-more than 64 of them, batched chunks otherwise).  Decode is the one-token
+more than 64 of them, batched chunks otherwise).  The kernel has no
+backward: a call that autograd would record
+(:func:`~repro_torch.models.layers.autograd_records`) runs the eager forms
+on either device, as the reference differentiates its jnp forms.  Decode is the one-token
 recurrence, in eager torch.
 """
 
@@ -18,7 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import _dense_init
+from repro_torch.models.layers import _dense_init, autograd_records
 
 
 def dims(cfg: ModelConfig):
@@ -74,9 +77,9 @@ def ssd_chunked(xs, bmat, cmat, dt, da, chunk: int) -> tuple:
     """The chunked SSD core.  xs (B,S,H,P) and bmat, cmat (B,S,N) in the
     model's dtype, dt and da (B,S,H) f32, S a multiple of ``chunk`` ->
     (y (B,S,H,P) f32, final state (B,H,P,N) f32).  On a CUDA tensor the SSD
-    scan kernel (:func:`ssd_scan_heads`); on a CPU tensor
-    :func:`ssd_chunked_eager`."""
-    if xs.is_cuda:
+    scan kernel (:func:`ssd_scan_heads`); on a CPU tensor, or when autograd
+    records the call, :func:`ssd_chunked_eager`."""
+    if xs.is_cuda and not autograd_records(xs, bmat, cmat, dt, da):
         return ssd_scan_heads(xs, bmat, cmat, dt, da, chunk)
     return ssd_chunked_eager(xs, bmat, cmat, dt, da, chunk)
 

@@ -170,3 +170,11 @@ def normal(key: torch.Tensor, shape=()) -> torch.Tensor:
     float32 rounding rather than bitwise."""
     u = uniform(key, shape, _NORMAL_LO, 1.0)
     return erfinv(u) * _SQRT2
+
+
+def exponential(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.exponential`` in float32: ``-log1p(-u)`` for ``u``
+    uniform on ``[0, 1)``.  The uniform draw is bitwise; ``log1p`` may differ
+    from XLA's in the last bit, so this agrees with the reference to float32
+    rounding rather than bitwise."""
+    return -torch.log1p(-uniform(key, shape))

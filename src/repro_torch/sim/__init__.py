@@ -1,6 +1,6 @@
-"""Simulation subsystem: the multi-round driver (host and prefetch modes),
-the device-resident client pool, the schema-3 ledger, and the registry of
-the scenario cells the port runs."""
+"""Simulation subsystem: the multi-round driver (host, prefetch and scan
+modes), the device-resident client pool and the client-state layer, the
+schema-3 ledger, and the registry of the scenario cells."""
 
 from repro_torch.sim.driver import (  # noqa: F401
     SimLedger,

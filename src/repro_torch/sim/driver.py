@@ -47,8 +47,19 @@ pool's rows) only its block of the cohort.  The ledger is the same on every
 rank.  ``'scan'`` with a mesh raises ``ValueError``, as in the reference:
 the mesh round cannot run inside a block of rounds.
 
-Not ported yet: telemetry (``obs``), checkpoint/resume and the client-state
-layer (``system``); each raises ``NotImplementedError``.
+A ``system`` (:class:`~repro_torch.sim.pool.SystemConfig`) switches on the
+client-state layer: Markov availability chains over the whole pool,
+initialised from ``fold_in(key, 2)`` and stepped each round from the round
+key (``sim/pool.py::step_client_state``), whose
+:class:`~repro_torch.core.ocs.AvailabilityTrace` replaces the scalar
+``fl.availability`` in the round step; the ledger then counts the
+selected-before-attrition clients, deadline misses and dropouts.  A stateful
+sampler's ``SamplerState`` rides from round to round too.  Both stay on the
+device in every mode (in scan mode as in-place buffers of the captured
+round), and on a mesh every rank steps the same state.
+
+Not ported yet: telemetry (``obs``) and checkpoint/resume; each raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -65,12 +76,13 @@ import torch.distributed as dist
 
 from repro_torch import rng as trng
 from repro_torch._device import resolve_device, upload
+from repro_torch.core.sampling import init_sampler_state, is_stateful
 from repro_torch.fl.engine import make_engine
 from repro_torch.fl.mesh import ClientMesh, local_client_mesh
 from repro_torch.fl.round import client_weights, round_bits_duplex
 from repro_torch.fl.shard_round import validate_shard_config
 from repro_torch.kernels.ops import tree_leaves, tree_map
-from repro_torch.sim.pool import ClientPool, claim_batch
+from repro_torch.sim.pool import ClientPool, claim_batch, init_client_state, step_client_state
 from repro_torch.sim.scenarios import get_scenario
 
 SIM_SCHEMA = 3
@@ -92,7 +104,7 @@ class SimLedger:
     """Structured metrics ledger of one simulation run (artifact schema 3).
 
     Per-round series (``LEDGER_SERIES``; the system-layer counters are zeros
-    in this slice, and ``wall_ms`` is each round's time on the monotonic
+    without a ``system``, and ``wall_ms`` is each round's time on the monotonic
     clock: ending in a device sync in host mode, the dispatch cadence after
     the first round under prefetch), the sparse gap series (empty: no gap
     estimator yet), the eval curve and the run's throughput.
@@ -273,7 +285,7 @@ def _sync(device: torch.device) -> None:
 
 # the RoundMetrics fields the ledger reads; the scan mode keeps them per round
 LEDGER_FIELDS = ("loss", "alpha", "gamma", "sent_clients", "expected_clients",
-                 "selected_clients", "mask", "norms")
+                 "selected_clients", "deadline_misses", "dropouts", "mask", "norms")
 
 
 def _tensors(tree) -> list:
@@ -300,9 +312,12 @@ class _ScanRounds:
     advance in the body, so a round takes no host value.  The body gathers
     the round's batch from the pool (``ClientPool.gather_packed``), takes
     the weights from the cohort (``weights_of``) and the key from the row,
-    runs ``round_step``, copies the new parameters and optimizer state into
-    ``params`` / ``opt_state`` (clones of the run's initial ones) and writes
-    the round's metrics into ``out[name][index]``.
+    steps the client state (with a ``system``; the reference's scan carry)
+    from that key to the round's trace, runs ``round_step``, copies the new
+    parameters, optimizer state, client state and sampler state into
+    ``params`` / ``opt_state`` / ``client_state`` / ``sampler_state``
+    (clones of the run's initial ones) and writes the round's metrics into
+    ``out[name][index]``.
 
     On the CPU each :meth:`step` runs the body eagerly.  On a card the first
     runs it eagerly on a side stream (the capture's warm-up: lazy set-up,
@@ -313,11 +328,15 @@ class _ScanRounds:
     """
 
     def __init__(self, pool, round_step, weights_of, params, opt_state, rounds: int,
-                 rows: int):
+                 rows: int, system=None, client_state=None, sampler_state=None):
         dev = pool.device
         self.pool, self.round_step, self.weights_of = pool, round_step, weights_of
         self.params = tree_map(torch.clone, params)
         self.opt_state = opt_state if opt_state == () else tree_map(torch.clone, opt_state)
+        self.system = system
+        self.client_state, self.sampler_state = (
+            None if st is None else type(st)(*map(torch.clone, st))
+            for st in (client_state, sampler_state))
         self.rounds, self.rows = rounds, rows
         self.block = self.layout = None
         self.slot = torch.zeros((1,), dtype=torch.int64, device=dev)
@@ -372,14 +391,24 @@ class _ScanRounds:
 
     def _body(self) -> None:
         row = self.block.index_select(0, self.slot).view(-1)
-        plan, key = row[:-2], row[-2:]
+        plan, key = row[:-2], row[-2:].to(torch.int64) & 0xFFFFFFFF
+        clients = self.layout.rows(plan)
         batch = self.pool.gather_packed(plan, self.layout)
+        trace = client_state = None
+        if self.client_state is not None:
+            client_state, trace = step_client_state(self.client_state, key, clients,
+                                                    self.system)
         params, opt_state, metrics = self.round_step(
-            self.params, self.opt_state, batch, self.weights_of(self.layout.rows(plan)),
-            key.to(torch.int64) & 0xFFFFFFFF)
-        for dst, src in zip(_tensors(self.params) + _tensors(self.opt_state),
-                            _tensors(params) + _tensors(opt_state)):
-            dst.copy_(src)
+            self.params, self.opt_state, batch, self.weights_of(clients), key, trace,
+            self.sampler_state)
+        dst = _tensors(self.params) + _tensors(self.opt_state)
+        src = _tensors(params) + _tensors(opt_state)
+        if client_state is not None:
+            dst, src = dst + list(self.client_state), src + list(client_state)
+        if self.sampler_state is not None:
+            dst, src = dst + list(self.sampler_state), src + list(metrics.sampler_state)
+        for d, s in zip(dst, src):
+            d.copy_(s)
         if self.out is None:
             self.out = {name: torch.empty((self.rounds,) + tuple(getattr(metrics, name).shape),
                                           dtype=getattr(metrics, name).dtype,
@@ -443,9 +472,20 @@ def run_simulation(
     slowest rank's) and records ``workload["mesh_axis_size"]``; ``'scan'``
     with a mesh raises ``ValueError``.  ``artifact`` (a path) serialises the
     ledger on completion (rank 0 only).
+
+    ``system`` (a :class:`~repro_torch.sim.pool.SystemConfig`) runs the
+    client-state layer (module docstring); it and a scalar
+    ``fl.availability < 1`` are mutually exclusive (``ValueError``, as in
+    the reference), and the ledger's workload records it.
     """
-    _reject_unported(mode, mesh, rounds_per_scan, system=system,
-                     obs=obs, checkpoint=checkpoint, resume=resume)
+    _reject_unported(mode, mesh, rounds_per_scan, obs=obs, checkpoint=checkpoint,
+                     resume=resume)
+    if system is not None and fl.availability < 1.0:
+        raise ValueError(
+            "system config and scalar fl.availability < 1 are mutually "
+            "exclusive: the availability trace generalizes Appendix E's "
+            "Bernoulli(q) — encode q as SystemConfig(p_up=q, p_down=1-q)"
+        )
     if fl.n_clients > dataset.n_clients:
         raise ValueError(
             f"FLConfig.n_clients={fl.n_clients} exceeds the dataset's client "
@@ -469,6 +509,12 @@ def run_simulation(
     params = init_fn(trng.fold_in(key, 1))
     dim = sum(leaf.numel() for leaf in tree_leaves(params))
     opt_state = server_opt.init(params) if server_opt is not None else ()
+    # the client-state chains over the whole pool, from their own fold (the
+    # parameters take fold 1, the rounds 1000 + k)
+    state = None
+    if system is not None:
+        state = init_client_state(dataset.n_clients, system, trng.fold_in(key, 2))
+    samp = init_sampler_state(dev) if is_stateful(fl.sampler) else None
     sizes = np.asarray(dataset.sizes())
     uniform_w = client_weights(fl, device=dev)
     if eval_batch is not None:
@@ -502,7 +548,13 @@ def run_simulation(
             batch = {bk: torch.as_tensor(v[lo:lo + k_local], device=dev)
                      for bk, v in batch.items()}
             kk = trng.fold_in(key, 1000 + k)
-            params, opt_state, metrics = round_step(params, opt_state, batch, w, kk)
+            trace = None
+            if state is not None:
+                state, trace = step_client_state(state, kk, upload(clients, dev), system)
+            params, opt_state, metrics = round_step(params, opt_state, batch, w, kk, trace,
+                                                    samp)
+            if samp is not None:
+                samp = metrics.sampler_state
             dev_metrics.append(metrics)
             if want_eval(k):
                 dev_evals.append((k, eval_fn(params, eval_batch)))
@@ -516,22 +568,29 @@ def run_simulation(
         pool = ClientPool(dataset, mesh=mesh, device=dev)
 
         def draw_round(k):
-            # called strictly in round order: the host RNG and the keys are
-            # consumed as in the host loop, only earlier
+            # called strictly in round order: the host RNG, the keys and the
+            # client-state chain advance as in the host loop, only earlier
+            nonlocal state
             clients = draw_cohort()
             plan = pool.plan(rng, clients, fl.local_steps, batch_size, local_epoch)
-            return (pool.gather(plan), cohort_weights(clients), trng.fold_in(key, 1000 + k))
+            kk = trng.fold_in(key, 1000 + k)
+            trace = None
+            if state is not None:
+                state, trace = step_client_state(state, kk, upload(plan.clients, dev), system)
+            return pool.gather(plan), cohort_weights(clients), kk, trace
 
         nxt = draw_round(0)
         for k in range(rounds):
             t_round = time.perf_counter()
-            (batch, ready), w, kk = nxt
+            (batch, ready), w, kk, trace = nxt
             if k + 1 < rounds:
                 # double buffering: round k+1's plan is drawn and its gather
                 # dispatched before round k's step is
                 nxt = draw_round(k + 1)
             params, opt_state, metrics = round_step(
-                params, opt_state, claim_batch(batch, ready), w, kk)
+                params, opt_state, claim_batch(batch, ready), w, kk, trace, samp)
+            if samp is not None:
+                samp = metrics.sampler_state
             dev_metrics.append(metrics)
             if want_eval(k):
                 dev_evals.append((k, eval_fn(params, eval_batch)))
@@ -553,7 +612,7 @@ def run_simulation(
             def weights_of(clients):
                 return uniform_w
         scan = _ScanRounds(pool, round_step, weights_of, params, opt_state, rounds,
-                           min(rounds_per_scan, rounds))
+                           min(rounds_per_scan, rounds), system, state, samp)
         host_key = trng.PRNGKey(seed, device="cpu")
         done = 0
         while done < rounds:
@@ -607,6 +666,7 @@ def run_simulation(
             **({"rounds_per_scan": rounds_per_scan} if mode == "scan" else {}),
             **({"pool_bytes": pool.nbytes} if pool is not None else {}),
             **({"mesh_axis_size": mesh.world_size} if mesh is not None else {}),
+            **({"system": dataclasses.asdict(system)} if system is not None else {}),
         },
     )
 
@@ -617,9 +677,10 @@ def run_simulation(
 
     masks = rows("mask").astype(bool)
     up_total = down_total = 0
-    for i, (loss, alpha, gamma, sent, expected, selected) in enumerate(zip(
+    for i, (loss, alpha, gamma, sent, expected, selected, misses, drops) in enumerate(zip(
         rows("loss"), rows("alpha"), rows("gamma"), rows("sent_clients"),
-        rows("expected_clients"), rows("selected_clients"),
+        rows("expected_clients"), rows("selected_clients"), rows("deadline_misses"),
+        rows("dropouts"),
     )):
         up, down = round_bits_duplex(fl, dim, masks[i])
         up_total += int(up)
@@ -630,8 +691,8 @@ def run_simulation(
         ledger.sent.append(int(sent))
         ledger.expected_clients.append(float(expected))
         ledger.over_selected.append(int(selected))
-        ledger.deadline_misses.append(0)
-        ledger.dropouts.append(0)
+        ledger.deadline_misses.append(int(misses))
+        ledger.dropouts.append(int(drops))
         ledger.uplink_bits.append(up_total)
         ledger.downlink_bits.append(down_total)
         ledger.wall_ms.append(float(wall_ms[i]))

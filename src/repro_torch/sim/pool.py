@@ -31,22 +31,41 @@ local row (the cohort's order is untouched), each rank gathers the
 positions it owns from its block (the others read row 0 and are zeroed),
 and one :meth:`~repro_torch.fl.mesh.ClientMesh.reduce_scatter` hands each
 rank its ``(n / world_size, R, b, ...)`` block of the cohort (the
-reference's ``psum_scatter``).  The client-state layer (``SystemConfig``,
-``ClientState``) comes with the system-realism slice.
+reference's ``psum_scatter``).
+
+**The client-state layer** (:class:`SystemConfig`, :class:`ClientState`,
+:func:`init_client_state`, :func:`step_client_state`): a two-state Markov
+availability chain per pool client, a fixed lognormal latency scale with an
+Exponential report time per round against a deadline, and mid-round
+dropout.  Each round's step draws from ``fold_in(round_key, STATE_FOLD)``
+with the reference's keys, so ``up`` and ``kept`` are bitwise the
+reference's; the latency draws go through ``exp`` and ``log1p`` and agree to
+float32 rounding.  The state lives on the device and is never read back.
 """
 
 from __future__ import annotations
 
+import math
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch import rng as trng
 from repro_torch._device import resolve_device
+from repro_torch.core.ocs import AvailabilityTrace
 
-# fold constant deriving the client-state key from the round key (the
-# reference's; the client-state layer that consumes it is not ported yet)
+# fold constant deriving the client-state key from the round key: a stream
+# disjoint from the engines' split(key), so the client state never perturbs
+# the sampling and compression draws
 STATE_FOLD = 7
+
+
+def _f32(x: float) -> float:
+    """A Python float rounded once to float32, as jax rounds a weak-typed
+    scalar before it meets a float32 array."""
+    return float(np.float32(x))
 
 
 class RoundPlan(NamedTuple):
@@ -255,6 +274,117 @@ class ClientPool:
                 v = v.masked_fill(other.view((-1,) + (1,) * (v.dim() - 1)), 0)
                 batch[k] = self.mesh.reduce_scatter(v)
         return batch
+
+
+@dataclass(frozen=True)
+class SystemConfig:
+    """System-realism knobs of the client-state layer (the reference's).
+
+    ``p_up``/``p_down`` drive each client's two-state Markov availability
+    chain (P(down->up), P(up->down)); its stationary distribution is ``pi =
+    p_up / (p_up + p_down)``, and Appendix E's i.i.d. Bernoulli(q) is the
+    degenerate case ``p_up = q, p_down = 1 - q`` (the transition then
+    ignores the current state bitwise).  ``latency_mu``/``latency_sigma``
+    give every client a fixed lognormal latency scale; each round's report
+    time is an Exponential draw at that scale, and a selected client misses
+    the round iff it exceeds ``deadline`` (``None``: no deadline).
+    ``drop_prob`` is the i.i.d. mid-round dropout probability.
+    """
+
+    p_up: float = 1.0
+    p_down: float = 0.0
+    latency_mu: float = 0.0
+    latency_sigma: float = 0.0
+    deadline: float | None = None
+    drop_prob: float = 0.0
+
+    def __post_init__(self):
+        for name in ("p_up", "p_down", "drop_prob"):
+            v = getattr(self, name)
+            if not 0.0 <= v <= 1.0:
+                raise ValueError(f"{name} must be in [0, 1], got {v}")
+        if self.drop_prob >= 1.0:
+            raise ValueError("drop_prob must be < 1 (some client must survive)")
+        if self.deadline is not None and self.deadline <= 0.0:
+            raise ValueError(f"deadline must be > 0, got {self.deadline}")
+        if self.latency_sigma < 0.0:
+            raise ValueError(f"latency_sigma must be >= 0, got {self.latency_sigma}")
+
+    def stationary(self) -> float:
+        """Stationary up-probability ``pi = p_up / (p_up + p_down)``; 1.0 for
+        the frozen all-up chain (``p_up = p_down = 0``)."""
+        s = self.p_up + self.p_down
+        return self.p_up / s if s > 0.0 else 1.0
+
+
+class ClientState(NamedTuple):
+    """Per-client system state over the pool's ``(pool,)`` client axis, on
+    the device: ``up`` (bool) the chain's state entering the next round,
+    ``lat_scale`` (f32) the client's fixed mean report latency."""
+
+    up: torch.Tensor
+    lat_scale: torch.Tensor
+
+
+def init_client_state(n: int, cfg: SystemConfig, key: torch.Tensor) -> ClientState:
+    """The chain at stationarity, ``up ~ Bernoulli(pi)``, and the latency
+    scales ``exp(latency_mu + latency_sigma * N(0, 1))``, both from ``key``
+    (on its device)."""
+    k_up, k_lat = trng.split(key)
+    up = trng.uniform(k_up, (n,)) < _f32(cfg.stationary())
+    lat_scale = torch.exp(_f32(cfg.latency_mu) + _f32(cfg.latency_sigma) * trng.normal(k_lat, (n,)))
+    return ClientState(up=up, lat_scale=lat_scale)
+
+
+def step_client_state(state: ClientState, round_key: torch.Tensor, clients: torch.Tensor,
+                      cfg: SystemConfig) -> tuple:
+    """Advance every chain one round and return ``(state, trace)``, the
+    :class:`~repro_torch.core.ocs.AvailabilityTrace` of the cohort
+    ``clients`` (a device tensor of pool rows).
+
+    All randomness comes from ``fold_in(round_key, STATE_FOLD)``, split
+    three ways as the reference does.  The transition is one uniform
+    threshold per client, ``u >= p_down`` if up else ``u >= 1 - p_up``, each
+    threshold a float32 scalar rounded once from the Python float, so the
+    degenerate chain ``p_up + p_down = 1`` gives the same ``u >= 1 - q``
+    from either state, bitwise.  ``include_prob = pi (1 - drop_prob)
+    P(on_time)`` keeps the Eq. 2 estimator unbiased.  Every op runs on the
+    key's device and reads nothing back, so a CUDA graph can replay it.
+    """
+    n = state.up.shape[0]
+    k_up, k_lat, k_drop = trng.split(trng.fold_in(round_key, STATE_FOLD), 3)
+    u = trng.uniform(k_up, (n,))
+    up = torch.where(state.up, u >= _f32(cfg.p_down), u >= _f32(1.0 - cfg.p_up))
+    if cfg.deadline is None:
+        on_time = torch.ones((n,), dtype=torch.bool, device=u.device)
+        p_on = torch.ones((n,), dtype=torch.float32, device=u.device)
+    else:
+        lat = state.lat_scale * trng.exponential(k_lat, (n,))
+        on_time = lat <= _f32(cfg.deadline)
+        # -deadline / scale as a float32 division (torch's scalar / tensor
+        # is a reciprocal and a product)
+        neg = torch.full_like(state.lat_scale, -_f32(cfg.deadline))
+        p_on = 1.0 - torch.exp(neg / torch.clamp(state.lat_scale, min=1e-12))
+    if cfg.drop_prob > 0.0:
+        kept = trng.uniform(k_drop, (n,)) >= _f32(cfg.drop_prob)
+    else:
+        kept = torch.ones((n,), dtype=torch.bool, device=u.device)
+    include = _f32(cfg.stationary() * (1.0 - cfg.drop_prob)) * p_on
+    c = clients.long()
+    trace = AvailabilityTrace(up=up[c], on_time=on_time[c], kept=kept[c],
+                              include_prob=include[c])
+    return ClientState(up=up, lat_scale=state.lat_scale), trace
+
+
+def expected_survivors(cfg: SystemConfig, m: int, over_select: float = 1.0) -> float:
+    """E[#reporting clients] of an over-selected plan at the median latency
+    scale, ``round(m * over_select) * pi * P(on_time) * (1 - drop_prob)``: a
+    planning aid for ``over_select``, not part of the estimator."""
+    m_eff = max(1, int(round(m * over_select)))
+    p_on = 1.0
+    if cfg.deadline is not None:
+        p_on = 1.0 - math.exp(-cfg.deadline / math.exp(cfg.latency_mu))
+    return m_eff * cfg.stationary() * p_on * (1.0 - cfg.drop_prob)
 
 
 def claim_batch(batch: dict, ready) -> dict:

@@ -1,10 +1,8 @@
-"""Scenario registry: the cells of the paper's Sec. 4 grid that the port runs.
+"""Scenario registry: the paper's Sec. 4 experiment grid as named configs.
 
-A copy of the reference's registry (``repro/sim/scenarios.py``) restricted
-to what the port can run so far — the MLP and char-LM cells on the vmap and
-scan engines and on the mesh round, with or without compression, without
-the client-state layer — with field values identical to the reference's, so
-one name means one run in both packages:
+A copy of the reference's registry (``repro/sim/scenarios.py``), all 46
+cells, with field values identical to the reference's, so one name means
+one run in both packages:
 
 * ``femnist{1,2,3}-fedavg-{full,aocs,uniform}`` (Sec. 4.2, Figs. 3-5)
 * ``femnist1-dsgd-{optimal,uniform}`` (Sec. 4.1)
@@ -16,10 +14,15 @@ one name means one run in both packages:
 * ``femnist1-fedavg-aocs-pallas`` (the Eq. 2 aggregate on the CUDA kernel)
 * ``femnist1-fedavg-aocs-shard``, ``-shard-randk``, ``-shard-q0.7-natural``
   (the mesh round, ``sharded=True``)
+* the system-realism column (``system=``, the client-state layer): Markov
+  availability (``-markov``, ``-markov-iid``), deadlines with over-selection
+  (``-deadline``), dropout (``-dropout``) and their combination
+  (``-straggler``, also ``-scan`` and ``-shard``), on femnist, charlm and
+  cifar cells
+* the sampler-zoo column: ``clustered``, ``cyclic`` and ``threshold``, alone
+  and under the system layer, compression, the scan engine and the mesh
 
-Any other name raises ``KeyError``: a reference cell not ported yet (among
-the sharded ones, the straggler, threshold and cyclic cells, which need the
-client-state layer and the sampler zoo), or an unknown one.
+Any other name raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import dataclasses
 from dataclasses import dataclass, field
 
 from repro_torch.configs.base import FLConfig
+from repro_torch.sim.pool import SystemConfig
 
 
 @dataclass(frozen=True)
@@ -38,8 +42,8 @@ class Scenario:
     ``charlm``, ``cifar``); ``dataset_kw`` overrides its defaults; ``paper`` records the
     section/figure the cell reproduces.  ``sharded`` cells run the mesh round
     (``run_scenario`` builds a mesh with ``build_client_mesh`` when none is
-    given).  ``system`` keeps the reference's field and is always ``None`` in
-    this slice.
+    given).  ``system`` cells (a :class:`~repro_torch.sim.pool.SystemConfig`)
+    run under the client-state layer.
     """
 
     name: str
@@ -51,7 +55,7 @@ class Scenario:
     seed: int = 1
     paper: str = ""
     sharded: bool = False
-    system: None = None
+    system: SystemConfig | None = None
     dataset_kw: dict = field(default_factory=dict)
 
     def with_(self, **kw) -> "Scenario":
@@ -128,13 +132,12 @@ def register(scenario: Scenario) -> Scenario:
 
 
 def get_scenario(name: str) -> Scenario:
-    """Look up a registered scenario; the error names every ported one."""
+    """Look up a registered scenario; the error names every registered one."""
     try:
         return SCENARIOS[name]
     except KeyError:
         raise KeyError(
-            f"scenario {name!r} is not ported yet (or unknown); the port runs: "
-            f"{', '.join(list_scenarios())}"
+            f"unknown scenario {name!r}; registered: {', '.join(list_scenarios())}"
         ) from None
 
 
@@ -234,6 +237,169 @@ def _build_grid():
         sharded=True,
         paper="Appendix E x natural compression on the shard_map round",
     ))
+    # --- system-realism column: the client-state layer ---------------------
+    # Markov availability chains (stationary pi = p_up/(p_up+p_down) = 0.7,
+    # sticky: mixing rate 0.5), the degenerate chain that IS Appendix E's
+    # i.i.d. Bernoulli(0.7), round deadlines with over-selection, mid-round
+    # dropout faults, and the fully adversarial straggler combination.
+    markov = SystemConfig(p_up=0.35, p_down=0.15)
+    bernoulli_q = SystemConfig(p_up=0.7, p_down=0.3)  # degenerate: i.i.d. q=0.7
+    deadline = SystemConfig(latency_mu=0.0, latency_sigma=0.75, deadline=2.0)
+    dropout = SystemConfig(drop_prob=0.15)
+    straggler = SystemConfig(p_up=0.35, p_down=0.15, latency_mu=0.0,
+                             latency_sigma=1.0, deadline=2.0, drop_prob=0.1)
+    register(Scenario(
+        name="femnist1-fedavg-aocs-markov",
+        dataset="femnist1", fl=_fl(), system=markov,
+        paper="Appendix E generalized: correlated Markov availability (pi=0.7)",
+    ))
+    register(Scenario(
+        name="femnist1-fedavg-aocs-markov-iid",
+        dataset="femnist1", fl=_fl(), system=bernoulli_q,
+        paper="Appendix E via the degenerate chain (i.i.d. Bernoulli q=0.7)",
+    ))
+    register(Scenario(
+        name="femnist1-fedavg-aocs-deadline",
+        dataset="femnist1", fl=_fl(over_select=1.5), system=deadline,
+        paper="system realism: round deadline + 1.5x over-selection",
+    ))
+    register(Scenario(
+        name="femnist1-fedavg-uniform-deadline",
+        dataset="femnist1",
+        fl=_fl(sampler="uniform", lr_local=0.03125, over_select=1.5),
+        system=deadline,
+        paper="system realism: deadline cell, uniform-sampling baseline",
+    ))
+    register(Scenario(
+        name="femnist1-fedavg-aocs-dropout",
+        dataset="femnist1", fl=_fl(), system=dropout,
+        paper="system realism: mid-round dropout fault injection (15%)",
+    ))
+    register(Scenario(
+        name="femnist1-fedavg-aocs-straggler",
+        dataset="femnist1", fl=_fl(over_select=2.0), system=straggler,
+        paper="system realism: Markov chains x deadline x dropout, 2x over-selection",
+    ))
+    register(Scenario(
+        name="femnist2-fedavg-aocs-markov",
+        dataset="femnist2", fl=_fl(), system=markov,
+        paper="Markov availability on FEMNIST dataset 2",
+    ))
+    register(Scenario(
+        name="charlm-fedavg-aocs-dropout",
+        dataset="charlm",
+        fl=_fl(expected_clients=2, local_steps=6, lr_local=1.0),
+        batch_size=8, system=dropout,
+        paper="mid-round dropout on the Shakespeare-like char LM",
+    ))
+    register(Scenario(
+        name="cifar-fedavg-aocs-deadline",
+        dataset="cifar",
+        fl=_fl(local_steps=5, lr_local=0.0625, over_select=1.5),
+        system=deadline,
+        paper="deadline + over-selection on the balanced-pool control",
+    ))
+    register(Scenario(
+        name="femnist1-dsgd-optimal-markov",
+        dataset="femnist1",
+        fl=_fl(algorithm="dsgd", sampler="optimal", local_steps=1,
+               lr_local=0.0625, lr_global=0.5),
+        system=markov,
+        paper="Sec. 4.1 DSGD (exact Eq. 7) under Markov availability",
+    ))
+    register(Scenario(
+        name="femnist1-fedavg-aocs-straggler-scan",
+        dataset="femnist1",
+        fl=_fl(round_engine="scan", scan_group=4, cache_groups=4,
+               over_select=2.0),
+        system=straggler,
+        paper="straggler cell on the single-pass scan engine",
+    ))
+    register(Scenario(
+        name="femnist1-fedavg-aocs-straggler-shard",
+        dataset="femnist1",
+        fl=_fl(agg_backend="pallas", over_select=2.0),
+        system=straggler, sharded=True,
+        paper="straggler cell on the shard_map round (trace replicated)",
+    ))
+    # --- sampler-zoo column: alternative client-selection rules
+    # from the literature, each a pluggable SAMPLERS entry running through
+    # the same sampling_plan contract (availability, over-selection and all
+    # engines unchanged).  clustered = arXiv 2105.05883, cyclic = arXiv
+    # 2302.03662 (stateful window schedule), threshold = arXiv 2007.15197
+    # (stateful adaptive norm threshold).
+    for did in (1, 2):
+        register(Scenario(
+            name=f"femnist{did}-fedavg-clustered",
+            dataset=f"femnist{did}",
+            fl=_fl(sampler="clustered"),
+            paper=f"arXiv 2105.05883 (clustered sampling, FEMNIST dataset {did})",
+        ))
+        register(Scenario(
+            name=f"femnist{did}-fedavg-threshold",
+            dataset=f"femnist{did}",
+            fl=_fl(sampler="threshold"),
+            paper=f"arXiv 2007.15197 (adaptive threshold, FEMNIST dataset {did})",
+        ))
+    register(Scenario(
+        name="femnist1-fedavg-cyclic",
+        dataset="femnist1",
+        fl=_fl(sampler="cyclic"),
+        paper="arXiv 2302.03662 (cyclic participation windows)",
+    ))
+    register(Scenario(
+        name="femnist1-fedavg-threshold-randk",
+        dataset="femnist1",
+        fl=_fl(sampler="threshold", compression="randk", compression_param=0.1),
+        paper="arXiv 2007.15197 threshold x rand-k compression",
+    ))
+    register(Scenario(
+        name="femnist1-fedavg-clustered-markov",
+        dataset="femnist1", fl=_fl(sampler="clustered"), system=markov,
+        paper="arXiv 2105.05883 clustered under Markov availability",
+    ))
+    register(Scenario(
+        name="femnist1-fedavg-cyclic-deadline",
+        dataset="femnist1",
+        fl=_fl(sampler="cyclic", over_select=1.5), system=deadline,
+        paper="arXiv 2302.03662 cyclic windows x deadline + over-selection",
+    ))
+    register(Scenario(
+        name="femnist1-fedavg-threshold-straggler",
+        dataset="femnist1",
+        fl=_fl(sampler="threshold", over_select=2.0), system=straggler,
+        paper="arXiv 2007.15197 threshold under the straggler combination",
+    ))
+    register(Scenario(
+        name="femnist1-fedavg-clustered-scan",
+        dataset="femnist1",
+        fl=_fl(sampler="clustered", round_engine="scan", scan_group=4,
+               cache_groups=4),
+        paper="arXiv 2105.05883 clustered on the single-pass scan engine",
+    ))
+    register(Scenario(
+        name="femnist1-fedavg-threshold-shard",
+        dataset="femnist1",
+        fl=_fl(sampler="threshold", agg_backend="pallas"),
+        sharded=True,
+        paper="arXiv 2007.15197 threshold on the shard_map round "
+              "(SamplerState replicated)",
+    ))
+    register(Scenario(
+        name="femnist1-fedavg-cyclic-shard",
+        dataset="femnist1",
+        fl=_fl(sampler="cyclic"),
+        sharded=True,
+        paper="arXiv 2302.03662 cyclic windows on the shard_map round",
+    ))
+    register(Scenario(
+        name="femnist1-dsgd-clustered",
+        dataset="femnist1",
+        fl=_fl(algorithm="dsgd", sampler="clustered", local_steps=1,
+               lr_local=0.0625, lr_global=0.5),
+        paper="arXiv 2105.05883 clustered with DSGD (R=1 local step)",
+    ))
+
 
 
 _build_grid()

@@ -38,7 +38,10 @@ per-head copies and bitwise run to run; its bf16 passes carry tensor-core
 instructions (HMMA) in their SASS.  The models'
 kernel routes (``chunked_attention``, ``ssd_chunked``) against their eager
 forms on the card, and the reduced hybrid's prefill on the card against the
-CPU's (f32, TF32 off) at atol 1e-4.
+CPU's (f32, TF32 off) at atol 1e-4.  The gradient of ``Model.loss`` of both
+reduced families on the card (``loss.backward()`` and ``torch.func.grad``)
+against the CPU's within atol 1e-4 of its largest entry, with no kernel
+launched while autograd records (the kernels have no backward).
 """
 
 import json
@@ -859,3 +862,41 @@ def test_charlm_on_the_card_is_bitwise_across_runs_and_modes(cuda):
         assert led.loss == l0.loss and led.sent == l0.sent
         assert all(bool((a == b).all()) for a, b in zip(led.masks, l0.masks))
         assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p), tree_leaves(p0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,bsz,seq", (("mamba2-130m-reduced", 2, 256),
+                                          ("zamba2-2.7b-reduced", 1, 2100)))
+def test_model_loss_gradient_on_the_card_equals_the_cpu(cuda, arch, bsz, seq):
+    # the kernels have no backward: a gradient on the card takes the eager
+    # forms (no kernel launch) and equals the CPU's within the forward
+    # tolerance, atol 1e-4, relative to the gradient's largest entry; with
+    # no gradient recorded the same forward launches the kernels again
+    from repro_torch.configs import get
+    from repro_torch.kernels.ops import tree_leaves, tree_map
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (bsz, seq + 1)))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    want = tree_leaves(torch.func.grad(lambda p: model.loss(p, batch)[0])(params))
+    scale = max(float(w.abs().max()) for w in want)
+    g_params = tree_map(lambda t: t.to(cuda), params)
+    g_batch = {k: v.to(cuda) for k, v in batch.items()}
+    before = (fa.flash_attention_cuda.launches, ss.ssd_scan_cuda.launches)
+    leaves = tree_map(lambda t: t.clone().requires_grad_(), g_params)
+    model.loss(leaves, g_batch)[0].backward()
+    grads = {"backward": [t.grad for t in tree_leaves(leaves)],
+             "torch.func.grad": tree_leaves(torch.func.grad(
+                 lambda p: model.loss(p, g_batch)[0])(g_params))}
+    assert (fa.flash_attention_cuda.launches, ss.ssd_scan_cuda.launches) == before
+    for route, got in grads.items():
+        err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+        assert err <= 1e-4 * scale, (route, err, scale)
+    with torch.no_grad():
+        model.loss(g_params, g_batch)
+    assert ss.ssd_scan_cuda.launches > before[1]

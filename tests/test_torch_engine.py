@@ -110,12 +110,26 @@ def test_unported_axes_raise():
     # the scan engine and compression are ported (tests/test_torch_scan_engine.py),
     # the mesh round (tests/test_torch_shard_round.py), which rejects a
     # server optimizer for good, as the reference does, and the server
-    # optimizer (below); the diag step, the sampler zoo and an availability
-    # trace are not ported
-    kw, _, _, _, tloss = _setup("fedavg")
+    # optimizer (below); the diag step is not ported.  The sampler zoo and
+    # the availability trace, once refused here, are ported: a zoo sampler's
+    # round draws the reference's mask and, when stateful, returns the
+    # advanced SamplerState; an availability that is neither a number nor a
+    # trace raises the reference's TypeError
+    kw, batch, p0, jloss, tloss = _setup("fedavg")
+    w = np.full((8,), 1 / 8, np.float32)
     for sampler in ("clustered", "cyclic", "threshold"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            engine.RoundEngine(tloss, FLConfig(**kw, sampler=sampler), device="cpu")
+        _, _, mt = engine.RoundEngine(tloss, FLConfig(**kw, sampler=sampler), device="cpu"
+                                      ).make_step()(
+            params_from_jax(p0), (), {k: torch.as_tensor(v) for k, v in batch.items()},
+            torch.from_numpy(w), rng.PRNGKey(11))
+        _, _, mj = j_engine.RoundEngine(jloss, JFLConfig(**kw, sampler=sampler)).make_step()(
+            p0, (), {k: jnp.asarray(v) for k, v in batch.items()}, jnp.asarray(w),
+            jax.random.PRNGKey(11))
+        np.testing.assert_array_equal(mt.mask.numpy(), np.asarray(mj.mask))
+        if sampler == "clustered":
+            assert mt.sampler_state is None and mj.sampler_state is None
+        else:
+            assert int(mt.sampler_state.step) == int(mj.sampler_state.step) == 1
     with pytest.raises(ValueError, match="server_opt is not supported on the shard_map path"):
         engine.make_engine(tloss, FLConfig(**kw), server_opt=object(), mesh=object())
     for memory in ("vmap", "scan"):
@@ -123,8 +137,11 @@ def test_unported_axes_raise():
             engine.RoundEngine(tloss, FLConfig(**kw, round_engine=memory, scan_group=4),
                                device="cpu").make_step(diag=True)
     u = torch.ones((8,))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(TypeError):
         ocs.sampling_plan(u, u / 8, 3, rng.PRNGKey(0), availability=object())
+    with pytest.raises(TypeError):
+        j_ocs.sampling_plan(jnp.ones((8,)), jnp.ones((8,)) / 8, 3, jax.random.PRNGKey(0),
+                            availability=object())
 
 
 def test_mlp_module_matches_reference_logits():

@@ -59,9 +59,15 @@ def test_improvement_factors_match_reference(n, m, case):
 
 
 def test_not_ported_samplers_raise():
+    # the zoo's three samplers, once refused, now resolve to the port's own
+    # functions, with the reference's statefulness; an unknown name still
+    # raises ValueError
     for name in ("clustered", "cyclic", "threshold"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            sampling.resolve_sampler(name)
+        fn = sampling.resolve_sampler(name)
+        assert fn is sampling.SAMPLERS[name] and fn.__module__ == sampling.__name__
+        assert sampling.is_stateful(fn) == sampling.is_stateful(name) == \
+            j_sampling.is_stateful(name)
+    assert sorted(sampling.SAMPLERS) == sorted(j_sampling.SAMPLERS)
     with pytest.raises(ValueError, match="unknown sampler"):
         sampling.resolve_sampler("nope")
 

@@ -8,7 +8,7 @@ initial parameters (``convert.params_from_jax`` through ``init_fn``):
 * the ``loss`` series agrees to rtol 1e-4 (three rounds compound float32
   sum-order differences between torch's and XLA's CPU kernels);
 * the port's ledger passes both packages' ``validate_ledger``;
-* the port's registry cells equal the reference's field for field;
+* the port's registry holds the reference's 46 cells, field for field;
 * with ``device=None`` the port raises when there is no CUDA device;
 * a sharded cell (the mesh round, at one rank here) draws the masks and
   bills the uplink bits of the same cell unsharded and of the reference's
@@ -85,15 +85,12 @@ def test_port_init_matches_reference_init():
 
 
 def test_registry_cells_equal_reference():
-    assert scenarios.list_scenarios() == sorted([
-        *(f"femnist{d}-fedavg-{s}" for d in (1, 2, 3) for s in ("full", "aocs", "uniform")),
-        "femnist1-dsgd-optimal", "femnist1-dsgd-uniform", "cifar-fedavg-aocs",
-        "charlm-fedavg-aocs", "charlm-fedavg-uniform",
-        "femnist1-fedavg-aocs-q0.7", "femnist1-fedavg-aocs-pallas",
-        "femnist1-fedavg-aocs-randk", "femnist1-fedavg-aocs-scan",
-        "femnist1-fedavg-aocs-shard", "femnist1-fedavg-aocs-shard-randk",
-        "femnist1-fedavg-aocs-shard-q0.7-natural",
-    ])
+    # all 46 of the reference's cells, field for field (the client-state
+    # cells with their SystemConfig); the four cells this test once expected
+    # to raise KeyError are registered, and an unknown name raises as the
+    # reference's does
+    assert scenarios.list_scenarios() == j_scenarios.list_scenarios()
+    assert len(scenarios.list_scenarios()) == 46
     for name in scenarios.list_scenarios():
         assert dataclasses.asdict(scenarios.get_scenario(name)) == dataclasses.asdict(
             j_scenarios.get_scenario(name))
@@ -101,8 +98,11 @@ def test_registry_cells_equal_reference():
             j_scenarios.get_scenario(name).reduced())
     for name in ("femnist1-fedavg-aocs-straggler-scan", "femnist1-fedavg-aocs-straggler-shard",
                  "femnist1-fedavg-threshold-shard", "femnist1-fedavg-cyclic-shard"):
-        with pytest.raises(KeyError, match="not ported yet"):
-            scenarios.get_scenario(name)
+        assert scenarios.get_scenario(name).name == name
+    with pytest.raises(KeyError, match="unknown scenario"):
+        scenarios.get_scenario("femnist9-fedavg-nope")
+    with pytest.raises(KeyError, match="unknown scenario"):
+        j_scenarios.get_scenario("femnist9-fedavg-nope")
 
 
 @pytest.mark.parametrize("dataset", ("femnist2", "cifar"))
@@ -300,12 +300,21 @@ def test_scan_blocks_keep_the_eval_grid():
 
 
 def test_scan_with_a_system_config_raises():
+    # a system config in scan mode, once refused, runs: the client state is
+    # an in-place buffer of the round body, bitwise the host loop's run; what
+    # raises now is the reference's ValueError for a system with a scalar
+    # availability < 1, in scan mode as in the others
     sc = scenarios.get_scenario("femnist1-fedavg-aocs").reduced()
     ds = sc.build_dataset(reduced=True)
     init, loss, _ = sc.build_model(ds)
-    with pytest.raises(NotImplementedError, match="system"):
-        driver.run_simulation(ds, init, loss, sc.fl, 2, mode="scan", system=object(),
-                              device="cpu")
+    system = scenarios.get_scenario("femnist1-fedavg-aocs-straggler").system
+    runs = [driver.run_simulation(ds, init, loss, sc.fl, 3, mode=mode, system=system,
+                                  rounds_per_scan=2, device="cpu") for mode in ("scan", "host")]
+    assert _timing_free(runs[0][1]) == _timing_free(runs[1][1])
+    assert runs[0][1].workload["system"] == dataclasses.asdict(system)
+    fl = dataclasses.replace(sc.fl, availability=0.7)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        driver.run_simulation(ds, init, loss, fl, 2, mode="scan", system=system, device="cpu")
 
 
 def _prefetch_and_host_rank(mesh, rounds):

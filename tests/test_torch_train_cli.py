@@ -1,17 +1,22 @@
 """The port's ``launch/train.py --scenario`` entry point against the reference's.
 
-* ``--scenario list`` prints the 21 registered cells with the reference's
+* ``--scenario list`` prints the 46 registered cells with the reference's
   ``[sharded]`` marks and lines;
 * a reduced ``--sim-rounds-per-scan 2 --device cpu`` run (and the
   ``--prefetch on|off`` runs) write their ledgers under
   ``benchmarks/artifacts/sim_torch/`` of the working directory, equal minus
   timing to ``run_scenario``'s in the same mode;
+* ``--stragglers``/``--deadline`` parse as the reference's
+  ``parse_stragglers`` does and run the cell under the client-state layer,
+  the ledger equal minus timing to ``run_scenario``'s of the same cell with
+  that ``system``; ``--sampler`` takes every zoo entry;
 * scan with ``--shard on`` (or on a sharded cell) exits with the reference's
-  message; ``--arch``, the client-state, observability and checkpoint flags,
-  and an unported sampler raise ``NotImplementedError``.
+  message; ``--arch`` and the observability and checkpoint flags raise
+  ``NotImplementedError``.
 """
 
 import copy
+import dataclasses
 import json
 
 import pytest
@@ -24,11 +29,11 @@ from repro_torch.sim import driver, scenarios
 def test_scenario_list_prints_the_registry(capsys):
     train.main(["--scenario", "list"])
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == len(scenarios.list_scenarios()) == 21
+    assert len(lines) == len(scenarios.list_scenarios()) == 46
     j_train.main(["--scenario", "list"])
-    j_lines = set(capsys.readouterr().out.splitlines())
-    assert set(lines) <= j_lines
-    assert sum(line.endswith("[sharded]") for line in lines) == 3
+    j_lines = capsys.readouterr().out.splitlines()
+    assert lines == j_lines
+    assert sum(line.endswith("[sharded]") for line in lines) == 6
 
 
 def _timing_free(doc):
@@ -85,21 +90,69 @@ def test_scan_with_a_mesh_exits_with_the_reference_message(name):
     assert "--sim-rounds-per-scan and a mesh conflict" in str(t_exit.value)
 
 
+STRAGGLER_FLAGS = {
+    "--stragglers": ["--stragglers", "p_up=0.35,p_down=0.15,drop=0.1,over=2"],
+    "--deadline": ["--deadline", "2.0"],
+}
+
+
 @pytest.mark.parametrize("flag", ("--stragglers", "--deadline", "--metrics-port",
                                   "--diag-every", "--obs-jsonl", "--trace-dir", "--checkpoint",
                                   "--ckpt-every", "--resume"))
-def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match=f"{flag} is not ported yet"):
-        train.main(["--scenario", "femnist1-fedavg-aocs", "--reduced", "--device", "cpu",
-                    flag, "1"])
+def test_unported_flags_raise(flag, tmp_path, monkeypatch, capsys):
+    if flag not in STRAGGLER_FLAGS:
+        with pytest.raises(NotImplementedError, match=f"{flag} is not ported yet"):
+            train.main(["--scenario", "femnist1-fedavg-aocs", "--reduced", "--device", "cpu",
+                        flag, "1"])
+        return
+    # the client-state flags, once refused, run the cell under the system the
+    # reference's parse_stragglers makes of them
+    monkeypatch.chdir(tmp_path)
+    argv = STRAGGLER_FLAGS[flag]
+    system, over = train.parse_stragglers(*_straggler_args(argv))
+    j_system, j_over = j_train.parse_stragglers(*_straggler_args(argv))
+    assert dataclasses.asdict(system) == dataclasses.asdict(j_system) and over == j_over
+    name = "femnist1-fedavg-aocs"
+    ledger = train.main(["--scenario", name, "--reduced", "--rounds", "3", "--device", "cpu",
+                         "--prefetch", "off", *argv])
+    sc = scenarios.get_scenario(name)
+    fl = sc.fl if over is None else dataclasses.replace(sc.fl, over_select=over)
+    _, want = driver.run_scenario(sc.with_(system=system, fl=fl), reduced=True, rounds=3,
+                                  mode="host", device="cpu")
+    assert ledger.workload["system"] == dataclasses.asdict(system)
+    assert _timing_free(ledger.to_json()) == _timing_free(want.to_json())
+    assert "sel " in capsys.readouterr().out
+
+
+def _straggler_args(argv):
+    """``(spec, deadline)`` of one flag's argv, as ``parse_stragglers`` takes them."""
+    if argv[0] == "--stragglers":
+        return argv[1], None
+    return None, float(argv[1])
+
+
+def test_parse_stragglers_rejects_as_the_reference_does():
+    for spec in ("p_up", "p_up=x", "bogus=1", "p_up=1.5"):
+        with pytest.raises(SystemExit) as j_exit:
+            j_train.parse_stragglers(spec, None)
+        with pytest.raises(SystemExit) as t_exit:
+            train.parse_stragglers(spec, None)
+        assert str(t_exit.value) == str(j_exit.value)
+    assert train.parse_stragglers(None, None) == (None, None)
 
 
 def test_arch_and_unported_sampler_raise(tmp_path, monkeypatch):
+    # --arch still raises; the zoo samplers, once refused, now run through
+    # --sampler (their ledger equal minus timing to run_scenario's)
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="item 5"):
         train.main(["--arch", "llama3-8b-reduced"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train.main(["--scenario", "femnist1-fedavg-aocs", "--reduced", "--rounds", "1",
-                    "--sampler", "cyclic", "--device", "cpu"])
+    ledger = train.main(["--scenario", "femnist1-fedavg-aocs", "--reduced", "--rounds", "2",
+                         "--sampler", "cyclic", "--device", "cpu"])
+    assert ledger.fl["sampler"] == "cyclic"
+    sc = scenarios.get_scenario("femnist1-fedavg-cyclic")
+    _, want = driver.run_scenario(sc.with_(name="femnist1-fedavg-aocs"), reduced=True,
+                                  rounds=2, device="cpu")
+    assert ledger.masks[0].tolist() == want.masks[0].tolist()
     with pytest.raises(SystemExit):
         train.main([])
