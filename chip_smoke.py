@@ -122,6 +122,26 @@ nvcc (one process per source, all at once), then:
   largest entry), with no kernel launched in the gradient passes (the
   kernels have no backward; a recorded call takes the eager forms) and the
   kernels launched by the same loss without a gradient;
+* round checkpoints at full width (``resume_phase``): the main path in the
+  three driver modes and ``femnist1-fedavg-threshold-straggler`` in scan
+  mode, 12 rounds each straight, with a checkpoint every 5 rounds (steps 5,
+  10 and 12) and resumed from step 5, all bitwise (parameters, and the
+  ledger minus timing); the resumed scan run's new graph has the straight
+  run's kernel nodes; the checkpoint's bytes and save and restore seconds;
+* the obs layer (``obs_phase``): the Eq. 2 gap exactly 0.0 at full
+  participation through kernel 2.1 (``femnist1-fedavg-full`` on the pallas
+  backend), kernels 2.3 and 2.4 (the main path with the full sampler) and
+  kernel 2.4 on the vmap engine, with the aggregate kernels launched twice
+  on a diagnostic round (graph nodes in scan mode); the main path with the
+  gap every 2 rounds (the ratio bitwise across the modes, the ledger the
+  plain run's, a diagnostic round's time); telemetry on against off on
+  ``femnist1-fedavg-aocs-straggler`` under prefetch (the ledger, the
+  endpoint scraped after the run, the cadence); the phased executor on the
+  vmap + rand-k + pallas path (masks bitwise the fused step's, the five
+  phases' seconds, a Chrome trace with their slices); ``serve --restore
+  --metrics-port 0`` on mamba2-130m's bf16 parameters saved by the port
+  (``serve_restore_phase``: the unsaved parameters' tokens, 24 launches of
+  kernel 8, the phases on the endpoint);
 * a profiler pass (device ops per round among its numbers) of the main
   path, of the vmap + rand-k + pallas path, of the first slice's path and of
   the mesh round, and a per-layer breakdown of the main path, of the first
@@ -251,6 +271,15 @@ SYSTEM_ROUNDS, SYSTEM_SCAN_BLOCK = 8, 4
 # the chunked attention (>= CHUNK_THRESHOLD) and pads the SSD.  The card
 # against the CPU within REDUCED_LOGIT_ATOL times the gradient's largest entry
 GRAD_CASES = (("mamba2-130m-reduced", 2, 256), ("zamba2-2.7b-reduced", 1, 2100))
+# round checkpoints and the obs layer at full width: rounds per run, the
+# checkpoint grid (steps 5, 10 and 12, off the scan block of 8), the resumed
+# step; the gap estimator's runs
+MODES = ("host", "prefetch", "scan")
+RESUME_ROUNDS, RESUME_EVERY, RESUME_STEP = 12, 5, 5
+RESUME_STATE_CELL = "femnist1-fedavg-threshold-straggler"
+FULL_CELL = "femnist1-fedavg-full"
+DIAG_ROUNDS = 4              # the full-participation runs: the gap is exactly 0.0
+OBS_ROUNDS, OBS_DIAG_EVERY = 12, 2
 
 
 def card_line() -> str:
@@ -1740,21 +1769,12 @@ def path_phase(torch, sc, rounds, per_round, out_dir, mode="host", dim=MAIN_DIM,
 
     label = f"{sc.name} [{mode}]"
     kw = {"mode": mode, **({"rounds_per_scan": rounds_per_scan} if mode == "scan" else {})}
-    census = []
-    reset_counts()
     t0 = time.perf_counter()
-    with scan_census(census, out_dir, sc.name) if mode == "scan" else contextlib.nullcontext():
-        params, ledger = run_scenario(sc, rounds=rounds, **kw)
-    counts = read_counts()
-    if mode == "scan":
-        counts = scan_launches(label, counts, census, rounds)
-    want = {name: per_round.get(name, 0) * rounds for name in counts}
-    if counts != want:
-        raise AssertionError(f"{label}: launches {counts}, want {want}")
+    counts, _, params, ledger = counted_run(
+        torch, sc, rounds, mode, {k: v * rounds for k, v in per_round.items()},
+        out_dir=out_dir, rounds_per_scan=rounds_per_scan)
     doc = ledger.to_json(include_masks=True)
     validate_ledger(doc)
-    if len(ledger.loss) != rounds or not all(map(_finite, ledger.loss)):
-        raise AssertionError(f"bad loss series {ledger.loss}")
     if (ledger.workload["model_dim"] != dim or ledger.workload["backend_platform"] != "cuda"
             or ledger.workload.get("mesh_axis_size") != (1 if sc.sharded else None)
             or ledger.workload.get("rounds_per_scan") != kw.get("rounds_per_scan")
@@ -2321,6 +2341,372 @@ def system_shard_phase(torch, out_dir) -> dict:
     print(f"phase system shard: kernel 2.5 launches {launches}; "
           f"{time.perf_counter() - t0:.1f} s; {card_line()}")
     return launches
+
+
+def counted_run(torch, sc, rounds, mode, want, k0=0, out_dir=None,
+                rounds_per_scan=SCAN_BLOCK, **kw):
+    """One run of ``sc`` in driver mode ``mode`` with the launch counts set to
+    0 just before and read just after (in scan mode, blocks of
+    ``rounds_per_scan``: the run's device launches, its eager round's and
+    its graph's nodes times its replays, :func:`scan_launches`; the graph's
+    DOT dump goes to ``out_dir`` when given), which must be ``want`` (total
+    launches by name, 0 for the others), and a finite loss every round.
+    ``k0`` is the round a resumed run starts at.  Returns ``(counts,
+    census, params, ledger)``."""
+    from repro_torch.sim.driver import run_scenario
+
+    label = f"{sc.name} [{mode}]" + (f" resumed at {k0}" if k0 else "")
+    census = []
+    if mode == "scan":
+        kw["rounds_per_scan"] = rounds_per_scan
+    reset_counts()
+    with scan_census(census, out_dir, sc.name) if mode == "scan" else contextlib.nullcontext():
+        params, ledger = run_scenario(sc, rounds=rounds, mode=mode, **kw)
+    counts = read_counts()
+    if mode == "scan":
+        counts = scan_launches(label, counts, census, rounds - k0)
+    want = {name: want.get(name, 0) for name in counts}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, want {want}")
+    if len(ledger.loss) != rounds or not all(map(_finite, ledger.loss)):
+        raise AssertionError(f"{label}: bad loss series {ledger.loss}")
+    return counts, census, params, ledger
+
+
+def obs_free(doc: dict) -> dict:
+    """:func:`timing_free` of a ledger document without the gap series."""
+    doc = timing_free(doc)
+    for key in ("gap_rounds", "gap_sq", "gap_full_sq", "gap_ratio"):
+        doc["metrics"].pop(key)
+    return doc
+
+
+def same_ledger(torch, what, a, b, strip=timing_free) -> None:
+    """Two runs' parameters bitwise and their ledger documents (masks
+    included) equal after ``strip``."""
+    from repro_torch.kernels.ops import tree_leaves
+
+    (pa, la), (pb, lb) = a, b
+    if strip(la.to_json(True)) != strip(lb.to_json(True)):
+        raise AssertionError(f"{what}: the ledgers differ")
+    if not all(torch.equal(x, y) for x, y in zip(tree_leaves(pa), tree_leaves(pb))):
+        raise AssertionError(f"{what}: the parameters differ")
+    print(f"path {what}: parameters bitwise, the ledger (masks included) identical minus "
+          f"{'timing' if strip is timing_free else 'timing and the gap series'}")
+
+
+def resume_phase(torch) -> dict:
+    """Round checkpoints at full width: :func:`main_scenario` in the three
+    driver modes and :data:`RESUME_STATE_CELL` (the threshold sampler's
+    ``SamplerState`` and the Markov ``ClientState``, buffers of the captured
+    round) in scan mode, each run three ways for :data:`RESUME_ROUNDS`
+    rounds: straight through; with a checkpoint every :data:`RESUME_EVERY`
+    rounds (steps 5, 10 and 12; the ledger identical minus timing); resumed
+    from step 5 (parameters bitwise the straight run's, the ledger identical
+    minus timing).  In scan mode the resumed run captures a new graph, whose
+    kernel nodes must be the straight run's.  Returns the save and restore
+    times, the checkpoint's bytes and the straight runs' parameters and
+    ledgers."""
+    from repro_torch.checkpoint import CheckpointConfig, available_steps
+    from repro_torch.sim import driver
+    from repro_torch.sim.scenarios import get_scenario
+
+    t0 = time.perf_counter()
+    timed = {"save": [], "load": []}
+    save0, load0 = driver.save_round, driver.load_round
+
+    def save_timed(cfg, rc):
+        t = time.perf_counter()
+        out = save0(cfg, rc)
+        timed["save"].append(time.perf_counter() - t)
+        return out
+
+    def load_timed(path, **kw):
+        t = time.perf_counter()
+        rc = load0(path, **kw)
+        timed["load"].append(time.perf_counter() - t)
+        return rc
+
+    main_sc = main_scenario()
+    main_per_round = {"norm_scale_aggregate": 4, "compress_norm_scale_aggregate": 4}
+    cases = [(main_sc, mode, main_per_round) for mode in MODES]
+    cases.append((get_scenario(RESUME_STATE_CELL), "scan", {}))
+    straight, nbytes = {}, {}
+    driver.save_round, driver.load_round = save_timed, load_timed
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for sc, mode, per_round in cases:
+                label = f"{sc.name} [{mode}]"
+                d = Path(tmp) / f"{sc.name}-{mode}"
+                total = {k: v * RESUME_ROUNDS for k, v in per_round.items()}
+                ref = counted_run(torch, sc, RESUME_ROUNDS, mode, total)
+                ck = counted_run(torch, sc, RESUME_ROUNDS, mode, total,
+                                 checkpoint=CheckpointConfig(str(d), every=RESUME_EVERY))
+                steps = available_steps(str(d))
+                if steps != [5, 10, 12]:
+                    raise AssertionError(f"{label}: checkpoint steps {steps}, want [5, 10, 12]")
+                same_ledger(torch, f"{label}: checkpointing vs straight", ck[2:], ref[2:])
+                step = d / f"step-{RESUME_STEP:08d}"
+                nbytes[label] = sum(f.stat().st_size for f in step.iterdir())
+                left = {k: v * (RESUME_ROUNDS - RESUME_STEP) for k, v in per_round.items()}
+                res = counted_run(torch, sc, RESUME_ROUNDS, mode, left, k0=RESUME_STEP,
+                                  resume=str(step))
+                same_ledger(torch, f"{label}: resumed at {RESUME_STEP} vs straight", res[2:],
+                            ref[2:])
+                if mode == "scan":
+                    (c_ref,), (c_res,) = ref[1], res[1]
+                    n_ref, n_res = c_ref["nodes"], c_res["nodes"]
+                    k_ref, k_res = c_ref["kernel_nodes"], c_res["kernel_nodes"]
+                    print(f"path {label}: the resumed run captured a new graph: {k_res} "
+                          f"kernel nodes per round ({ {k: v for k, v in n_res.items() if v} }), "
+                          f"{c_res['replays']} replays of {RESUME_ROUNDS - RESUME_STEP} rounds; "
+                          f"the straight run's graph {k_ref} ({ {k: v for k, v in n_ref.items() if v} }), "
+                          f"{c_ref['replays']} replays")
+                    if (n_ref, k_ref) != (n_res, k_res):
+                        raise AssertionError(f"{label}: the resumed graph's kernel nodes differ")
+                straight[(sc.name, mode)] = ref[2:]
+    finally:
+        driver.save_round, driver.load_round = save0, load0
+    out = {"save_s": timed["save"], "load_s": timed["load"], "bytes": nbytes}
+    print(f"phase resume: checkpoint bytes {nbytes}; save seconds {timed['save']}; restore "
+          f"seconds {timed['load']}; {time.perf_counter() - t0:.1f} s; {card_line()}")
+    out["straight"] = straight
+    return out
+
+
+def obs_phase(torch, straight: dict) -> dict:
+    """The obs layer at full width.  The Eq. 2 gap at full participation is
+    exactly 0.0 through kernel 2.1 (:data:`FULL_CELL` on the pallas backend,
+    three modes), kernels 2.3 and 2.4 (:func:`main_scenario` with the full
+    sampler, three modes) and kernel 2.4 on the vmap engine
+    (:func:`vmap_scenario` with the full sampler); a diagnostic round
+    launches each aggregate kernel twice (in scan mode: twice the graph's
+    nodes).  :func:`main_scenario` with ``diag_every`` 2: the gap ratio
+    bitwise across the modes, the ledger minus the gap series the plain
+    run's (``straight``, from :func:`resume_phase`), and a diagnostic
+    round's time against a plain one's.  Telemetry on (gap, endpoint, event
+    stream) against off on :data:`SYSTEM_CELL` under prefetch: the ledger
+    identical minus timing and the gap series, the endpoint scraped after
+    the run, the round cadence of both.  The phased executor on
+    :func:`vmap_scenario` in host mode: masks bitwise the fused step's, the
+    five phases' seconds, and a ``trace_dir`` Chrome trace with their
+    slices.  Returns the diagnostic runs' launches."""
+    import gzip
+    import urllib.request
+
+    from repro_torch.obs import ObsConfig, Telemetry
+    from repro_torch.sim.scenarios import get_scenario
+
+    t0 = time.perf_counter()
+    diag = ObsConfig(diag_every=1)
+    launches = {}
+
+    def zero_gap(label, led, rounds):
+        if (led.gap_rounds != list(range(rounds)) or led.gap_sq != [0.0] * rounds
+                or not all(fs > 0.0 for fs in led.gap_full_sq)):
+            raise AssertionError(f"{label}: gap rounds {led.gap_rounds}, gap_sq {led.gap_sq}, "
+                                 f"full_sq {led.gap_full_sq}")
+        print(f"path {label}: gap_sq exactly 0.0 in all {rounds} rounds at full "
+              f"participation; gap_full_sq {led.gap_full_sq}")
+
+    sc = get_scenario(FULL_CELL)
+    full = sc.with_(name=f"{FULL_CELL}+pallas", fl=dataclasses.replace(sc.fl, agg_backend="pallas"))
+    k21 = "masked_scale_aggregate"
+    for mode in MODES:
+        plain = counted_run(torch, full, DIAG_ROUNDS, mode, {k21: DIAG_ROUNDS})
+        run = counted_run(torch, full, DIAG_ROUNDS, mode, {k21: 2 * DIAG_ROUNDS}, obs=diag)
+        zero_gap(f"{full.name} [{mode}]", run[3], DIAG_ROUNDS)
+        same_ledger(torch, f"{full.name} [{mode}]: diag vs plain", run[2:], plain[2:], obs_free)
+        if mode == "scan" and run[1][0]["nodes"][k21] != 2 * plain[1][0]["nodes"][k21]:
+            raise AssertionError(f"{full.name} [scan]: kernel 2.1 nodes {run[1][0]['nodes']} "
+                                 f"vs {plain[1][0]['nodes']} without the gap")
+        launches[(k21, mode)] = run[0][k21]
+    main_sc = main_scenario()
+    main_full = main_sc.with_(name=f"{main_sc.name}+full",
+                              fl=dataclasses.replace(main_sc.fl, sampler="full"))
+    per_round = {"norm_scale_aggregate": 4, "compress_norm_scale_aggregate": 4}
+    for mode in MODES:
+        run = counted_run(torch, main_full, DIAG_ROUNDS, mode,
+                          {k: 2 * v * DIAG_ROUNDS for k, v in per_round.items()}, obs=diag)
+        zero_gap(f"{main_full.name} [{mode}]", run[3], DIAG_ROUNDS)
+        for k in per_round:
+            launches[(k, mode)] = run[0][k]
+    vmap_full = vmap_scenario()
+    vmap_full = vmap_full.with_(name=f"{vmap_full.name}+full",
+                                fl=dataclasses.replace(vmap_full.fl, sampler="full"))
+    run = counted_run(torch, vmap_full, DIAG_ROUNDS, "host",
+                      {"compress_norm_scale_aggregate": 2 * DIAG_ROUNDS}, obs=diag)
+    zero_gap(f"{vmap_full.name} [host]", run[3], DIAG_ROUNDS)
+    launches[("compress_norm_scale_aggregate", "vmap host")] = run[0][
+        "compress_norm_scale_aggregate"]
+
+    # MAIN_CELL with the gap every OBS_DIAG_EVERY rounds: kernels 3 and 4
+    # twice on a diagnostic round (every round in scan mode: the captured
+    # round is the diagnostic one)
+    n_diag = len(range(0, OBS_ROUNDS, OBS_DIAG_EVERY))
+    ratios, cost = {}, {}
+    for mode in MODES:
+        diag_rounds = OBS_ROUNDS if mode == "scan" else n_diag
+        want = {k: v * (OBS_ROUNDS + diag_rounds) for k, v in per_round.items()}
+        run = counted_run(torch, main_sc, OBS_ROUNDS, mode, want,
+                          obs=ObsConfig(diag_every=OBS_DIAG_EVERY))
+        led = run[3]
+        if led.gap_rounds != list(range(0, OBS_ROUNDS, OBS_DIAG_EVERY)) or not all(
+                _finite(g) and g > 0.0 for g in led.gap_ratio):
+            raise AssertionError(f"{main_sc.name} [{mode}]: gap {led.gap_rounds} "
+                                 f"{led.gap_ratio}")
+        same_ledger(torch, f"{main_sc.name} [{mode}]: diag_every {OBS_DIAG_EVERY} vs plain",
+                    run[2:], straight[(main_sc.name, mode)], obs_free)
+        ratios[mode] = led.gap_ratio
+        plain = straight[(main_sc.name, mode)][1]
+        if mode == "scan":
+            cost[mode] = {"diag rounds/s": led.rounds_per_sec,
+                          "plain rounds/s": plain.rounds_per_sec}
+        else:
+            walls = led.wall_ms[1:]
+            on = [w for k, w in enumerate(walls, 1) if k % OBS_DIAG_EVERY == 0]
+            off = [w for k, w in enumerate(walls, 1) if k % OBS_DIAG_EVERY != 0]
+            cost[mode] = {"diag round ms (median)": statistics.median(on),
+                          "plain round ms (median)": statistics.median(off),
+                          "plain run's round ms (median)": statistics.median(plain.wall_ms[1:])}
+    if not ratios["host"] == ratios["prefetch"] == ratios["scan"]:
+        raise AssertionError(f"{main_sc.name}: gap ratios differ across the modes {ratios}")
+    print(f"phase obs {main_sc.name}: gap_ratio bitwise across the modes {ratios['host']}; "
+          f"cost of a diagnostic round {cost}; {card_line()}")
+
+    # telemetry on against off: the ledger, the endpoint, the cadence
+    sc = get_scenario(SYSTEM_CELL)
+    with tempfile.TemporaryDirectory() as tmp:
+        off = counted_run(torch, sc, SYSTEM_ROUNDS, "prefetch", {})
+        tel = Telemetry(ObsConfig(diag_every=2, metrics_port=0,
+                                  jsonl=str(Path(tmp) / "events.jsonl")))
+        try:
+            on = counted_run(torch, sc, SYSTEM_ROUNDS, "prefetch", {}, obs=tel)
+            with urllib.request.urlopen(f"{tel.url}/metrics", timeout=30) as r:
+                body = r.read().decode()
+        finally:
+            tel.close()
+        events = [json.loads(line) for line in (Path(tmp) / "events.jsonl").open()]
+    same_ledger(torch, f"{SYSTEM_CELL} [prefetch]: telemetry on vs off", on[2:], off[2:],
+                obs_free)
+    for needle in ("repro_gap_ratio", 'repro_phase_seconds{phase="round"}',
+                   f"repro_rounds_total {SYSTEM_ROUNDS}"):
+        if needle not in body:
+            raise AssertionError(f"{SYSTEM_CELL}: {needle!r} missing from /metrics:\n{body}")
+    kinds = [e["kind"] for e in events]
+    if kinds.count("round") != SYSTEM_ROUNDS or kinds.count("gap") != SYSTEM_ROUNDS // 2:
+        raise AssertionError(f"{SYSTEM_CELL}: events {kinds}")
+    print(f"phase obs {SYSTEM_CELL} [prefetch]: /metrics holds repro_gap_ratio and "
+          f"repro_phase_seconds; events {len(events)}; per-round ms median telemetry on "
+          f"{statistics.median(on[3].wall_ms[1:])} (a sync per round) vs off "
+          f"{statistics.median(off[3].wall_ms[1:])} (dispatch cadence); rounds/s on "
+          f"{on[3].rounds_per_sec} vs off {off[3].rounds_per_sec}; {card_line()}")
+
+    # the phased executor: masks bitwise the fused step's, the five phases
+    vsc = vmap_scenario()
+    with tempfile.TemporaryDirectory() as tmp:
+        fused = counted_run(torch, vsc, SYSTEM_ROUNDS, "host",
+                            {"compress_norm_scale_aggregate": SYSTEM_ROUNDS})
+        tel = Telemetry(ObsConfig(phases=True, jsonl=str(Path(tmp) / "events.jsonl"),
+                                  trace_dir=str(Path(tmp) / "trace"), trace_rounds=2))
+        try:
+            phased = counted_run(torch, vsc, SYSTEM_ROUNDS, "host",
+                                 {"compress_norm_scale_aggregate": SYSTEM_ROUNDS}, obs=tel)
+        finally:
+            tel.close()
+        events = [json.loads(line) for line in (Path(tmp) / "events.jsonl").open()]
+        (trace,) = (Path(tmp) / "trace").iterdir()
+        opener = gzip.open if trace.name.endswith(".gz") else open
+        with opener(trace, "rt") as f:
+            names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    from repro_torch.kernels.ops import tree_leaves
+    from repro_torch.obs import PHASES
+
+    if not all(bool((a == b).all()) for a, b in zip(fused[3].masks, phased[3].masks)):
+        raise AssertionError(f"{vsc.name}: the phased step's masks differ from the fused step's")
+    params_bitwise = all(torch.equal(a, b)
+                         for a, b in zip(tree_leaves(fused[2]), tree_leaves(phased[2])))
+    missing = {f"repro.obs/{p}" for p in PHASES} - names
+    if missing:
+        raise AssertionError(f"{vsc.name}: the trace lacks {missing}")
+    secs = {p: statistics.median(e["phase_seconds"][p] for e in events
+                                 if e["kind"] == "round" and e["round"] > 0) for p in PHASES}
+    print(f"phase obs {vsc.name} [host, phased]: masks bitwise the fused step's; parameters "
+          f"{'bitwise' if params_bitwise else 'NOT bitwise'} the fused step's; median phase "
+          f"seconds after the first round {secs}; the trace {trace.name} holds the five "
+          f"repro.obs/<phase> slices; {time.perf_counter() - t0:.1f} s in the phase; "
+          f"{card_line()}")
+    return {"launches": launches, "phase_seconds": secs, "cost": cost}
+
+
+def serve_restore_phase(torch, dev) -> dict:
+    """``serve --restore``: mamba2-130m's full-width bf16 parameters saved
+    with the port's ``save`` (as a round checkpoint's ``['params']``) and
+    served through ``launch/serve.py``'s command line with ``--restore`` and
+    ``--metrics-port 0``: the greedy tokens of the unsaved parameters, kernel
+    8 still 24 launches in the one prefill, the restored leaves bitwise, and
+    the endpoint's ``prefill`` and ``decode`` phase seconds."""
+    import urllib.request
+
+    from repro_torch.checkpoint import save
+    from repro_torch.configs import get
+    from repro_torch.kernels.ops import tree_leaves
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import build_model
+
+    arch, gen, per_prefill = SERVE_PATHS[1]
+    t0 = time.perf_counter()
+    cfg = get(arch)
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+    want, _ = serve_mod.serve(cfg, SERVE_BATCH, SERVE_PROMPT, gen, device=dev, params=params)
+    scraped = []
+
+    class Scraped(serve_mod.MetricsServer):
+        def stop(self):
+            with urllib.request.urlopen(f"{self.url}/metrics", timeout=30) as r:
+                scraped.append(r.read().decode())
+            super().stop()
+
+    server0 = serve_mod.MetricsServer
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        step = save(tmp, {"params": params}, step=1)
+        save_s = time.perf_counter() - t
+        nbytes = sum(f.stat().st_size for f in Path(step).iterdir())
+        t = time.perf_counter()
+        back, _ = serve_mod.load_params(tmp, build_model(cfg).init(
+            torch.Generator(device=dev).manual_seed(1), dev))
+        load_s = time.perf_counter() - t
+        pairs = list(zip(tree_leaves(back), tree_leaves(params)))
+        if not any(a.dtype == torch.bfloat16 for a, _ in pairs):
+            raise AssertionError(f"{arch}: no bf16 parameter to restore")
+        if not all(a.dtype == b.dtype and a.device == b.device
+                   and torch.equal(a.view(torch.int16), b.view(torch.int16))
+                   if a.dtype == torch.bfloat16 else torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"{arch}: the restored parameters differ from the saved ones")
+        serve_mod.MetricsServer = Scraped
+        try:
+            reset_counts()
+            toks = serve_mod.main(["--arch", arch, "--batch", str(SERVE_BATCH), "--prompt-len",
+                                   str(SERVE_PROMPT), "--gen", str(gen), "--restore", tmp,
+                                   "--metrics-port", "0"])
+            counts = read_counts()
+        finally:
+            serve_mod.MetricsServer = server0
+    want_counts = {name: per_prefill.get(name, 0) for name in counts}
+    if counts != want_counts:
+        raise AssertionError(f"{arch} serve --restore: launches {counts}, want {want_counts}")
+    if not (toks == want).all():
+        raise AssertionError(f"{arch} serve --restore: other tokens than the unsaved params'")
+    (body,) = scraped
+    lines = [ln for ln in body.splitlines() if ln.startswith("repro_phase_seconds")]
+    if len(lines) != 2 or not all(f'phase="{p}"' in body for p in ("prefill", "decode")):
+        raise AssertionError(f"{arch} serve --metrics-port: /metrics {body}")
+    print(f"phase serve-restore {arch}: bf16 params ({nbytes} bytes on disk) saved in "
+          f"{save_s:.3f} s, restored in {load_s:.3f} s, bitwise; serve --restore "
+          f"--metrics-port 0: the unsaved params' tokens, launches {counts}; /metrics {lines}; "
+          f"{time.perf_counter() - t0:.1f} s; {card_line()}")
+    return {"bytes": nbytes, "save_s": save_s, "load_s": load_s}
 
 
 def grad_phase(torch) -> dict:
@@ -3012,6 +3398,9 @@ def main() -> int:
               for arch, gen, per_prefill in SERVE_PATHS}
     serve_reduced_phase(torch, dev)
     grad_launches = grad_phase(torch)
+    resumed = resume_phase(torch)
+    obs = obs_phase(torch, resumed.pop("straight"))
+    serve_restore_phase(torch, dev)
     zamba, mamba = (f"{arch} serve" for arch, _, _ in SERVE_PATHS)
     launches = {
         "masked_scale_aggregate": (slice1_counts, SLICE1_CELL),
@@ -3048,6 +3437,15 @@ def main() -> int:
     by_name["sharded_masked_aggregate"]["system_shard_launches"] = system_shard_launches
     for name, n in grad_launches.items():
         by_name[name]["grad_phase_launches"] = n
+    # launches of the runs with the Eq. 2 gap every round (DIAG_ROUNDS
+    # rounds at full participation): twice a plain round's
+    for (name, mode), n in obs["launches"].items():
+        by_name[name].setdefault("diag_launches", {})[mode] = n
+    by_name["masked_scale_aggregate"]["diag_path"] = f"{FULL_CELL}+pallas, diag_every 1"
+    for name in ("norm_scale_aggregate", "compress_norm_scale_aggregate"):
+        by_name[name]["diag_path"] = f"{main_sc.name}+full, diag_every 1"
+    by_name["compress_norm_scale_aggregate"]["diag_path"] += (
+        f" (vmap host: {VMAP_CELL}+pallas+full)")
 
     profile_phase(torch, main_sc, args.out)
     profile_phase(torch, vmap_scenario(), args.out)

@@ -4,8 +4,10 @@ for Federated Learning), a package beside the JAX reference.
 It mirrors the reference's layout — ``core`` (the paper's samplers and
 the Eq. 2 aggregate), ``kernels`` (hand-written CUDA kernels, each with a
 plain PyTorch version beside it), ``models``, ``fl`` (the round engine),
-``sim`` (the multi-round driver and scenario registry), ``configs``,
-``data`` — and imports neither ``jax`` nor ``repro``.  Random decisions use
+``sim`` (the multi-round driver and scenario registry), ``checkpoint``
+(round checkpoints in the reference's layout), ``obs`` (telemetry and the
+Eq. 2 gap estimator), ``configs``, ``data`` — and imports neither ``jax``
+nor ``repro``.  Random decisions use
 :mod:`repro_torch.rng`, which reproduces jax's threefry keys bit for bit.
 
 Entry points (``run_simulation``, ``run_scenario``, ``make_engine``) take

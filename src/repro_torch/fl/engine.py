@@ -48,8 +48,13 @@ policy; the mesh round keeps plain SGD and rejects one.  Parameters are
 nested dicts of tensors (the char-LM's ``gru{i}: {wx, wh, b}``), mapped leaf
 by leaf with :func:`~repro_torch.kernels.ops.tree_map`.
 
-Not ported yet, raising ``NotImplementedError``: the observability step
-``make_step(diag=True)``.
+``make_step(diag=True)`` is the observability variant: it contracts the
+full-participation aggregate ``s = sum_i w_i U_i`` beside Eq. 2's sampled
+one through the same backend path and returns ``‖ŝ − s‖²`` in
+``RoundMetrics.gap`` (:mod:`repro_torch.obs.gap`).  :meth:`RoundEngine.
+vmap_phases` cuts the vmap round into the five obs phases
+(:class:`VmapPhases`), which the default step composes and the phased
+executor (``repro_torch/obs/phased.py``) times one by one.
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ from repro_torch.core import ocs, sampling
 from repro_torch.core.compression import COMPRESSORS, apply_compression, client_material
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import update_cache
+from repro_torch.obs.gap import flat_gap_stats, tree_gap_stats
 
 MEMORY_POLICIES = ("vmap", "scan")
 
@@ -80,7 +86,9 @@ class RoundMetrics(NamedTuple):
     clients that missed the deadline, ``dropouts`` the selected on-time
     clients lost mid-round.  ``sampler_state`` is a stateful sampler's
     advanced :class:`~repro_torch.core.sampling.SamplerState` (``None``
-    otherwise), which the caller feeds into the next round.
+    otherwise), which the caller feeds into the next round.  ``gap`` is a
+    diagnostic round's :class:`~repro_torch.obs.gap.GapStats` (``None`` on a
+    plain round).
     """
 
     loss: torch.Tensor
@@ -95,11 +103,29 @@ class RoundMetrics(NamedTuple):
     deadline_misses: torch.Tensor
     dropouts: torch.Tensor
     sampler_state: Any = None
+    gap: Any = None
 
 
-def round_metrics(plan: ocs.SamplingPlan, loss: torch.Tensor, trace=None) -> RoundMetrics:
-    """The round's :class:`RoundMetrics` from its plan, mean loss and
-    availability trace (``None``: the system counters are zero)."""
+class VmapPhases(NamedTuple):
+    """The vmap round as five phase callables (the obs contract).
+
+    Made by :meth:`RoundEngine.vmap_phases`; composed in order —
+    ``local_update`` -> ``compress`` -> ``sample`` -> ``aggregate`` ->
+    ``server_opt`` — they are the vmap round step, op for op.
+    """
+
+    local_update: Callable   # (params, batch) -> (updates, losses)
+    compress: Callable       # (updates, k_comp) -> (sendables, mats)
+    sample: Callable         # (sendables, weights, k_sample, trace, st) -> plan
+    aggregate: Callable      # (params, updates, sendables, mats, scale) -> agg
+    server_opt: Callable     # (params, opt_state, agg) -> (params, opt_state)
+
+
+def round_metrics(plan: ocs.SamplingPlan, loss: torch.Tensor, trace=None,
+                  gap=None) -> RoundMetrics:
+    """The round's :class:`RoundMetrics` from its plan, mean loss,
+    availability trace (``None``: the system counters are zero) and, on a
+    diagnostic round, its :class:`~repro_torch.obs.gap.GapStats`."""
     if trace is None:
         misses = drops = torch.zeros((), dtype=torch.int32, device=loss.device)
     else:
@@ -118,6 +144,7 @@ def round_metrics(plan: ocs.SamplingPlan, loss: torch.Tensor, trace=None) -> Rou
         deadline_misses=misses,
         dropouts=drops,
         sampler_state=plan.sampler_state,
+        gap=gap,
     )
 
 
@@ -181,12 +208,6 @@ def make_local_update(loss_fn: Callable, fl: FLConfig):
         return g, loss
 
     return fedavg_update if fl.algorithm == "fedavg" else dsgd_update
-
-
-def _not_ported(what: str, slice_name: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: it lands with the {slice_name} slice of the port"
-    )
 
 
 def make_engine(loss_fn: Callable, fl: FLConfig, server_opt=None, *,
@@ -314,54 +335,86 @@ class RoundEngine:
         return self.server_opt.update(aggregate, opt_state, params)
 
     def make_step(self, diag: bool = False) -> Callable:
-        """The ``round_step`` for this engine's (memory, backend).  The
-        observability variant ``diag=True`` is not ported yet."""
-        if diag:
-            raise _not_ported("make_step(diag=True) (the Eq. 2 gap diagnostic)",
-                              "observability")
-        if self.memory == "vmap":
-            return self._make_vmap_step()
-        return self._make_scan_step()
+        """The ``round_step`` for this engine's (memory, backend).
 
-    def _make_vmap_step(self) -> Callable:
+        ``diag=True`` builds the observability variant: the step also
+        contracts the full-participation aggregate ``s = sum_i w_i U_i``
+        through the same backend path (``scale = w`` in place of the plan's)
+        and returns Eq. 2's ``‖ŝ − s‖²`` in ``RoundMetrics.gap``.  The
+        default ``diag=False`` step runs exactly the ops it ran before the
+        diagnostic existed, in the same order.
+        """
+        if self.memory == "vmap":
+            return self._make_vmap_step(diag)
+        return self._make_scan_step(diag)
+
+    def vmap_phases(self) -> VmapPhases:
+        """The vmap round cut into its five obs phases
+        (:data:`~repro_torch.obs.trace.PHASES`), which compose into exactly
+        the vmap round step: the same ops in the same order."""
+        if self.memory != "vmap":
+            raise ValueError(f"vmap_phases() needs memory='vmap', engine has {self.memory!r}")
         fl = self.fl
+
+        def local_update(params, batch):
+            return self._batched_update(params, batch)
+
+        def compress(updates, k_comp):
+            # each client compresses before its norm is taken: it reports
+            # the norm of what it would send
+            if fl.compression == "none":
+                return updates, ()
+            comp_keys = rng.split(k_comp, fl.n_clients)
+            mats = client_compression_material(updates, comp_keys, fl)
+            return client_apply_compression(updates, mats, fl), mats
+
+        def sample(sendables, weights, k_sample, trace=None, sampler_state=None):
+            return self._plan(ocs.client_norms(sendables, weights), weights, k_sample,
+                              trace, sampler_state)
+
+        def aggregate(params, updates, sendables, mats, scale):
+            if fl.compression == "none":
+                return ocs.aggregate_updates(updates, scale, backend=self.backend)
+            if self.backend == "pallas":
+                # the kernel re-applies the compressor in its tile stream from
+                # the raw updates and the same material: no compressed (n, D)
+                # matrix is written for the aggregate
+                _, agg_flat = kops.compress_norm_scale_aggregate(
+                    kops.tree_to_client_matrix(updates), scale,
+                    tuple(kops.tree_to_client_matrix(m) for m in mats),
+                    fl.compression, fl.compression_param,
+                )
+                return kops.client_matrix_to_tree(agg_flat, params, strip_client_axis=False)
+            return ocs.aggregate_updates(sendables, scale, backend="jnp")
+
+        return VmapPhases(local_update=local_update, compress=compress, sample=sample,
+                          aggregate=aggregate, server_opt=self._apply_server)
+
+    def _make_vmap_step(self, diag: bool = False) -> Callable:
+        ph = self.vmap_phases()
 
         def round_step(params, opt_state, batch, weights, key, trace=None,
                        sampler_state=None):
             self._check_devices(weights, key)
             k_sample, k_comp = rng.split(key)
-            updates, losses = self._batched_update(params, batch)
-            # each client compresses before its norm is taken: it reports
-            # the norm of what it would send
-            if fl.compression == "none":
-                sendables, mats = updates, ()
-            else:
-                comp_keys = rng.split(k_comp, fl.n_clients)
-                mats = client_compression_material(updates, comp_keys, fl)
-                sendables = client_apply_compression(updates, mats, fl)
-            plan = self._plan(ocs.client_norms(sendables, weights), weights, k_sample,
-                              trace, sampler_state)
-            if fl.compression == "none":
-                aggregate = ocs.aggregate_updates(updates, plan.scale, backend=self.backend)
-            elif self.backend == "pallas":
-                # the kernel re-applies the compressor in its tile stream from
-                # the raw updates and the same material: no compressed (n, D)
-                # matrix is written for the aggregate
-                _, agg_flat = kops.compress_norm_scale_aggregate(
-                    kops.tree_to_client_matrix(updates), plan.scale,
-                    tuple(kops.tree_to_client_matrix(m) for m in mats),
-                    fl.compression, fl.compression_param,
-                )
-                aggregate = kops.client_matrix_to_tree(agg_flat, params,
-                                                       strip_client_axis=False)
-            else:
-                aggregate = ocs.aggregate_updates(sendables, plan.scale, backend="jnp")
-            new_params, new_opt = self._apply_server(params, opt_state, aggregate)
-            return new_params, new_opt, round_metrics(plan, torch.mean(losses), trace)
+            updates, losses = ph.local_update(params, batch)
+            sendables, mats = ph.compress(updates, k_comp)
+            plan = ph.sample(sendables, weights, k_sample, trace, sampler_state)
+            aggregate = ph.aggregate(params, updates, sendables, mats, plan.scale)
+            gap = None
+            if diag:
+                # the full-participation aggregate through the same backend
+                # path; at sampler='full' plan.scale == w bitwise, so the gap
+                # is exactly zero
+                full = ph.aggregate(params, updates, sendables, mats,
+                                    weights.to(torch.float32))
+                gap = tree_gap_stats(aggregate, full)
+            new_params, new_opt = ph.server_opt(params, opt_state, aggregate)
+            return new_params, new_opt, round_metrics(plan, torch.mean(losses), trace, gap)
 
         return round_step
 
-    def _make_scan_step(self) -> Callable:
+    def _make_scan_step(self, diag: bool = False) -> Callable:
         fl = self.fl
         n, g = fl.n_clients, self.scan_group
         n_groups = n // g
@@ -406,12 +459,22 @@ class RoundEngine:
             scale_g = plan.scale.reshape(n_groups, g)
 
             # post-plan: one flat f32 (D,) accumulator, group by group; the
-            # squared norms the fused stream re-emits are discarded
+            # squared norms the fused stream re-emits are discarded.  A
+            # diagnostic round accumulates the full-participation aggregate
+            # (scale = w) beside it in the same loops, so a spilled group is
+            # recomputed once
             agg_flat = torch.zeros((dim,), dtype=torch.float32, device=self.device)
+            if diag:
+                wf_g = weights.to(torch.float32).reshape(n_groups, g)
+                full_flat = torch.zeros((dim,), dtype=torch.float32, device=self.device)
             for j in range(n_cached):
                 _, part = update_cache.group_norm_aggregate(cache[j], scale_g[j],
                                                             self.backend)
                 agg_flat = agg_flat + part
+                if diag:
+                    _, full_part = update_cache.group_norm_aggregate(cache[j], wf_g[j],
+                                                                     self.backend)
+                    full_flat = full_flat + full_part
             for j in range(n_cached, n_groups):
                 # spill: recompute the RAW updates and regenerate the material
                 # from the same per-client keys; the compressor runs inside the
@@ -422,14 +485,22 @@ class RoundEngine:
                     kops.tree_to_client_matrix(m)
                     for m in client_compression_material(upd, keys, fl)
                 )
+                flat = kops.tree_to_client_matrix(upd)
                 _, part = update_cache.group_compress_norm_aggregate(
-                    kops.tree_to_client_matrix(upd), scale_g[j], mats,
-                    fl.compression, fl.compression_param, self.backend,
+                    flat, scale_g[j], mats, fl.compression, fl.compression_param,
+                    self.backend,
                 )
                 agg_flat = agg_flat + part
+                if diag:
+                    _, full_part = update_cache.group_compress_norm_aggregate(
+                        flat, wf_g[j], mats, fl.compression, fl.compression_param,
+                        self.backend,
+                    )
+                    full_flat = full_flat + full_part
+            gap = flat_gap_stats(agg_flat, full_flat) if diag else None
             aggregate = kops.client_matrix_to_tree(agg_flat, params, strip_client_axis=False)
             new_params, new_opt = self._apply_server(params, opt_state, aggregate)
             return new_params, new_opt, round_metrics(plan, torch.mean(torch.cat(loss_parts)),
-                                                      trace)
+                                                      trace, gap)
 
         return round_step

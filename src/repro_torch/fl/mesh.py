@@ -99,6 +99,11 @@ class ClientMesh:
         as :meth:`all_reduce` does."""
         return self.all_reduce(x) / self.world_size
 
+    def barrier(self) -> None:
+        """Return once every rank has reached this call: an all-reduce of one
+        element, read back on the host (the same call on either backend)."""
+        self.all_reduce(torch.zeros((1,), device=self.device)).cpu()
+
     def close(self) -> None:
         """Destroy the process group if this mesh started it."""
         if self._owned:

@@ -66,9 +66,15 @@ def run_training(
     client's size (capped at ``fl.local_steps`` batches of ``batch_size``).
     ``mode`` selects the driver's path (``'prefetch'``, ``'host'`` or
     ``'scan'`` with ``rounds_per_scan``; same masks and parameters);
-    ``eval_fn(params, eval_batch)`` runs on the ``eval_every`` grid.  ``device`` is the run's (``None`` means CUDA and
-    raises without one; pass ``device='cpu'``).  ``obs``, ``checkpoint`` and
-    ``resume`` are not ported yet and raise ``NotImplementedError``.
+    ``eval_fn(params, eval_batch)`` runs on the ``eval_every`` grid.
+    ``device`` is the run's (``None`` means CUDA and raises without one; pass
+    ``device='cpu'``).  ``obs`` threads an :class:`~repro_torch.obs.ObsConfig`
+    or :class:`~repro_torch.obs.Telemetry` into the driver's observability
+    layer (spans, the Eq. 2 gap estimator, the metrics endpoint);
+    ``checkpoint``/``resume`` thread its round checkpoints (a
+    :class:`~repro_torch.checkpoint.CheckpointConfig` or a directory, and a
+    checkpoint to continue from: the resumed run's parameters are bitwise
+    the uninterrupted run's).
     """
     from repro_torch.sim.driver import run_simulation
 

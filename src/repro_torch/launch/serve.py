@@ -13,8 +13,11 @@ attention block at ``prompt_len >= CHUNK_THRESHOLD``.  Decode is eager.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
       --batch 2 --prompt-len 4096 --gen 32            # on the GPU
 
-``--restore`` and ``--metrics-port`` raise ``NotImplementedError``: the
-checkpoint and observability modules are not ported yet.
+``--restore PATH`` serves parameters from a checkpoint instead of a random
+init (:func:`load_params`: the ``['params']`` subtree of a round
+checkpoint, or a params-only checkpoint whole; either package's, bf16 bit
+for bit), and ``--metrics-port`` serves the ``prefill`` and ``decode``
+spans' seconds as ``repro_phase_seconds`` (``repro_torch/obs/http.py``).
 """
 
 from __future__ import annotations
@@ -26,14 +29,34 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.checkpoint import restore, restore_subtree
+from repro_torch.checkpoint.ckpt import _read_index, resolve_dir
 from repro_torch.configs import get
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import build_model
+from repro_torch.obs import MetricsServer, span
 
 
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def load_params(path: str, like_params):
+    """Model parameters out of any checkpoint under ``path``.
+
+    A round checkpoint (the sim driver's, or the reference's training
+    loop's) keeps them under ``['params']`` beside optimizer and client
+    state: found from the saved keys and restored with
+    :func:`~repro_torch.checkpoint.restore_subtree`; a params-only
+    checkpoint restores whole.  Dtypes and shapes are checked against the
+    template ``like_params`` (``ValueError`` naming the key), and each leaf
+    lands on its template leaf's device.  Returns ``(params, step)``.
+    """
+    idx = _read_index(resolve_dir(path))
+    if any(k.startswith("['params']") for k in idx["keys"]):
+        return restore_subtree(path, like_params, "['params']")
+    return restore(path, like_params)
 
 
 def prompt_tokens(cfg: ModelConfig, batch: int, prompt_len: int) -> np.ndarray:
@@ -42,7 +65,7 @@ def prompt_tokens(cfg: ModelConfig, batch: int, prompt_len: int) -> np.ndarray:
 
 
 def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int, *, device=None,
-          params=None, seed: int = 0):
+          params=None, seed: int = 0, sink=None):
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then decode
     ``gen`` tokens greedily (the prefill's token and ``gen - 1`` decode
     steps).
@@ -52,6 +75,8 @@ def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int, *, device=Non
     the ``(batch, gen)`` int64 numpy array of generated tokens, and a dict of
     ``init_ms``, ``prefill_ms`` (prefill and its argmax) and ``decode_ms``
     (all decode steps), each ending in a device sync, and ``decode_steps``.
+    Prefill and decode run in obs spans named ``prefill`` and ``decode``,
+    whose seconds go to ``sink`` (anything with ``record_span``) when given.
     """
     dev = resolve_device(device)
     model = build_model(cfg)
@@ -64,19 +89,19 @@ def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int, *, device=Non
     prefix = cfg.prefix_tokens or 0
     tokens = torch.as_tensor(prompt_tokens(cfg, batch, prompt_len), device=dev)
     with torch.inference_mode():
-        t0 = time.perf_counter()
-        logits, cache = model.prefill(params, {"tokens": tokens}, cache_len)
-        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-        _sync(dev)
-        prefill_ms = (time.perf_counter() - t0) * 1e3
-        out = [tok]
-        t0 = time.perf_counter()
-        for i in range(gen - 1):
-            logits, cache = model.decode_step(params, tok, cache, prompt_len + prefix + i)
+        with span("prefill", sink) as sp:
+            logits, cache = model.prefill(params, {"tokens": tokens}, cache_len)
             tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-            out.append(tok)
-        _sync(dev)
-        decode_ms = (time.perf_counter() - t0) * 1e3
+            sp.block(tok)
+        prefill_ms = sp.seconds * 1e3
+        out = [tok]
+        with span("decode", sink) as sp:
+            for i in range(gen - 1):
+                logits, cache = model.decode_step(params, tok, cache, prompt_len + prefix + i)
+                tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+                out.append(tok)
+            sp.block(tok)
+        decode_ms = sp.seconds * 1e3
     toks = torch.cat(out, dim=1).cpu().numpy()
     return toks, {"init_ms": init_ms, "prefill_ms": prefill_ms, "decode_ms": decode_ms,
                   "decode_steps": gen - 1}
@@ -89,21 +114,42 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--restore", default=None, metavar="PATH",
-                    help="serve params restored from a checkpoint (not ported yet: raises)")
+                    help="serve params restored from this checkpoint (root or "
+                         "step-XXXXXXXX dir; round and params-only layouts both work) "
+                         "instead of a random init")
     ap.add_argument("--metrics-port", type=int, default=None,
-                    help="live metrics endpoint (not ported yet: raises)")
+                    help="serve a live JSON/Prometheus metrics endpoint on this port "
+                         "(0 = ephemeral)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run on the CPU)")
     args = ap.parse_args(argv)
-    if args.restore is not None:
-        raise NotImplementedError("--restore needs the checkpoint module, which is not "
-                                  "ported yet (ROADMAP queue 1, item 4)")
-    if args.metrics_port is not None:
-        raise NotImplementedError("--metrics-port needs the obs module, which is not "
-                                  "ported yet (ROADMAP queue 1, item 4)")
     cfg = get(args.arch)
+    server = sink = None
+    if args.metrics_port is not None:
+        server = MetricsServer(port=args.metrics_port).start()
+        print(f"[serve] metrics endpoint at {server.url}/metrics")
+        phase_seconds = {}
+
+        class _Sink:
+            # fold each span into the endpoint's snapshot
+            def record_span(self, name, seconds):
+                phase_seconds[name] = seconds
+                server.update({"run": {"arch": args.arch, "mode": "serve"},
+                               "phase_seconds": dict(phase_seconds)})
+
+        sink = _Sink()
+    params = None
+    if args.restore is not None:
+        dev = resolve_device(args.device)
+        like = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+        params, step = load_params(args.restore, like)
+        print(f"[serve] restored params from {args.restore} (round {step})")
     b, s = args.batch, args.prompt_len
-    toks, t = serve(cfg, b, s, args.gen, device=args.device)
+    try:
+        toks, t = serve(cfg, b, s, args.gen, device=args.device, params=params, sink=sink)
+    finally:
+        if server is not None:
+            server.stop()
     steps = t["decode_steps"]
     print(f"[serve] prefill {b}x{s} in {t['prefill_ms'] / 1e3:.2f}s")
     print(f"[serve] generated {steps} steps x {b} seqs in {t['decode_ms'] / 1e3:.2f}s "

@@ -21,11 +21,20 @@ own flag: the run is on the GPU unless it says ``cpu``.
   PYTHONPATH=src python -m repro_torch.launch.train --scenario charlm-fedavg-aocs \\
       --rounds 10 --sim-rounds-per-scan 5                 # on the GPU
 
-Not ported yet, each raising ``NotImplementedError`` with the ROADMAP item
-that brings it: ``--arch`` (the decoder family's training, queue 1 item 5),
-and ``--metrics-port``, ``--diag-every``, ``--obs-jsonl``, ``--trace-dir``,
-``--checkpoint``, ``--ckpt-every`` and ``--resume`` (observability and
-checkpoints, item 4).
+``--metrics-port`` / ``--diag-every`` / ``--obs-jsonl`` / ``--trace-dir``
+(with ``--trace-rounds``) / ``--obs-phases`` switch on the observability
+layer (``repro_torch/obs``): a live JSON/Prometheus endpoint, the online
+Eq. 2 gap estimator (single device only), the JSONL event stream, and a
+``torch.profiler`` window over the first rounds; ``--obs-phases auto`` runs
+the phased executor in host mode only.  ``--checkpoint DIR`` /
+``--ckpt-every N`` / ``--resume PATH`` write and resume the driver's round
+checkpoints (``repro_torch/checkpoint``): a resumed run ends with the
+uninterrupted run's parameters bitwise and its ledger minus timing, and a
+checkpoint whose config fingerprint differs from the invocation's is
+refused.
+
+Not ported yet: ``--arch`` (the decoder family's training, ROADMAP queue 1
+item 5), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,25 +42,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-
-# flag -> the ROADMAP item (queue 1) that brings it
-NOT_PORTED = {
-    "metrics_port": "4 (observability)",
-    "diag_every": "4 (observability)",
-    "obs_jsonl": "4 (observability)",
-    "trace_dir": "4 (observability)",
-    "checkpoint": "4 (checkpoint/resume)",
-    "ckpt_every": "4 (checkpoint/resume)",
-    "resume": "4 (checkpoint/resume)",
-}
-
-
-def _reject_unported(args) -> None:
-    for name, item in NOT_PORTED.items():
-        if getattr(args, name) is not None:
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} is not ported yet (ROADMAP queue 1, item {item})")
-
 
 def parse_stragglers(spec: str | None, deadline: float | None):
     """``--stragglers``/``--deadline`` -> ``(SystemConfig | None, over_select)``.
@@ -94,6 +84,22 @@ def parse_stragglers(spec: str | None, deadline: float | None):
         return SystemConfig(**kw), over
     except ValueError as e:
         raise SystemExit(f"--stragglers/--deadline: {e}") from None
+
+
+def obs_from_args(args, mode: str | None = None):
+    """``--metrics-port``/``--diag-every``/... -> ``ObsConfig | None`` (the
+    reference's ``obs_from_args``): ``None`` when no obs flag was passed,
+    so the run keeps the telemetry-off path; ``--obs-phases auto`` switches
+    the phased executor on in host mode only."""
+    if (args.metrics_port is None and args.diag_every == 0 and args.obs_jsonl is None
+            and args.trace_dir is None and args.obs_phases != "on"):
+        return None
+    from repro_torch.obs import ObsConfig
+
+    phases = args.obs_phases == "on" or (args.obs_phases == "auto" and mode == "host")
+    return ObsConfig(diag_every=args.diag_every, metrics_port=args.metrics_port,
+                     jsonl=args.obs_jsonl, trace_dir=args.trace_dir,
+                     trace_rounds=args.trace_rounds, phases=phases)
 
 
 def run_scenario_cli(args):
@@ -145,14 +151,29 @@ def run_scenario_cli(args):
         print(f"[sim] scenario {effective.name} ({sc.paper}) mode={mode}"
               f"{f' mesh={shards}' if shards else ''} "
               f"rounds={args.rounds if args.rounds is not None else effective.rounds}")
+        obs = obs_from_args(args, mode=mode)
+        if obs is not None and obs.diag_every > 0 and mesh is not None:
+            raise SystemExit(
+                "--diag-every and a mesh conflict: the obs gap estimator is "
+                "single-device only (docs/architecture.md#limits) — drop "
+                "--diag-every or pass --shard off"
+            )
+        ckpt_cfg = None
+        if args.checkpoint:
+            from repro_torch.checkpoint import CheckpointConfig
+
+            ckpt_cfg = CheckpointConfig(args.checkpoint, every=args.ckpt_every)
         _, ledger = run_scenario(
             sc, reduced=args.reduced, mode=mode, rounds=args.rounds,
             rounds_per_scan=max(args.sim_rounds_per_scan, 1), mesh=mesh,
-            artifact=artifact, device=args.device,
+            artifact=artifact, obs=obs, checkpoint=ckpt_cfg, resume=args.resume,
+            device=args.device,
         )
     finally:
         if mesh is not None:
             mesh.close()
+    if ckpt_cfg is not None:
+        print(f"[sim] round checkpoints under {ckpt_cfg.dir} (every {ckpt_cfg.every})")
     for k, (loss, sent) in enumerate(zip(ledger.loss, ledger.sent)):
         sys_col = ""
         if effective.system is not None:
@@ -161,6 +182,9 @@ def run_scenario_cli(args):
         print(f"[round {k:3d}] loss {loss:.4f} alpha {ledger.alpha[k]:.3f} "
               f"sent {sent}/{ledger.fl['n_clients']} {sys_col}"
               f"up {ledger.uplink_bits[k] / 1e9:.2f}G down {ledger.downlink_bits[k] / 1e9:.2f}G")
+    if ledger.gap_rounds:
+        gaps = ", ".join(f"r{r}={g:.3g}" for r, g in zip(ledger.gap_rounds, ledger.gap_ratio))
+        print(f"[sim] Eq. 2 gap ratio on the diag grid: {gaps}")
     print(f"[sim] {ledger.rounds_per_sec:.1f} rounds/s (steady-state), artifact {artifact}")
     return ledger
 
@@ -192,13 +216,35 @@ def main(argv=None):
                          "layer; composes with --stragglers)")
     ap.add_argument("--shard", default="auto", choices=["auto", "on", "off"],
                     help="run on a client mesh (auto: the scenario's own setting)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve a live JSON/Prometheus metrics endpoint on this port "
+                         "(0 = ephemeral; repro_torch/obs/http.py)")
+    ap.add_argument("--diag-every", type=int, default=0,
+                    help="run the online Eq. 2 gap estimator every N rounds "
+                         "(0 = off; single-device only)")
+    ap.add_argument("--obs-jsonl", default=None, metavar="PATH",
+                    help="write the schema-versioned obs event stream (JSONL) to PATH")
+    ap.add_argument("--trace-dir", default=None, metavar="DIR",
+                    help="profile the first --trace-rounds rounds with torch.profiler "
+                         "into DIR (a Chrome trace)")
+    ap.add_argument("--trace-rounds", type=int, default=3,
+                    help="rounds covered by the --trace-dir profiler window")
+    ap.add_argument("--obs-phases", default="auto", choices=["auto", "on", "off"],
+                    help="phased round execution for per-phase spans (auto: in host "
+                         "mode when an obs flag is set; vmap engines only)")
+    ap.add_argument("--checkpoint", default=None, metavar="DIR",
+                    help="write round checkpoints under DIR every --ckpt-every rounds "
+                         "(atomic step-XXXXXXXX dirs: params, server-opt state, RNG "
+                         "bit state, client and sampler state, the ledger so far)")
+    ap.add_argument("--ckpt-every", type=int, default=10,
+                    help="rounds between --checkpoint writes")
+    ap.add_argument("--resume", default=None, metavar="PATH",
+                    help="resume from a checkpoint root (latest complete step) or a "
+                         "step-XXXXXXXX directory; refused if its config fingerprint "
+                         "differs from this invocation's")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run on the CPU)")
-    for name in NOT_PORTED:
-        ap.add_argument(f"--{name.replace('_', '-')}", default=None,
-                        help="not ported yet: raises")
     args = ap.parse_args(argv)
-    _reject_unported(args)
     if args.scenario:
         return run_scenario_cli(args)
     if args.arch is None:

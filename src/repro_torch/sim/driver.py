@@ -58,17 +58,45 @@ sampler's ``SamplerState`` rides from round to round too.  Both stay on the
 device in every mode (in scan mode as in-place buffers of the captured
 round), and on a mesh every rank steps the same state.
 
-Not ported yet: telemetry (``obs``) and checkpoint/resume; each raises
-``NotImplementedError``.
+An ``obs`` argument (:class:`~repro_torch.obs.ObsConfig`, or a live
+:class:`~repro_torch.obs.Telemetry` whose endpoint outlives the run)
+switches on the observability layer: ``data`` and ``round`` spans (and,
+in host mode with ``ObsConfig.phases`` on a vmap engine, the five phases of
+:func:`~repro_torch.obs.phased.make_phased_step`), the online Eq. 2 gap
+estimator (``make_step(diag=True)`` every ``diag_every`` rounds, which fills
+the ledger's ``GAP_SERIES``), the JSONL event stream, the live metrics
+endpoint and a ``torch.profiler`` window.  Telemetry changes no round
+mathematics (masks, norms and parameters are bitwise those of ``obs=None``)
+but it syncs the device once per round (the observer effect).  The gap
+estimator needs a single device (``diag_every`` with a mesh raises
+``ValueError``); on a mesh the other sinks run on rank 0.  In scan mode
+with ``diag_every > 0`` the captured round is the diagnostic one for the
+whole run, and the gaps are recorded on the ``diag_every`` grid.
+
+A ``checkpoint`` argument (:class:`~repro_torch.checkpoint.CheckpointConfig`,
+or a directory) writes a full-fidelity
+:class:`~repro_torch.checkpoint.RoundCheckpoint` after every ``every``-th
+round and after the last: parameters, server-optimizer state, the numpy
+generator's bit state, the client and sampler states, the round and the
+ledger so far, and the config fingerprint, in the reference's layout (so a
+checkpoint crosses between the packages).  Scan mode aligns its blocks to
+the checkpoint grid as it does to the eval grid.  ``resume=`` restores one
+and continues at its round: the finished run's parameters are bitwise, and
+its ledger byte for byte minus the wall-clock fields, the uninterrupted
+run's, in every mode.  On a mesh every rank resumes from the same
+directory, and rank 0 alone writes, then every rank waits for it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import json
 import os
 import time
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -76,12 +104,23 @@ import torch.distributed as dist
 
 from repro_torch import rng as trng
 from repro_torch._device import resolve_device, upload
+from repro_torch.checkpoint.resume import (
+    CheckpointConfig,
+    RoundCheckpoint,
+    load_round,
+    run_config_doc,
+    save_round,
+)
 from repro_torch.core.sampling import init_sampler_state, is_stateful
-from repro_torch.fl.engine import make_engine
+from repro_torch.fl.engine import RoundEngine, make_engine
 from repro_torch.fl.mesh import ClientMesh, local_client_mesh
 from repro_torch.fl.round import client_weights, round_bits_duplex
 from repro_torch.fl.shard_round import validate_shard_config
 from repro_torch.kernels.ops import tree_leaves, tree_map
+from repro_torch.obs.gap import GapStats
+from repro_torch.obs.gap import gap_ratio as _obs_gap_ratio
+from repro_torch.obs.telemetry import ObsConfig, Telemetry, as_telemetry
+from repro_torch.obs.trace import span as obs_span
 from repro_torch.sim.pool import ClientPool, claim_batch, init_client_state, step_client_state
 from repro_torch.sim.scenarios import get_scenario
 
@@ -95,7 +134,8 @@ LEDGER_SERIES = (
     "uplink_bits", "downlink_bits", "wall_ms",
 )
 
-# sparse per-diagnostic-round series (empty: no gap estimator in the port yet)
+# sparse per-diagnostic-round series (the obs gap estimator's; empty without
+# it), all four the same length, indexed by gap_rounds
 GAP_SERIES = ("gap_rounds", "gap_sq", "gap_full_sq", "gap_ratio")
 
 
@@ -106,8 +146,9 @@ class SimLedger:
     Per-round series (``LEDGER_SERIES``; the system-layer counters are zeros
     without a ``system``, and ``wall_ms`` is each round's time on the monotonic
     clock: ending in a device sync in host mode, the dispatch cadence after
-    the first round under prefetch), the sparse gap series (empty: no gap
-    estimator yet), the eval curve and the run's throughput.
+    the first round under prefetch), the sparse gap series (the obs gap
+    estimator's ``diag_every`` grid; empty without it), the eval curve and
+    the run's throughput.
     ``masks``/``norms`` are kept in memory for parity checks and written to
     JSON only on request.
     """
@@ -271,11 +312,15 @@ def _check_mode(mode, on_mesh: bool, rounds_per_scan: int = 8) -> None:
         )
 
 
-def _reject_unported(mode, mesh, rounds_per_scan, **given):
-    _check_mode(mode, mesh is not None, rounds_per_scan)
-    for name, value in given.items():
-        if value is not None:
-            raise NotImplementedError(f"run_simulation({name}=...) is not ported yet")
+class _NullSpan:
+    """No-op stand-in for :class:`~repro_torch.obs.trace.Span` when
+    telemetry is off."""
+
+    def block(self, tensors) -> None:
+        pass
+
+
+_NULL_SPAN = _NullSpan()
 
 
 def _sync(device: torch.device) -> None:
@@ -283,9 +328,11 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-# the RoundMetrics fields the ledger reads; the scan mode keeps them per round
+# the RoundMetrics fields the ledger reads; the scan mode keeps them per round,
+# and on a diagnostic run the gap scalars (GAP_FIELDS, from RoundMetrics.gap)
 LEDGER_FIELDS = ("loss", "alpha", "gamma", "sent_clients", "expected_clients",
                  "selected_clients", "deadline_misses", "dropouts", "mask", "norms")
+GAP_FIELDS = ("gap_sq", "gap_full_sq")
 
 
 def _tensors(tree) -> list:
@@ -317,7 +364,8 @@ class _ScanRounds:
     parameters, optimizer state, client state and sampler state into
     ``params`` / ``opt_state`` / ``client_state`` / ``sampler_state``
     (clones of the run's initial ones) and writes the round's metrics into
-    ``out[name][index]``.
+    ``out[name][index]`` (``LEDGER_FIELDS``, and ``GAP_FIELDS`` when the
+    step returns a ``RoundMetrics.gap``).
 
     On the CPU each :meth:`step` runs the body eagerly.  On a card the first
     runs it eagerly on a side stream (the capture's warm-up: lazy set-up,
@@ -409,13 +457,15 @@ class _ScanRounds:
             dst, src = dst + list(self.sampler_state), src + list(metrics.sampler_state)
         for d, s in zip(dst, src):
             d.copy_(s)
+        vals = {name: getattr(metrics, name) for name in LEDGER_FIELDS}
+        if metrics.gap is not None:
+            vals.update(zip(GAP_FIELDS, metrics.gap))
         if self.out is None:
-            self.out = {name: torch.empty((self.rounds,) + tuple(getattr(metrics, name).shape),
-                                          dtype=getattr(metrics, name).dtype,
+            self.out = {name: torch.empty((self.rounds,) + tuple(v.shape), dtype=v.dtype,
                                           device=self.block.device)
-                        for name in LEDGER_FIELDS}
-        for name in LEDGER_FIELDS:
-            self.out[name].index_copy_(0, self.index, getattr(metrics, name).unsqueeze(0))
+                        for name, v in vals.items()}
+        for name, v in vals.items():
+            self.out[name].index_copy_(0, self.index, v.unsqueeze(0))
         self.slot.add_(1)
         self.index.add_(1)
 
@@ -477,9 +527,29 @@ def run_simulation(
     client-state layer (module docstring); it and a scalar
     ``fl.availability < 1`` are mutually exclusive (``ValueError``, as in
     the reference), and the ledger's workload records it.
+
+    ``obs`` (an :class:`~repro_torch.obs.ObsConfig`, or a live
+    :class:`~repro_torch.obs.Telemetry` whose lifecycle the caller keeps)
+    switches on the observability layer; ``diag_every`` with a mesh raises
+    ``ValueError``.  ``checkpoint`` (a
+    :class:`~repro_torch.checkpoint.CheckpointConfig` or a directory)
+    writes a round checkpoint after every ``every``-th round and after the
+    last; ``resume`` (a checkpoint root or a ``step-XXXXXXXX`` directory)
+    restores one — a ``ValueError`` when its config fingerprint differs from
+    this run's, when it is not a round checkpoint, or when it already covers
+    ``rounds`` — and continues at its round (module docstring).
     """
-    _reject_unported(mode, mesh, rounds_per_scan, obs=obs, checkpoint=checkpoint,
-                     resume=resume)
+    _check_mode(mode, mesh is not None, rounds_per_scan)
+    if obs is not None and not isinstance(obs, (ObsConfig, Telemetry)):
+        raise TypeError(f"obs must be ObsConfig or Telemetry, got {type(obs)!r}")
+    obs_cfg = obs.cfg if isinstance(obs, Telemetry) else obs
+    diag_on = obs_cfg is not None and obs_cfg.diag_every > 0
+    if diag_on and mesh is not None:
+        raise ValueError(
+            "the obs gap estimator (ObsConfig.diag_every > 0) does not "
+            "support a mesh: the shard_map round has no diag variant — run "
+            "single-device, or drop diag_every"
+        )
     if system is not None and fl.availability < 1.0:
         raise ValueError(
             "system config and scalar fl.availability < 1 are mutually "
@@ -502,214 +572,441 @@ def run_simulation(
         k_local = fl.n_clients // mesh.world_size
         lo = mesh.rank * k_local
     # the round step (and its config check) before any draw
-    round_step = make_engine(loss_fn, fl, server_opt, mesh=mesh, device=dev)
-
-    rng = np.random.default_rng(seed)
-    key = trng.PRNGKey(seed, device=dev)
-    params = init_fn(trng.fold_in(key, 1))
-    dim = sum(leaf.numel() for leaf in tree_leaves(params))
-    opt_state = server_opt.init(params) if server_opt is not None else ()
-    # the client-state chains over the whole pool, from their own fold (the
-    # parameters take fold 1, the rounds 1000 + k)
-    state = None
-    if system is not None:
-        state = init_client_state(dataset.n_clients, system, trng.fold_in(key, 2))
-    samp = init_sampler_state(dev) if is_stateful(fl.sampler) else None
-    sizes = np.asarray(dataset.sizes())
-    uniform_w = client_weights(fl, device=dev)
-    if eval_batch is not None:
-        eval_batch = {k: upload(v, dev) for k, v in eval_batch.items()}
-
-    def cohort_weights(clients):
-        # this rank's block of the cohort's weights (all of them without a mesh)
-        if fl.weights == "data_size":
-            return client_weights(fl, sizes[np.asarray(clients)], device=dev)[lo:lo + k_local]
-        return uniform_w[lo:lo + k_local]
-
-    def draw_cohort():
-        return rng.choice(dataset.n_clients, size=fl.n_clients, replace=False)
-
-    def want_eval(k):
-        return eval_fn is not None and (k % eval_every == 0 or k == rounds - 1)
-
-    dev_metrics, dev_evals, wall_ms = [], [], []
-    pool = None
-    t_start = time.perf_counter()
-    t_first, first_units = None, 1
-    if mode == "host":
-        for k in range(rounds):
-            t_round = time.perf_counter()
-            clients = draw_cohort()
-            w = cohort_weights(clients)
-            batch = dataset.sample_round_batches(
-                rng, clients, fl.local_steps, batch_size, local_epoch
-            )
-            # this rank's block of the cohort (the whole cohort without a mesh)
-            batch = {bk: torch.as_tensor(v[lo:lo + k_local], device=dev)
-                     for bk, v in batch.items()}
-            kk = trng.fold_in(key, 1000 + k)
-            trace = None
-            if state is not None:
-                state, trace = step_client_state(state, kk, upload(clients, dev), system)
-            params, opt_state, metrics = round_step(params, opt_state, batch, w, kk, trace,
-                                                    samp)
-            if samp is not None:
-                samp = metrics.sampler_state
-            dev_metrics.append(metrics)
-            if want_eval(k):
-                dev_evals.append((k, eval_fn(params, eval_batch)))
-            # the host loop is synchronous: it waits for the round before
-            # assembling the next round's batch
-            _sync(dev)
-            if t_first is None:
-                t_first = time.perf_counter()
-            wall_ms.append((time.perf_counter() - t_round) * 1e3)
-    elif mode == "prefetch":
-        pool = ClientPool(dataset, mesh=mesh, device=dev)
-
-        def draw_round(k):
-            # called strictly in round order: the host RNG, the keys and the
-            # client-state chain advance as in the host loop, only earlier
-            nonlocal state
-            clients = draw_cohort()
-            plan = pool.plan(rng, clients, fl.local_steps, batch_size, local_epoch)
-            kk = trng.fold_in(key, 1000 + k)
-            trace = None
-            if state is not None:
-                state, trace = step_client_state(state, kk, upload(plan.clients, dev), system)
-            return pool.gather(plan), cohort_weights(clients), kk, trace
-
-        nxt = draw_round(0)
-        for k in range(rounds):
-            t_round = time.perf_counter()
-            (batch, ready), w, kk, trace = nxt
-            if k + 1 < rounds:
-                # double buffering: round k+1's plan is drawn and its gather
-                # dispatched before round k's step is
-                nxt = draw_round(k + 1)
-            params, opt_state, metrics = round_step(
-                params, opt_state, claim_batch(batch, ready), w, kk, trace, samp)
-            if samp is not None:
-                samp = metrics.sampler_state
-            dev_metrics.append(metrics)
-            if want_eval(k):
-                dev_evals.append((k, eval_fn(params, eval_batch)))
-            if t_first is None:
-                # the only mid-run sync: it ends the set-up round
-                _sync(dev)
-                t_first = time.perf_counter()
-            wall_ms.append((time.perf_counter() - t_round) * 1e3)
-    else:  # scan-over-rounds
-        pool = ClientPool(dataset, device=dev)
-        if fl.weights == "data_size":
-            # the cohort's weights from its ids, inside the body: the same
-            # ops on the same device as cohort_weights'
-            sizes_dev = torch.from_numpy(sizes).to(dev)
-
-            def weights_of(clients):
-                return client_weights(fl, sizes_dev.index_select(0, clients.long()))
-        else:
-            def weights_of(clients):
-                return uniform_w
-        scan = _ScanRounds(pool, round_step, weights_of, params, opt_state, rounds,
-                           min(rounds_per_scan, rounds), system, state, samp)
-        host_key = trng.PRNGKey(seed, device="cpu")
-        done = 0
-        while done < rounds:
-            t_blk = time.perf_counter()
-            span = min(rounds_per_scan, rounds - done)
-            if eval_fn is not None:
-                # the next eval round ends a block, so acc_rounds are the
-                # other modes' round for round
-                nxt = done
-                while not want_eval(nxt):
-                    nxt += 1
-                span = min(span, nxt - done + 1)
-            plans = [pool.plan(rng, draw_cohort(), fl.local_steps, batch_size, local_epoch)
-                     for _ in range(span)]
-            keys = trng.fold_in_many(host_key, range(1000 + done, 1000 + done + span))
-            scan.load(*_pack_block(pool, plans, keys))
-            for _ in range(span):
-                scan.step()
-            done += span
-            if want_eval(done - 1):
-                dev_evals.append((done - 1, eval_fn(scan.params, eval_batch)))
-            if t_first is None:
-                # the only mid-run sync: it ends the first block (the
-                # warm-up round and the capture)
-                _sync(dev)
-                t_first, first_units = time.perf_counter(), span
-            wall_ms.extend([(time.perf_counter() - t_blk) * 1e3 / span] * span)
-        params = scan.params
-    _sync(dev)
-    t_end = time.perf_counter()
-    wall_s = t_end - t_start
-    steady_s = t_end - t_first if t_first is not None else 0.0
-    if mesh is not None:
-        # a mesh round ends when its slowest rank does; every rank records that
-        times = mesh.all_max(torch.tensor(wall_ms + [wall_s, steady_s],
-                                          dtype=torch.float64, device=dev)).tolist()
-        wall_ms, wall_s, steady_s = times[:rounds], times[rounds], times[rounds + 1]
-
-    ledger = SimLedger(
-        mode=mode,
-        scenario=scenario_name,
-        fl=dataclasses.asdict(fl),
-        workload={
-            "rounds": rounds,
-            "batch_size": batch_size,
-            "pool_clients": int(dataset.n_clients),
-            "model_dim": dim,
-            "seed": seed,
-            "local_epoch": bool(local_epoch),
-            "backend_platform": dev.type,
-            **({"rounds_per_scan": rounds_per_scan} if mode == "scan" else {}),
-            **({"pool_bytes": pool.nbytes} if pool is not None else {}),
-            **({"mesh_axis_size": mesh.world_size} if mesh is not None else {}),
-            **({"system": dataclasses.asdict(system)} if system is not None else {}),
-        },
-    )
-
-    def rows(name):
-        if mode == "scan":
-            return scan.out[name].cpu().numpy()
-        return torch.stack([getattr(m, name) for m in dev_metrics]).cpu().numpy()
-
-    masks = rows("mask").astype(bool)
-    up_total = down_total = 0
-    for i, (loss, alpha, gamma, sent, expected, selected, misses, drops) in enumerate(zip(
-        rows("loss"), rows("alpha"), rows("gamma"), rows("sent_clients"),
-        rows("expected_clients"), rows("selected_clients"), rows("deadline_misses"),
-        rows("dropouts"),
-    )):
-        up, down = round_bits_duplex(fl, dim, masks[i])
-        up_total += int(up)
-        down_total += int(down)
-        ledger.loss.append(float(loss))
-        ledger.alpha.append(float(alpha))
-        ledger.gamma.append(float(gamma))
-        ledger.sent.append(int(sent))
-        ledger.expected_clients.append(float(expected))
-        ledger.over_selected.append(int(selected))
-        ledger.deadline_misses.append(int(misses))
-        ledger.dropouts.append(int(drops))
-        ledger.uplink_bits.append(up_total)
-        ledger.downlink_bits.append(down_total)
-        ledger.wall_ms.append(float(wall_ms[i]))
-    ledger.masks = list(masks)
-    ledger.norms = list(rows("norms").astype(np.float32))
-    for k, v in dev_evals:
-        ledger.acc_rounds.append(int(k))
-        ledger.acc.append(float(v))
-    ledger.wall_s = wall_s
-    steady = rounds - first_units
-    if steady > 0 and steady_s > 0:
-        ledger.rounds_per_sec = steady / steady_s
+    engine = diag_step = None
+    if mesh is None:
+        engine = RoundEngine(loss_fn, fl, server_opt, device=dev)
+        round_step = engine.make_step()
+        if diag_on:
+            diag_step = engine.make_step(diag=True)
     else:
-        ledger.rounds_per_sec = rounds / max(wall_s, 1e-9)
-    if artifact and (mesh is None or mesh.rank == 0):
-        ledger.write(artifact)
-    return params, ledger
+        round_step = make_engine(loss_fn, fl, server_opt, mesh=mesh, device=dev)
+    ck = None
+    if checkpoint is not None:
+        ck = (checkpoint if isinstance(checkpoint, CheckpointConfig)
+              else CheckpointConfig(str(checkpoint)))
+    # on a mesh the sinks run on rank 0 only
+    tel, tel_owned = as_telemetry(obs if mesh is None or mesh.rank == 0 else None)
+    try:
+        # phased execution (real per-phase spans) applies to host-mode vmap
+        # engines only; elsewhere rounds are timed whole
+        use_phased = (tel is not None and tel.cfg.phases and mode == "host"
+                      and engine is not None and engine.memory == "vmap")
+
+        def sp(name):
+            # a span when telemetry is on, else an inert context: the obs=None
+            # path runs no span code
+            if tel is not None:
+                return obs_span(name, tel)
+            return contextlib.nullcontext(_NULL_SPAN)
+
+        rng = np.random.default_rng(seed)
+        key = trng.PRNGKey(seed, device=dev)
+        params = init_fn(trng.fold_in(key, 1))
+        dim = sum(leaf.numel() for leaf in tree_leaves(params))
+        opt_state = server_opt.init(params) if server_opt is not None else ()
+        # the client-state chains over the whole pool, from their own fold (the
+        # parameters take fold 1, the rounds 1000 + k)
+        state = None
+        if system is not None:
+            state = init_client_state(dataset.n_clients, system, trng.fold_in(key, 2))
+        samp = init_sampler_state(dev) if is_stateful(fl.sampler) else None
+        sizes = np.asarray(dataset.sizes())
+        uniform_w = client_weights(fl, device=dev)
+        if eval_batch is not None:
+            eval_batch = {k: upload(v, dev) for k, v in eval_batch.items()}
+
+        def cohort_weights(clients):
+            # this rank's block of the cohort's weights (all of them without a mesh)
+            if fl.weights == "data_size":
+                return client_weights(fl, sizes[np.asarray(clients)], device=dev)[lo:lo + k_local]
+            return uniform_w[lo:lo + k_local]
+
+        def draw_cohort():
+            return rng.choice(dataset.n_clients, size=fl.n_clients, replace=False)
+
+        def want_eval(k):
+            return eval_fn is not None and (k % eval_every == 0 or k == rounds - 1)
+
+        dev_metrics, dev_evals, wall_ms = [], [], []
+        gap_records = []          # (round, gap_sq, full_sq) on the diag_every grid
+        tel_up = tel_down = tel_miss = tel_drop = 0
+
+        # ---- checkpoint / resume: full-fidelity round checkpoints ----
+        cfg_doc = None
+        if ck is not None or resume is not None:
+            cfg_doc = run_config_doc(
+                fl, seed=seed, batch_size=batch_size, local_epoch=local_epoch,
+                pool_clients=int(dataset.n_clients), model_dim=dim, system=system,
+                eval_every=int(eval_every) if eval_fn is not None else None,
+                scenario=scenario_name,
+            )
+        k0 = 0
+        tail = {name: [] for name in LEDGER_SERIES}
+        tail_masks = tail_norms = None
+        if resume is not None:
+            rc = load_round(resume, params=params, opt_state=opt_state, client_state=state,
+                            sampler_state=samp, config=cfg_doc)
+            if rc.round >= rounds:
+                raise ValueError(
+                    f"checkpoint at {resume!r} already covers round {rc.round} "
+                    f"but the run asks for rounds={rounds} — raise rounds to "
+                    f"extend the run"
+                )
+            k0 = rc.round
+            params, opt_state = rc.params, rc.opt_state
+            if state is not None:
+                state = rc.client_state
+            if samp is not None:
+                samp = rc.sampler_state
+            # the generator continues mid-stream: every later cohort draw and
+            # permutation is the one the uninterrupted run made
+            rng.bit_generator.state = rc.rng_state
+            tail = rc.series
+            tail_masks = np.asarray(rc.masks, bool)
+            tail_norms = np.asarray(rc.norms, np.float32)
+            gap_records.extend(rc.gap_records)
+            dev_evals.extend(rc.evals)
+        scan = None
+        done = k0
+
+        def need_ckpt(k):
+            # after round k: on the every-grid, and always after the last round
+            return ck is not None and ((k + 1) % ck.every == 0 or k + 1 == rounds)
+
+        def rows(name):
+            # this process's rounds so far, on the host
+            if mode == "scan":
+                return scan.out[name][:done - k0].cpu().numpy()
+            return torch.stack([getattr(m, name) for m in dev_metrics]).cpu().numpy()
+
+        def splice_series():
+            """The run's per-round series and its ``(rounds, n)`` masks and
+            norms: the resumed tail's entries, then this process's rounds,
+            converted with the same ``float()``/``int()`` calls, so a spliced
+            ledger is byte for byte the uninterrupted run's."""
+            masks_l = rows("mask").astype(bool)
+            norms_l = rows("norms").astype(np.float32)
+            ser = {name: list(tail[name]) for name in LEDGER_SERIES}
+            up_total = ser["uplink_bits"][-1] if ser["uplink_bits"] else 0
+            down_total = ser["downlink_bits"][-1] if ser["downlink_bits"] else 0
+            for i, (loss, alpha, gamma, sent, expected, selected, misses, drops) in enumerate(zip(
+                rows("loss"), rows("alpha"), rows("gamma"), rows("sent_clients"),
+                rows("expected_clients"), rows("selected_clients"), rows("deadline_misses"),
+                rows("dropouts"),
+            )):
+                up, down = round_bits_duplex(fl, dim, masks_l[i])
+                up_total += int(up)
+                down_total += int(down)
+                ser["loss"].append(float(loss))
+                ser["alpha"].append(float(alpha))
+                ser["gamma"].append(float(gamma))
+                ser["sent"].append(int(sent))
+                ser["expected_clients"].append(float(expected))
+                ser["over_selected"].append(int(selected))
+                ser["deadline_misses"].append(int(misses))
+                ser["dropouts"].append(int(drops))
+                ser["uplink_bits"].append(up_total)
+                ser["downlink_bits"].append(down_total)
+                ser["wall_ms"].append(float(wall_ms[i]))
+            if tail_masks is not None:
+                return (ser, np.concatenate([tail_masks, masks_l], 0),
+                        np.concatenate([tail_norms, norms_l], 0))
+            return ser, masks_l, norms_l
+
+        def write_ckpt(k_done, rng_st, cl_state, s_state, p, o):
+            # k_done is the last completed round; save() syncs the device and
+            # copies every leaf to the host before it returns, so later rounds
+            # (or a scan run's replays, which write p and o in place) cannot
+            # touch what it writes.  On a mesh rank 0 alone writes, and every
+            # rank waits for the publish.
+            if mesh is None or mesh.rank == 0:
+                ser, m_all, n_all = splice_series()
+                save_round(ck, RoundCheckpoint(
+                    round=k_done + 1, params=p, opt_state=o, client_state=cl_state,
+                    sampler_state=s_state, rng_state=rng_st, series=ser,
+                    gap_records=list(gap_records),
+                    evals=[(int(k), float(v)) for k, v in dev_evals],
+                    masks=m_all, norms=n_all, config=cfg_doc,
+                ))
+            if mesh is not None:
+                mesh.barrier()
+
+        def host(x):
+            return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+        def tel_round(k, metrics, ms_val):
+            # the endpoint's and the event stream's round record (telemetry on
+            # only); reading the mask syncs the device: the observer effect
+            nonlocal tel_up, tel_down, tel_miss, tel_drop
+            up, down = round_bits_duplex(fl, dim, host(metrics.mask))
+            tel_up += int(up)
+            tel_down += int(down)
+            tel_miss += int(metrics.deadline_misses)
+            tel_drop += int(metrics.dropouts)
+            tel.record_round(
+                k, loss=float(metrics.loss), sent_clients=int(metrics.sent_clients),
+                wall_ms=ms_val, uplink_bits_total=tel_up, downlink_bits_total=tel_down,
+                deadline_misses_total=tel_miss, dropouts_total=tel_drop,
+            )
+
+        def tel_gap(k, gap):
+            gs, fs = float(gap.gap_sq), float(gap.full_sq)
+            gap_records.append((k, gs, fs))
+            if tel is not None:
+                tel.record_gap(k, gs, fs)
+
+        if tel is not None:
+            tel.run_start(scenario=scenario_name, mode=mode, sampler=fl.sampler,
+                          n_clients=fl.n_clients, rounds=rounds, backend=dev.type)
+        pool = None
+        t_start = time.perf_counter()
+        t_first, first_units = None, 1
+        if mode == "host":
+            if use_phased:
+                from repro_torch.obs.phased import make_phased_step
+
+                phased_step = make_phased_step(engine, tel)
+            for k in range(k0, rounds):
+                t_round = time.perf_counter()
+                diag = diag_on and tel.want_gap(k)
+                if tel is not None:
+                    tel.round_start(k)
+                with sp("data") as s:
+                    clients = draw_cohort()
+                    w = cohort_weights(clients)
+                    batch = dataset.sample_round_batches(
+                        rng, clients, fl.local_steps, batch_size, local_epoch
+                    )
+                    # this rank's block of the cohort (the whole cohort without a mesh)
+                    batch = {bk: torch.as_tensor(v[lo:lo + k_local], device=dev)
+                             for bk, v in batch.items()}
+                    s.block(batch)
+                kk = trng.fold_in(key, 1000 + k)
+                trace = None
+                if state is not None:
+                    state, trace = step_client_state(state, kk, upload(clients, dev), system)
+                if use_phased:
+                    params, opt_state, metrics = phased_step(params, opt_state, batch, w, kk,
+                                                             trace, samp, diag=diag)
+                else:
+                    with sp("round") as s:
+                        params, opt_state, metrics = (diag_step if diag else round_step)(
+                            params, opt_state, batch, w, kk, trace, samp)
+                        s.block(metrics.loss)
+                if samp is not None:
+                    samp = metrics.sampler_state
+                dev_metrics.append(metrics)
+                if want_eval(k):
+                    dev_evals.append((k, eval_fn(params, eval_batch)))
+                # the host loop is synchronous: it waits for the round before
+                # assembling the next round's batch
+                _sync(dev)
+                if t_first is None:
+                    t_first = time.perf_counter()
+                wall_ms.append((time.perf_counter() - t_round) * 1e3)
+                if diag:
+                    tel_gap(k, metrics.gap)
+                if tel is not None:
+                    tel_round(k, metrics, wall_ms[-1])
+                if need_ckpt(k):
+                    # the host loop draws round k's randomness inside iteration
+                    # k, so the live generator and chains are the post-round-k ones
+                    write_ckpt(k, copy.deepcopy(rng.bit_generator.state), state, samp,
+                               params, opt_state)
+        elif mode == "prefetch":
+            pool = ClientPool(dataset, mesh=mesh, device=dev)
+
+            def draw_round(k):
+                # called strictly in round order: the host RNG, the keys and the
+                # client-state chain advance as in the host loop, only earlier
+                nonlocal state
+                clients = draw_cohort()
+                plan = pool.plan(rng, clients, fl.local_steps, batch_size, local_epoch)
+                kk = trng.fold_in(key, 1000 + k)
+                trace = None
+                if state is not None:
+                    state, trace = step_client_state(state, kk, upload(plan.clients, dev), system)
+                return pool.gather(plan), cohort_weights(clients), kk, trace
+
+            nxt = draw_round(k0)
+            for k in range(k0, rounds):
+                t_round = time.perf_counter()
+                diag = diag_on and tel.want_gap(k)
+                if tel is not None:
+                    tel.round_start(k)
+                (batch, ready), w, kk, trace = nxt
+                snap = None
+                if need_ckpt(k) and k + 1 < rounds:
+                    # round k+1's draw below advances the generator and the
+                    # client-state chains before round k's checkpoint is
+                    # written: keep both as they are now, so the resumed run
+                    # makes round k+1's draw itself
+                    snap = (copy.deepcopy(rng.bit_generator.state), state)
+                if k + 1 < rounds:
+                    # double buffering: round k+1's plan is drawn and its gather
+                    # dispatched before round k's step is
+                    with sp("data"):
+                        nxt = draw_round(k + 1)
+                with sp("round") as s:
+                    params, opt_state, metrics = (diag_step if diag else round_step)(
+                        params, opt_state, claim_batch(batch, ready), w, kk, trace, samp)
+                    s.block(metrics.loss)
+                if samp is not None:
+                    samp = metrics.sampler_state
+                dev_metrics.append(metrics)
+                if want_eval(k):
+                    dev_evals.append((k, eval_fn(params, eval_batch)))
+                if tel is not None:
+                    # the observer effect: telemetry syncs every round, so
+                    # wall_ms bounds the device work
+                    _sync(dev)
+                if t_first is None:
+                    # the only mid-run sync without telemetry: it ends the
+                    # set-up round
+                    _sync(dev)
+                    t_first = time.perf_counter()
+                wall_ms.append((time.perf_counter() - t_round) * 1e3)
+                if diag:
+                    tel_gap(k, metrics.gap)
+                if tel is not None:
+                    tel_round(k, metrics, wall_ms[-1])
+                if need_ckpt(k):
+                    # the sampler state is read after the step, so the live one
+                    # is right; the generator and chains come from the snapshot
+                    # (after the last round nothing was prefetched: the live ones)
+                    rng_st, cl_st = snap if snap is not None else (
+                        copy.deepcopy(rng.bit_generator.state), state)
+                    write_ckpt(k, rng_st, cl_st, samp, params, opt_state)
+        else:  # scan-over-rounds
+            pool = ClientPool(dataset, device=dev)
+            if fl.weights == "data_size":
+                # the cohort's weights from its ids, inside the body: the same
+                # ops on the same device as cohort_weights'
+                sizes_dev = torch.from_numpy(sizes).to(dev)
+
+                def weights_of(clients):
+                    return client_weights(fl, sizes_dev.index_select(0, clients.long()))
+            else:
+                def weights_of(clients):
+                    return uniform_w
+            # with the gap estimator on, the captured round is the diagnostic
+            # one for the whole run; the gaps are recorded on the diag grid
+            scan = _ScanRounds(pool, diag_step if diag_on else round_step, weights_of, params,
+                               opt_state, rounds - k0, min(rounds_per_scan, rounds - k0), system,
+                               state, samp)
+            host_key = trng.PRNGKey(seed, device="cpu")
+            while done < rounds:
+                t_blk = time.perf_counter()
+                if tel is not None:
+                    tel.round_start(done)
+                span = min(rounds_per_scan, rounds - done)
+                if ck is not None:
+                    # blocks end on the checkpoint grid, composed with the eval
+                    # grid below, so every every-th round ends a block
+                    span = min(span, ck.every - done % ck.every)
+                if eval_fn is not None:
+                    # the next eval round ends a block, so acc_rounds are the
+                    # other modes' round for round
+                    nxt = done
+                    while not want_eval(nxt):
+                        nxt += 1
+                    span = min(span, nxt - done + 1)
+                with sp("data"):
+                    plans = [pool.plan(rng, draw_cohort(), fl.local_steps, batch_size,
+                                       local_epoch) for _ in range(span)]
+                    keys = trng.fold_in_many(host_key, range(1000 + done, 1000 + done + span))
+                    scan.load(*_pack_block(pool, plans, keys))
+                with sp("round") as s:
+                    for _ in range(span):
+                        scan.step()
+                    s.block(scan.out["loss"])
+                done += span
+                if want_eval(done - 1):
+                    dev_evals.append((done - 1, eval_fn(scan.params, eval_batch)))
+                if t_first is None:
+                    # the only mid-run sync without telemetry: it ends the first
+                    # block (the warm-up round and the capture)
+                    _sync(dev)
+                    t_first, first_units = time.perf_counter(), span
+                blk_ms = (time.perf_counter() - t_blk) * 1e3 / span
+                wall_ms.extend([blk_ms] * span)
+                if tel is not None or diag_on:
+                    blk = {name: v[done - span - k0:done - k0].cpu().numpy()
+                           for name, v in scan.out.items()}
+                    for i in range(span):
+                        kg = done - span + i
+                        row = SimpleNamespace(**{name: v[i] for name, v in blk.items()})
+                        if diag_on and tel.want_gap(kg):
+                            tel_gap(kg, GapStats(row.gap_sq, row.gap_full_sq))
+                        if tel is not None:
+                            tel_round(kg, row, blk_ms)
+                if ck is not None and (done % ck.every == 0 or done == rounds):
+                    # every draw of the block is made, so the live generator is
+                    # the post-round-(done - 1) one; the graph's in-place buffers
+                    # hold the state after the block
+                    write_ckpt(done - 1, copy.deepcopy(rng.bit_generator.state),
+                               scan.client_state, scan.sampler_state, scan.params,
+                               scan.opt_state)
+            params = scan.params
+        _sync(dev)
+        t_end = time.perf_counter()
+        wall_s = t_end - t_start
+        steady_s = t_end - t_first if t_first is not None else 0.0
+        if mesh is not None:
+            # a mesh round ends when its slowest rank does; every rank records that
+            n = len(wall_ms)
+            times = mesh.all_max(torch.tensor(wall_ms + [wall_s, steady_s],
+                                              dtype=torch.float64, device=dev)).tolist()
+            wall_ms[:], wall_s, steady_s = times[:n], times[n], times[n + 1]
+
+        ledger = SimLedger(
+            mode=mode,
+            scenario=scenario_name,
+            fl=dataclasses.asdict(fl),
+            workload={
+                "rounds": rounds,
+                "batch_size": batch_size,
+                "pool_clients": int(dataset.n_clients),
+                "model_dim": dim,
+                "seed": seed,
+                "local_epoch": bool(local_epoch),
+                "backend_platform": dev.type,
+                **({"rounds_per_scan": rounds_per_scan} if mode == "scan" else {}),
+                **({"pool_bytes": pool.nbytes} if pool is not None else {}),
+                **({"mesh_axis_size": mesh.world_size} if mesh is not None else {}),
+                **({"system": dataclasses.asdict(system)} if system is not None else {}),
+            },
+        )
+        # the resumed tail (if any) goes ahead of this process's rounds with the
+        # same scalar conversions: the same document either way
+        ser, masks_all, norms_all = splice_series()
+        for name in LEDGER_SERIES:
+            setattr(ledger, name, ser[name])
+        ledger.masks = list(masks_all)
+        ledger.norms = list(norms_all)
+        for k, gs, fs in gap_records:
+            ledger.gap_rounds.append(int(k))
+            ledger.gap_sq.append(gs)
+            ledger.gap_full_sq.append(fs)
+            ledger.gap_ratio.append(_obs_gap_ratio(gs, fs))
+        for k, v in dev_evals:
+            ledger.acc_rounds.append(int(k))
+            ledger.acc.append(float(v))
+        ledger.wall_s = wall_s
+        # throughput counts the rounds this process ran, not the resumed tail
+        steady = (rounds - k0) - first_units
+        if steady > 0 and steady_s > 0:
+            ledger.rounds_per_sec = steady / steady_s
+        else:
+            ledger.rounds_per_sec = (rounds - k0) / max(wall_s, 1e-9)
+        if tel is not None:
+            tel.finish(rounds=rounds, wall_s=ledger.wall_s, rounds_per_sec=ledger.rounds_per_sec)
+        if artifact and (mesh is None or mesh.rank == 0):
+            ledger.write(artifact)
+        return params, ledger
+    finally:
+        if tel_owned:
+            tel.close()
 
 
 def run_scenario(

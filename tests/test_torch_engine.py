@@ -110,7 +110,7 @@ def test_unported_axes_raise():
     # the scan engine and compression are ported (tests/test_torch_scan_engine.py),
     # the mesh round (tests/test_torch_shard_round.py), which rejects a
     # server optimizer for good, as the reference does, and the server
-    # optimizer (below); the diag step is not ported.  The sampler zoo and
+    # optimizer (below); the diag step is ported (below).  The sampler zoo and
     # the availability trace, once refused here, are ported: a zoo sampler's
     # round draws the reference's mask and, when stateful, returns the
     # advanced SamplerState; an availability that is neither a number nor a
@@ -133,9 +133,17 @@ def test_unported_axes_raise():
     with pytest.raises(ValueError, match="server_opt is not supported on the shard_map path"):
         engine.make_engine(tloss, FLConfig(**kw), server_opt=object(), mesh=object())
     for memory in ("vmap", "scan"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            engine.RoundEngine(tloss, FLConfig(**kw, round_engine=memory, scan_group=4),
-                               device="cpu").make_step(diag=True)
+        # the diag step, once refused, returns the round's Eq. 2 gap beside
+        # the plain step's round (tests/test_torch_obs.py holds it against
+        # the reference's)
+        eng = engine.RoundEngine(tloss, FLConfig(**kw, round_engine=memory, scan_group=4),
+                                 device="cpu")
+        args = (params_from_jax(p0), (), {k: torch.as_tensor(v) for k, v in batch.items()},
+                torch.from_numpy(w), rng.PRNGKey(11))
+        _, _, md = eng.make_step(diag=True)(*args)
+        _, _, mp = eng.make_step()(*args)
+        assert mp.gap is None and torch.equal(md.mask, mp.mask)
+        assert float(md.gap.full_sq) > 0.0 and bool(torch.isfinite(md.gap.gap_sq))
     u = torch.ones((8,))
     with pytest.raises(TypeError):
         ocs.sampling_plan(u, u / 8, 3, rng.PRNGKey(0), availability=object())

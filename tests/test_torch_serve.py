@@ -3,20 +3,28 @@ reference's: ``serve(..., device="cpu")`` gives the greedy tokens of the
 reference's serving steps (``repro/launch/serve.py::main``) on the same
 (converted) parameters of ``zamba2-2.7b-reduced``, at prompt 40 and at 2,100
 (>= ``CHUNK_THRESHOLD``: the chunked attention and the SSD's padding); its
-command line runs on the CPU, and the flags of modules the port has not yet
-(``--restore``, ``--metrics-port``) raise ``NotImplementedError``.
+command line runs on the CPU; ``--restore`` serves saved parameters (a
+params-only checkpoint and a round checkpoint's ``['params']``, bf16 bit for
+bit) with the tokens of the unsaved ones, and ``--metrics-port`` exports the
+``prefill`` and ``decode`` phase seconds.
 """
+
+import urllib.request
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get as j_get
 from repro.models import build_model as j_build
+from repro_torch.checkpoint import save
 from repro_torch.configs import get
 from repro_torch.convert import params_from_jax
+from repro_torch.kernels.ops import tree_leaves
 from repro_torch.launch import serve as serve_mod
+from repro_torch.models import build_model
 
 
 def _pair(arch):
@@ -64,6 +72,39 @@ def test_serve_main_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", (["--restore", "ckpt"], ["--metrics-port", "0"]))
-def test_serve_flags_of_unported_modules_raise(flag):
-    with pytest.raises(NotImplementedError):
-        serve_mod.main(["--arch", "mamba2-130m-reduced", "--device", "cpu", *flag])
+def test_serve_flags_of_unported_modules_raise(flag, tmp_path, monkeypatch, capsys):
+    # both flags, once refused, now work
+    arch = "mamba2-130m-reduced"
+    argv = ["--arch", arch, "--batch", "2", "--prompt-len", "16", "--gen", "3",
+            "--device", "cpu"]
+    if flag[0] == "--restore":
+        cfg = get(arch)
+        params = build_model(cfg).init(torch.Generator().manual_seed(7), "cpu")
+        want, _ = serve_mod.serve(cfg, 2, 16, 3, device="cpu", params=params)
+        assert not np.array_equal(want, serve_mod.main(argv))
+        save(str(tmp_path / "plain"), params, step=5)
+        save(str(tmp_path / "round"), {"params": params, "opt_state": {"m": torch.zeros(2)}},
+             step=9)
+        for d, step in (("plain", 5), ("round", 9)):
+            got = serve_mod.main(argv + ["--restore", str(tmp_path / d)])
+            assert np.array_equal(got, want)
+            assert f"(round {step})" in capsys.readouterr().out
+        like = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+        back, _ = serve_mod.load_params(str(tmp_path / "round"), like)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(back), tree_leaves(params)))
+        return
+    scraped = []
+
+    class Scraped(serve_mod.MetricsServer):
+        def stop(self):
+            with urllib.request.urlopen(f"{self.url}/metrics") as r:
+                scraped.append(r.read().decode())
+            super().stop()
+
+    monkeypatch.setattr(serve_mod, "MetricsServer", Scraped)
+    serve_mod.main(argv + flag)
+    (body,) = scraped
+    for phase in ("prefill", "decode"):
+        assert f'repro_phase_seconds{{phase="{phase}"}}' in body
+    assert 'repro_run_info{arch="mamba2-130m-reduced",mode="serve"} 1' in body
+    assert "metrics endpoint at http://127.0.0.1:" in capsys.readouterr().out

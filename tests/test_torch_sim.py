@@ -37,8 +37,10 @@ import torch
 
 from repro.sim import driver as j_driver
 from repro.sim import scenarios as j_scenarios
+from repro_torch.checkpoint import available_steps
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels.ops import tree_leaves
+from repro_torch.obs import ObsConfig
 from repro_torch.sim import driver, scenarios
 
 CELLS = ("femnist1-fedavg-aocs-pallas", "femnist1-dsgd-optimal", "charlm-fedavg-aocs",
@@ -127,14 +129,28 @@ def test_default_device_needs_cuda():
         driver.run_scenario("femnist1-fedavg-aocs-pallas", reduced=True, rounds=1)
 
 
-@pytest.mark.parametrize("kw", (dict(obs=object()), dict(checkpoint="x"), dict(resume="x")),
+@pytest.mark.parametrize("kw", ("obs", "checkpoint", "resume"),
                          ids=("obs", "checkpoint", "resume"))
-def test_unported_modes_and_options_raise(kw):
-    # the mesh (tests/test_torch_shard_round.py and below) and the prefetch
-    # and scan modes (below) are ported
-    with pytest.raises(NotImplementedError, match="not ported"):
-        driver.run_scenario("femnist1-fedavg-aocs", reduced=True, rounds=1,
-                            device="cpu", **kw)
+def test_unported_modes_and_options_raise(kw, tmp_path):
+    # once refused, each option now runs (tests/test_torch_obs.py and
+    # tests/test_torch_resume.py hold them against the reference); a wrong
+    # obs type still raises
+    name = "femnist1-fedavg-aocs"
+    _, straight = driver.run_scenario(name, reduced=True, rounds=2, device="cpu")
+    d = str(tmp_path / "ck")
+    if kw == "obs":
+        with pytest.raises(TypeError, match="ObsConfig or Telemetry"):
+            driver.run_scenario(name, reduced=True, rounds=1, device="cpu", obs=object())
+        _, led = driver.run_scenario(name, reduced=True, rounds=2, device="cpu",
+                                     obs=ObsConfig(diag_every=1))
+        assert led.gap_rounds == [0, 1] and led.loss == straight.loss
+        return
+    _, led = driver.run_scenario(name, reduced=True, rounds=1 if kw == "resume" else 2,
+                                 device="cpu", checkpoint=d)
+    assert available_steps(d) == ([1] if kw == "resume" else [2])
+    if kw == "resume":
+        _, led = driver.run_scenario(name, reduced=True, rounds=2, device="cpu", resume=d)
+    assert led.loss == straight.loss and led.sent == straight.sent
 
 
 def test_rounds_per_scan_is_checked_as_the_reference_does():

@@ -10,14 +10,20 @@
   ``parse_stragglers`` does and run the cell under the client-state layer,
   the ledger equal minus timing to ``run_scenario``'s of the same cell with
   that ``system``; ``--sampler`` takes every zoo entry;
+* the observability flags run the cell with the ``ObsConfig`` the
+  reference's ``obs_from_args`` makes of them, and the checkpoint flags
+  write round checkpoints that ``--resume`` continues from, the resumed
+  ledger equal minus timing to the straight run's (a changed ``--sampler``
+  refused by the fingerprint);
 * scan with ``--shard on`` (or on a sharded cell) exits with the reference's
-  message; ``--arch`` and the observability and checkpoint flags raise
-  ``NotImplementedError``.
+  message; ``--arch`` raises ``NotImplementedError``.
 """
 
+import argparse
 import copy
 import dataclasses
 import json
+import os
 
 import pytest
 
@@ -96,23 +102,74 @@ STRAGGLER_FLAGS = {
 }
 
 
+OBS_FLAGS = {
+    "--metrics-port": ["--metrics-port", "0"],
+    "--diag-every": ["--diag-every", "1"],
+    "--obs-jsonl": ["--obs-jsonl", "ev.jsonl"],
+    "--trace-dir": ["--trace-dir", "trace", "--trace-rounds", "1"],
+}
+
+
+def _obs_args(argv):
+    """The namespace the reference's ``obs_from_args`` reads, from ``argv``."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--metrics-port", type=int, default=None)
+    ap.add_argument("--diag-every", type=int, default=0)
+    ap.add_argument("--obs-jsonl", default=None)
+    ap.add_argument("--trace-dir", default=None)
+    ap.add_argument("--trace-rounds", type=int, default=3)
+    ap.add_argument("--obs-phases", default="auto")
+    return ap.parse_args(argv)
+
+
 @pytest.mark.parametrize("flag", ("--stragglers", "--deadline", "--metrics-port",
                                   "--diag-every", "--obs-jsonl", "--trace-dir", "--checkpoint",
                                   "--ckpt-every", "--resume"))
 def test_unported_flags_raise(flag, tmp_path, monkeypatch, capsys):
-    if flag not in STRAGGLER_FLAGS:
-        with pytest.raises(NotImplementedError, match=f"{flag} is not ported yet"):
-            train.main(["--scenario", "femnist1-fedavg-aocs", "--reduced", "--device", "cpu",
-                        flag, "1"])
+    # every flag here, once refused, now runs: the client-state flags, the
+    # observability flags and the checkpoint flags
+    monkeypatch.chdir(tmp_path)
+    name = "femnist1-fedavg-aocs"
+    base = ["--scenario", name, "--reduced", "--rounds", "3", "--device", "cpu"]
+    _, straight = driver.run_scenario(name, reduced=True, rounds=3, device="cpu")
+    if flag in OBS_FLAGS:
+        argv = OBS_FLAGS[flag]
+        obs = train.obs_from_args(_obs_args(argv), mode="prefetch")
+        assert dataclasses.asdict(obs) == dataclasses.asdict(
+            j_train.obs_from_args(_obs_args(argv), mode="prefetch"))
+        ledger = train.main(base + argv)
+        assert _timing_free(_gap_free(ledger.to_json())) == _timing_free(
+            _gap_free(straight.to_json()))
+        out = capsys.readouterr().out
+        if flag == "--diag-every":
+            assert ledger.gap_rounds == [0, 1, 2] and "Eq. 2 gap ratio" in out
+        elif flag == "--obs-jsonl":
+            kinds = [json.loads(line)["kind"] for line in open("ev.jsonl")]
+            assert kinds.count("round") == 3 and kinds[-1] == "run_end"
+        elif flag == "--trace-dir":
+            assert os.listdir("trace") == ["repro-obs-rounds-0-1.pt.trace.json"]
+        return
+    if flag in ("--checkpoint", "--ckpt-every", "--resume"):
+        every = ["--ckpt-every", "2"] if flag != "--checkpoint" else []
+        first = train.main(base[:4] + ["2"] + base[5:] + ["--checkpoint", "ck", *every])
+        assert sorted(os.listdir("ck")) == ["step-00000002"]
+        assert first.loss == straight.loss[:2]
+        if flag == "--resume":
+            resumed = train.main(base + ["--resume", "ck"])
+            assert _timing_free(resumed.to_json()) == _timing_free(straight.to_json())
+            with pytest.raises(ValueError, match="fingerprint.*sampler"):
+                train.main(base + ["--resume", "ck", "--sampler", "uniform"])
+        elif flag == "--ckpt-every":
+            train.main(base + ["--checkpoint", "ck1", "--ckpt-every", "1"])
+            assert sorted(os.listdir("ck1")) == [f"step-0000000{k}" for k in (1, 2, 3)]
+        assert "[sim] round checkpoints under ck" in capsys.readouterr().out
         return
     # the client-state flags, once refused, run the cell under the system the
     # reference's parse_stragglers makes of them
-    monkeypatch.chdir(tmp_path)
     argv = STRAGGLER_FLAGS[flag]
     system, over = train.parse_stragglers(*_straggler_args(argv))
     j_system, j_over = j_train.parse_stragglers(*_straggler_args(argv))
     assert dataclasses.asdict(system) == dataclasses.asdict(j_system) and over == j_over
-    name = "femnist1-fedavg-aocs"
     ledger = train.main(["--scenario", name, "--reduced", "--rounds", "3", "--device", "cpu",
                          "--prefetch", "off", *argv])
     sc = scenarios.get_scenario(name)
@@ -122,6 +179,13 @@ def test_unported_flags_raise(flag, tmp_path, monkeypatch, capsys):
     assert ledger.workload["system"] == dataclasses.asdict(system)
     assert _timing_free(ledger.to_json()) == _timing_free(want.to_json())
     assert "sel " in capsys.readouterr().out
+
+
+def _gap_free(doc):
+    doc = copy.deepcopy(doc)
+    for key in driver.GAP_SERIES:
+        doc["metrics"].pop(key)
+    return doc
 
 
 def _straggler_args(argv):
