@@ -42,7 +42,7 @@ nvcc (one process per source, all at once), then:
     ``agg_backend="pallas"`` and the rand-k compressor of
     ``femnist1-fedavg-aocs-randk`` (both settings of the reference's own
     ``FLConfig``, built with ``Scenario.with_``): the single-pass scan engine
-    at full width for 20 rounds, 4 cached groups through the fused
+    at full width for 12 rounds, 4 cached groups through the fused
     norm+aggregate kernel and 4 spilled groups through the fused
     compress+norm+aggregate kernel every round;
   - ``femnist1-fedavg-aocs-randk`` with ``agg_backend="pallas"`` on the vmap
@@ -72,8 +72,8 @@ nvcc (one process per source, all at once), then:
   a server optimizer (sgd with momentum, adam) through the vmap and scan
   engines, which agree within atol 1e-5;
 * the driver's ``'scan'`` mode (blocks of rounds; each round after the first
-  one replay of a CUDA graph of the round body): the main path (blocks of 8,
-  8 and 4) and the charlm cell (blocks of 3, and with its accuracy on the
+  one replay of a CUDA graph of the round body): the main path (blocks of 8
+  and 4) and the charlm cell (blocks of 3, and with its accuracy on the
   eval grid), each bitwise the host and prefetch runs (masks, the ledger
   minus timing, parameters, ``acc_rounds``), a second run and the CPU's
   reduced run; a scan run's device launches are its eager first round's
@@ -124,8 +124,8 @@ nvcc (one process per source, all at once), then:
   kernels launched by the same loss without a gradient;
 * round checkpoints at full width (``resume_phase``): the main path in the
   three driver modes and ``femnist1-fedavg-threshold-straggler`` in scan
-  mode, 12 rounds each straight, with a checkpoint every 5 rounds (steps 5,
-  10 and 12) and resumed from step 5, all bitwise (parameters, and the
+  mode, 8 rounds each straight, with a checkpoint every 5 rounds (steps 5
+  and 8) and resumed from step 5, all bitwise (parameters, and the
   ledger minus timing); the resumed scan run's new graph has the straight
   run's kernel nodes; the checkpoint's bytes and save and restore seconds;
 * the obs layer (``obs_phase``): the Eq. 2 gap exactly 0.0 at full
@@ -142,6 +142,28 @@ nvcc (one process per source, all at once), then:
   --metrics-port 0`` on mamba2-130m's bf16 parameters saved by the port
   (``serve_restore_phase``: the unsaved parameters' tokens, 24 launches of
   kernel 8, the phases on the endpoint);
+* the ``--arch`` training loop (``launch/train.py``) at full width with the
+  reference's default flags (8 clients, m = 2, aocs, batch 2, seq 64):
+  mamba2-130m (D = 128,983,488, bf16) for 3 rounds on vmap + jnp, vmap +
+  pallas (kernel 1 once a round), scan + pallas (kernel 3 four times a
+  round) and a mesh of one rank with pallas (kernel 5 once a round), round
+  0's norms and masks bitwise across them and a second vmap + pallas run
+  bitwise its twin; zamba2-2.7b (D = 1,955,554,480) on the scan engine, one
+  client a group and no cache (kernel 3 at (1, D) four times a round), with
+  its peak memory; kernel 1 at (8, D) and kernel 3 at (1, D) against their
+  plain versions and timed (kernel 1 also through its ``ops`` call, which
+  pads the matrix); the reduced llama3 and mixtral rounds at sequence 2,100
+  on the card against the CPU (masks bitwise, norms and losses within 1e-4,
+  no kernel launched in the gradient passes);
+* the decoder family served at full width: llama3-8b (batch 2, prompt
+  4,096: kernel 7 32 times a prefill), paligemma-3b (its 256 patch
+  embeddings a bidirectional prefix: kernel 7 18 times with ``prefix=256``)
+  and mixtral-8x7b cut from 32 to 4 layers (batch 1, prompt 8,192: kernel 7
+  4 times with ``window=4096``), none in decode; a second run's tokens,
+  the first block's attention and the prefill's last logits against the
+  eager cores, kernel 7 timed at each prefill shape beside its plain
+  version, ``scaled_dot_product_attention`` on the same mask and its bound,
+  and the GQA/MQA kv-head repeat before it (llama3-8b, granite-20b);
 * a profiler pass (device ops per round among its numbers) of the main
   path, of the vmap + rand-k + pallas path, of the first slice's path and of
   the mesh round, and a per-layer breakdown of the main path, of the first
@@ -179,16 +201,16 @@ CHARLM_CELL = "charlm-fedavg-aocs"            # the 2-layer GRU, D = 60,630
 CHARLM_ROUNDS = 10
 CHARLM_DIM = 60630
 MAIN_DIM = 58430
-SYNC_ROUNDS = 4              # profiled host/prefetch rounds; the window spans 3
+SYNC_ROUNDS = 3              # profiled host/prefetch rounds; the window spans 2
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
               "cudaMemcpy", "cudaMemcpy2D", "cudaMemcpyFromSymbol", "cudaMemcpyToSymbol")
 SERVER_OPT_ROUNDS = 3        # the reference's test_engine_matrix_parity_server_opt
 SERVER_OPT_ATOL = 1e-5
-PATH_ROUNDS = 20
-SCAN_BLOCK = 8               # the main path's rounds_per_scan: blocks of 8, 8 and 4
+PATH_ROUNDS = 12
+SCAN_BLOCK = 8               # the main path's rounds_per_scan: blocks of 8 and 4
 CHARLM_SCAN_BLOCK = 3        # charlm's: blocks end on the eval grid too
 CHARLM_EVAL_EVERY = 5
-SCAN_PROFILE_ROUNDS = 10     # profiled scan runs: blocks of 4, 4 and 2
+SCAN_PROFILE_ROUNDS = 6      # profiled scan runs: blocks of 4 and 2
 SCAN_PROFILE_BLOCK = 4
 TRACE_TAIL = 4096            # small kernels after a profiled run (and 1/16 before it)
 SHARD_ROUNDS = 10            # = VMAP_ROUNDS = SLICE1_ROUNDS: compared bitwise
@@ -199,7 +221,7 @@ VMAP_ROUNDS = 10
 SLICE1_ROUNDS = 10
 NORM_COHORTS = 5
 PROFILE_ROUNDS = 3
-BREAKDOWN_ROUNDS = 6
+BREAKDOWN_ROUNDS = 4
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
@@ -272,14 +294,52 @@ SYSTEM_ROUNDS, SYSTEM_SCAN_BLOCK = 8, 4
 # against the CPU within REDUCED_LOGIT_ATOL times the gradient's largest entry
 GRAD_CASES = (("mamba2-130m-reduced", 2, 256), ("zamba2-2.7b-reduced", 1, 2100))
 # round checkpoints and the obs layer at full width: rounds per run, the
-# checkpoint grid (steps 5, 10 and 12, off the scan block of 8), the resumed
+# checkpoint grid (steps 5 and 8, off the scan block of 8), the resumed
 # step; the gap estimator's runs
 MODES = ("host", "prefetch", "scan")
-RESUME_ROUNDS, RESUME_EVERY, RESUME_STEP = 12, 5, 5
+RESUME_ROUNDS, RESUME_EVERY, RESUME_STEP = 8, 5, 5
 RESUME_STATE_CELL = "femnist1-fedavg-threshold-straggler"
 FULL_CELL = "femnist1-fedavg-full"
 DIAG_ROUNDS = 4              # the full-participation runs: the gap is exactly 0.0
-OBS_ROUNDS, OBS_DIAG_EVERY = 12, 2
+OBS_ROUNDS, OBS_DIAG_EVERY = 8, 2
+# the --arch training loop (launch/train.py) at full width with the
+# reference's default flags (8 clients, m = 2, aocs, 1 local step, batch 2,
+# seq 64): mamba2-130m in three engine/backend runs and on a mesh of one
+# rank; zamba2-2.7b on the scan engine, one client a group, no cache
+ARCH_ROUNDS = 3
+ARCH_MAMBA, ARCH_MAMBA_DIM = "mamba2-130m", 128983488
+ARCH_RUNS = (              # (label, flags, launches per round)
+    ("vmap+jnp", [], {}),
+    ("vmap+pallas", ["--agg-backend", "pallas"], {"masked_scale_aggregate": 1}),
+    ("scan+pallas", ["--engine", "scan", "--agg-backend", "pallas"],
+     {"norm_scale_aggregate": 4}),
+)
+SCAN_NORM_RTOL = 1e-2        # bf16 products at the groups' shapes against vmap's
+ARCH_ZAMBA, ARCH_ZAMBA_DIM, ARCH_ZAMBA_ROUNDS = "zamba2-2.7b", 1955554480, 2
+ARCH_ZAMBA_FLAGS = ["--clients", "4", "--engine", "scan", "--scan-group", "1",
+                    "--cache-groups", "0", "--agg-backend", "pallas"]
+ARCH_TIMING_REPS = 20
+# the reduced --arch rounds on the card against the CPU (f32, TF32 off) at a
+# sequence that reaches the chunked attention (>= CHUNK_THRESHOLD; mixtral's
+# window of 64 hides keys): masks bitwise, norms and losses within the
+# forward tolerance REDUCED_LOGIT_ATOL (relative, for the norms)
+ARCH_REDUCED = ("llama3-8b-reduced", "mixtral-8x7b-reduced")
+ARCH_REDUCED_FLAGS = ["--rounds", "2", "--clients", "2", "--expected", "1", "--batch", "1",
+                      "--seq", "2100"]
+# the decoder family served at full width (random weights from a seeded
+# generator on the card): (arch, layers kept or None, batch, prompt, generated
+# tokens); kernel 7 runs once per layer in the prefill and never in decode.
+# mixtral-8x7b's 46.7 B parameters do not fit in 80 GB: its depth is cut
+# from 32 layers to 4 (11.8 GB)
+DECODER_SERVES = (
+    ("llama3-8b", None, 2, 4096, 32),
+    ("paligemma-3b", None, 2, 4096, 32),
+    ("mixtral-8x7b", 4, 1, 8192, 16),
+)
+# the GQA/MQA kv-head repeat before kernel 7 (layers._repeat_kv), timed at
+# (arch, batch, S, kv heads, query heads, head dim, layers)
+REPEAT_SHAPES = (("llama3-8b", 2, 4096, 8, 32, 128, 32),
+                 ("granite-20b", 2, 4096, 1, 48, 128, 52))
 
 
 def card_line() -> str:
@@ -319,13 +379,13 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in counters().items()}
 
 
-def time_ms(fn, torch, flush=None, reps=TIMING_REPS) -> float:
+def time_ms(fn, torch, flush=None, reps=TIMING_REPS, warmup=10) -> float:
     """Median device time of one call, by CUDA events around each call after
-    a warm-up.  Before each call the device is kept busy — overwriting
+    ``warmup`` calls.  Before each call the device is kept busy — overwriting
     ``flush`` (a buffer larger than L2, so the inputs come from device
     memory), or else a spin of about 100 us (the inputs stay in L2) — so the
     events bracket the call's device work, not the host's launch overhead."""
-    for _ in range(10):
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
@@ -1437,7 +1497,8 @@ def ssd_kernel_phase(torch, dev, flush):
         eager_ms = time_ms(lambda: ssm.ssd_chunked_eager(xs, b, c, dt, da, q), torch, flush,
                            reps=5)
         xr, br, cr, dtr, dar = _ssd_rows(xs, b4, c4, dt, da)
-        plain_ms = time_ms(lambda: ss.ssd_scan_ref(xr, br, cr, dtr, dar), torch, flush, reps=3)
+        plain_ms = time_ms(lambda: ss.ssd_scan_ref(xr, br, cr, dtr, dar), torch, flush, reps=3,
+                           warmup=1)
         passes = pass_times[str((bsz, s, h, p, n))]
         total = sum(passes.values())
         # the function on the model's views: x and y once, the one B/C group
@@ -1546,17 +1607,19 @@ def _bf16_ulps(torch, got, want):
     return (got.float() - want.float()).abs() / torch.exp2(torch.floor(torch.log2(w)) - 7)
 
 
-def _profile_serve(torch, dev, cfg, params, gen):
+def _profile_serve(torch, dev, cfg, params, gen, bsz=SERVE_BATCH, prompt=SERVE_PROMPT):
     """(busy ms, wall ms, top device ops) of one serve call under the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.serve import serve
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, t = serve(cfg, SERVE_BATCH, SERVE_PROMPT, gen, device=dev, params=params)
+        _, t = serve(cfg, bsz, prompt, gen, device=dev, params=params)
     rows = []
     for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+        # the obs spans' record_function ranges are not device work
+        if (not str(getattr(e, "device_type", "")).endswith("CUDA")
+                or e.key.startswith("repro.obs/")):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -2401,7 +2464,7 @@ def resume_phase(torch) -> dict:
     ``SamplerState`` and the Markov ``ClientState``, buffers of the captured
     round) in scan mode, each run three ways for :data:`RESUME_ROUNDS`
     rounds: straight through; with a checkpoint every :data:`RESUME_EVERY`
-    rounds (steps 5, 10 and 12; the ledger identical minus timing); resumed
+    rounds (steps 5 and 8; the ledger identical minus timing); resumed
     from step 5 (parameters bitwise the straight run's, the ledger identical
     minus timing).  In scan mode the resumed run captures a new graph, whose
     kernel nodes must be the straight run's.  Returns the save and restore
@@ -2443,8 +2506,10 @@ def resume_phase(torch) -> dict:
                 ck = counted_run(torch, sc, RESUME_ROUNDS, mode, total,
                                  checkpoint=CheckpointConfig(str(d), every=RESUME_EVERY))
                 steps = available_steps(str(d))
-                if steps != [5, 10, 12]:
-                    raise AssertionError(f"{label}: checkpoint steps {steps}, want [5, 10, 12]")
+                want_steps = sorted({*range(RESUME_EVERY, RESUME_ROUNDS + 1, RESUME_EVERY),
+                                     RESUME_ROUNDS})
+                if steps != want_steps:
+                    raise AssertionError(f"{label}: checkpoint steps {steps}, want {want_steps}")
                 same_ledger(torch, f"{label}: checkpointing vs straight", ck[2:], ref[2:])
                 step = d / f"step-{RESUME_STEP:08d}"
                 nbytes[label] = sum(f.stat().st_size for f in step.iterdir())
@@ -2987,7 +3052,9 @@ def profile_phase(torch, sc, out_dir):
     wall = sum(ledger.wall_ms)
     rows = []
     for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+        # the obs spans' record_function ranges are not device work
+        if (not str(getattr(e, "device_type", "")).endswith("CUDA")
+                or e.key.startswith("repro.obs/")):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -3256,6 +3323,485 @@ def shard_breakdown_phase(torch):
         mesh.close()
 
 
+def _arch_run(torch, argv, init_fn=None) -> dict:
+    """One ``launch/train.py --arch`` run on the card with the launch counts
+    zeroed just before and read just after: its parameters, round rows,
+    counts, wall seconds and peak device memory."""
+    import numpy as np
+
+    from repro_torch.launch import train
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    params, rows = train.main(argv, init_fn=init_fn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    for r in rows:
+        if not _finite(r["loss"]) or not np.isfinite(r["norms"]).all():
+            raise AssertionError(f"{argv}: a round's loss or norms are not finite: {r}")
+    return {"params": params, "rows": rows, "counts": counts, "wall_s": wall,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "round_ms": [r["wall_s"] * 1e3 for r in rows]}
+
+
+def _want_counts(per_round: dict, rounds: int) -> dict:
+    return {name: per_round.get(name, 0) * rounds for name in counters()}
+
+
+def _same_rows(what, a, b, rounds=None) -> None:
+    import numpy as np
+
+    for k, (x, y) in enumerate(zip(a[:rounds], b[:rounds])):
+        for name in ("mask", "norms"):
+            if not np.array_equal(x[name], y[name]):
+                raise AssertionError(f"{what}: round {k}'s {name} differ")
+
+
+def arch_phase(torch, out_dir) -> dict:
+    """``launch/train.py --arch mamba2-130m`` at full width with the
+    reference's default flags, ARCH_ROUNDS rounds in each of ARCH_RUNS and a
+    second vmap + pallas run (bitwise its twin), and on a mesh of one rank
+    (kernel 5); then ``--arch zamba2-2.7b`` at full width on the scan engine
+    (kernel 3 at (1, D)).  Returns the runs' launches and numbers."""
+    import numpy as np
+
+    from repro_torch.kernels.ops import tree_leaves
+
+    t_phase = time.perf_counter()
+    base = ["--arch", ARCH_MAMBA, "--rounds", str(ARCH_ROUNDS)]
+    runs = {}
+    for label, flags, per_round in ARCH_RUNS + (("vmap+pallas twin", ARCH_RUNS[1][1],
+                                                 ARCH_RUNS[1][2]),
+                                                ("shard+pallas", ["--shard", "on",
+                                                                  "--agg-backend", "pallas"],
+                                                 {"sharded_masked_aggregate": 1})):
+        run = _arch_run(torch, base + flags)
+        want = _want_counts(per_round, ARCH_ROUNDS)
+        if run["counts"] != want:
+            raise AssertionError(f"--arch {ARCH_MAMBA} {label}: launches {run['counts']}, "
+                                 f"want {want}")
+        dim = sum(t.numel() for t in tree_leaves(run["params"]))
+        if dim != ARCH_MAMBA_DIM:
+            raise AssertionError(f"--arch {ARCH_MAMBA}: D = {dim}, want {ARCH_MAMBA_DIM}")
+        runs[label] = run
+        print(f"path arch {ARCH_MAMBA} {label} (full width, D {dim}, bf16; 8 clients, m 2, "
+              f"aocs, batch 2, seq 64, {ARCH_ROUNDS} rounds): launches {run['counts']}; per-round "
+              f"ms {run['round_ms']} (round 0 includes the first calls' set-up); wall "
+              f"{run['wall_s']} s; peak device memory {run['peak_gb']} GB; sent "
+              f"{[r['sent'] for r in run['rows']]}, losses {[r['loss'] for r in run['rows']]}; "
+              f"{card_line()}")
+    ref = runs["vmap+jnp"]["rows"]
+    # the vmap runs and the mesh of one rank take the local updates in one
+    # call over the 8 clients: norms and masks bitwise; the scan engine's
+    # groups of 2 run the bf16 products at other shapes, which the card
+    # rounds otherwise: its masks bitwise, its norms within SCAN_NORM_RTOL
+    for label in ("vmap+pallas", "shard+pallas"):
+        _same_rows(f"--arch {ARCH_MAMBA} {label} vs vmap+jnp", runs[label]["rows"], ref, 1)
+    scan_rows = runs["scan+pallas"]["rows"]
+    if not np.array_equal(scan_rows[0]["mask"], ref[0]["mask"]):
+        raise AssertionError(f"--arch {ARCH_MAMBA} scan+pallas: round 0's mask differs")
+    scan_rel = float(np.abs(scan_rows[0]["norms"] - ref[0]["norms"]).max()
+                     / np.abs(ref[0]["norms"]).max())
+    if not scan_rel <= SCAN_NORM_RTOL:
+        raise AssertionError(f"--arch {ARCH_MAMBA} scan+pallas: round 0's norms differ from "
+                             f"vmap's by {scan_rel} (relative, bound {SCAN_NORM_RTOL})")
+    twin, first = runs["vmap+pallas twin"], runs["vmap+pallas"]
+    _same_rows(f"--arch {ARCH_MAMBA} vmap+pallas vs its twin", twin["rows"], first["rows"])
+    same_params = all(torch.equal(a, b) for a, b in zip(tree_leaves(twin["params"]),
+                                                          tree_leaves(first["params"])))
+    if not same_params or [r["loss"] for r in twin["rows"]] != [r["loss"] for r in first["rows"]]:
+        raise AssertionError(f"--arch {ARCH_MAMBA}: a second vmap + pallas run differs")
+    later = {label: all(np.array_equal(x["mask"], y["mask"]) and np.array_equal(x["norms"],
+                                                                                y["norms"])
+                        for x, y in zip(runs[label]["rows"], ref))
+             for label in ("vmap+pallas", "scan+pallas", "shard+pallas")}
+    shard_params = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(runs["shard+pallas"]["params"]), tree_leaves(first["params"])))
+    print(f"path arch {ARCH_MAMBA}: round 0's norms and masks bitwise across vmap+jnp, "
+          f"vmap+pallas and shard+pallas (world size 1); scan+pallas: round 0's mask bitwise, "
+          f"its norms {scan_rel} from vmap's (relative; bitwise: {scan_rel == 0.0}); every "
+          f"round's norms and "
+          f"masks bitwise vmap+jnp's: {later}; the second vmap+pallas run bitwise its twin "
+          f"(norms, masks, losses, parameters); shard+pallas parameters bitwise vmap+pallas's: "
+          f"{shard_params}")
+    out = {"runs": {k: {x: v[x] for x in ("counts", "round_ms", "wall_s", "peak_gb")}
+                    for k, v in runs.items()}}
+    del runs, ref, twin, first
+    torch.cuda.empty_cache()
+
+    run = _arch_run(torch, ["--arch", ARCH_ZAMBA, "--rounds", str(ARCH_ZAMBA_ROUNDS)]
+                    + ARCH_ZAMBA_FLAGS)
+    want = _want_counts({"norm_scale_aggregate": 4}, ARCH_ZAMBA_ROUNDS)
+    dim = sum(t.numel() for t in tree_leaves(run["params"]))
+    if run["counts"] != want or dim != ARCH_ZAMBA_DIM:
+        raise AssertionError(f"--arch {ARCH_ZAMBA}: launches {run['counts']} (want {want}), "
+                             f"D {dim} (want {ARCH_ZAMBA_DIM})")
+    print(f"path arch {ARCH_ZAMBA} (full width, D {dim}, bf16; {' '.join(ARCH_ZAMBA_FLAGS)}; "
+          f"{ARCH_ZAMBA_ROUNDS} rounds): launches {run['counts']} (kernel 3 once per group, "
+          f"at (1, {dim})); per-round ms {run['round_ms']}; wall {run['wall_s']} s; peak device "
+          f"memory {run['peak_gb']} GB; sent {[r['sent'] for r in run['rows']]}, losses "
+          f"{[r['loss'] for r in run['rows']]}; {card_line()}")
+    out["zamba"] = {x: run[x] for x in ("counts", "round_ms", "wall_s", "peak_gb")}
+    del run
+    torch.cuda.empty_cache()
+    print(f"phase arch: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def arch_kernel_timings(torch, dev) -> dict:
+    """Kernel 1 at --arch mamba2-130m's (8, D) bf16 update matrix, kernel 5
+    (the mesh round's partial at world size 1) on the same matrix, and
+    kernel 3 at --arch zamba2-2.7b's (1, D) group: against their plain
+    versions, then timed beside them, beside the ``ops`` calls (kernels 1's
+    and 5's pad D to the tile: a copy of the matrix) and a library product,
+    with their bounds."""
+    from repro_torch.kernels import masked_aggregate as ma
+    from repro_torch.kernels import norm_aggregate as na
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sharded_aggregate as sa
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    c, d = 8, ARCH_MAMBA_DIM
+    u = (torch.randn((c, d), generator=gen, device=dev) * 1e-3).to(torch.bfloat16)
+    s = torch.rand((c,), generator=gen, device=dev) * (torch.arange(c, device=dev) % 3 == 0)
+    got = ma.masked_scale_aggregate_cuda(u, s)
+    via_ops = ops.masked_scale_aggregate(u, s)
+    err = check_close(f"masked_scale_aggregate ({c}, {d}) bf16", got,
+                      ma.masked_scale_aggregate_ref(u, s), u, s, RTOL, ATOL)
+    if not torch.equal(got, via_ops):
+        raise AssertionError("masked_scale_aggregate on the padded matrix differs from the "
+                             "kernel on the unpadded one")
+    reps = ARCH_TIMING_REPS
+    s16 = s.to(torch.bfloat16)
+    k1 = {
+        "shape": [c, d], "dtype": "bfloat16", "max_abs_err": err,
+        "ms": time_ms(lambda: ma.masked_scale_aggregate_cuda(u, s), torch, reps=reps),
+        "ops_ms": time_ms(lambda: ops.masked_scale_aggregate(u, s), torch, reps=reps),
+        "plain_ms": time_ms(lambda: ma.masked_scale_aggregate_ref(u, s), torch, reps=5),
+        "library_ms": time_ms(lambda: torch.matmul(s16, u), torch, reps=reps),
+    }
+    k1["bound_ms"], k1["bound_by"] = bound(c * d * 2 + c * 4 + d * 4, 2 * c * d,
+                                           BF16_FLOPS_PER_S)
+    pad = (-d) % ma.TILE
+    print(f"kernel arch shape masked_scale_aggregate ({c}, {d}) bf16 (--arch {ARCH_MAMBA} "
+          f"vmap+pallas; the matrix exceeds L2): kernel {k1['ms']} ms, the ops call with its "
+          f"zero pad of {pad} columns (a copy of the whole {c * (d + pad) * 2} byte matrix) "
+          f"{k1['ops_ms']} ms, plain {k1['plain_ms']} ms, torch.matmul(scale as bf16, U) "
+          f"{k1['library_ms']} ms (bf16 result), bound {k1['bound_ms']} ms ({k1['bound_by']}); "
+          f"max abs err {err}; {card_line()}")
+    # kernel 5, the mesh round's partial (world size 1: the whole cohort),
+    # on the same matrix: bitwise kernel 1's result (one client block)
+    upad = torch.nn.functional.pad(u, (0, pad))
+    got5 = sa.sharded_masked_aggregate_cuda(upad, s)[:d]
+    if not torch.equal(got5, got):
+        raise AssertionError("sharded_masked_aggregate differs from masked_scale_aggregate "
+                             f"at ({c}, {d})")
+    k5 = {
+        "shape": [c, d], "dtype": "bfloat16", "max_abs_err": err,
+        "ms": time_ms(lambda: sa.sharded_masked_aggregate_cuda(upad, s), torch, reps=reps),
+        "ops_ms": time_ms(lambda: ops.shard_masked_aggregate(u, s), torch, reps=reps),
+        "plain_ms": time_ms(lambda: sa.sharded_masked_aggregate_ref(upad, s), torch, reps=5),
+        "library_ms": k1["library_ms"],
+        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+    }
+    print(f"kernel arch shape sharded_masked_aggregate ({c}, {d}) bf16 (--arch {ARCH_MAMBA} "
+          f"--shard on, world size 1): bitwise masked_scale_aggregate's; kernel on the padded "
+          f"matrix {k5['ms']} ms, its ops call with the pad {k5['ops_ms']} ms, plain "
+          f"{k5['plain_ms']} ms, torch.matmul {k5['library_ms']} ms, bound {k5['bound_ms']} ms; "
+          f"{card_line()}")
+    del u, upad, got, got5, via_ops
+    torch.cuda.empty_cache()
+
+    c, d = 1, ARCH_ZAMBA_DIM
+    u = (torch.randn((c, d), generator=gen, device=dev) * 1e-3).to(torch.bfloat16)
+    s = torch.full((c,), 0.75, device=dev)
+    sq, agg = na.norm_scale_aggregate_cuda(u, s)
+    want_sq, want_agg = na.norm_scale_aggregate_ref(u, s)
+    err = check_close(f"norm_scale_aggregate ({c}, {d}) bf16", agg, want_agg, u, s, RTOL, ATOL)
+    check_sq(f"norm_scale_aggregate ({c}, {d}) bf16 norms", sq, want_sq, 1e-5)
+    del want_sq, want_agg
+    k3 = {
+        "shape": [c, d], "dtype": "bfloat16", "max_abs_err": err,
+        "ms": time_ms(lambda: na.norm_scale_aggregate_cuda(u, s), torch, reps=reps),
+        "plain_ms": time_ms(lambda: na.norm_scale_aggregate_ref(u, s), torch, reps=3),
+        "library_ms": None,
+    }
+    k3["bound_ms"], k3["bound_by"] = bound(c * d * 2 + c * 4 + c * 4 + d * 4, 4 * c * d,
+                                           BF16_FLOPS_PER_S)
+    print(f"kernel arch shape norm_scale_aggregate ({c}, {d}) bf16 (--arch {ARCH_ZAMBA} "
+          f"scan group 1): kernel {k3['ms']} ms, plain {k3['plain_ms']} ms, bound "
+          f"{k3['bound_ms']} ms ({k3['bound_by']}); no one library call gives the norms and "
+          f"the aggregate; max abs err {err}; {card_line()}")
+    del u, sq, agg
+    torch.cuda.empty_cache()
+    return {"masked_scale_aggregate": k1, "norm_scale_aggregate": k3,
+            "sharded_masked_aggregate": k5}
+
+
+def arch_reduced_phase(torch) -> dict:
+    """The reduced --arch rounds of ARCH_REDUCED on the card against the same
+    rounds on the CPU from the same parameters: masks bitwise, norms and
+    losses within REDUCED_LOGIT_ATOL, no kernel launched (the gradients take
+    the eager cores; the vmap + jnp round runs no aggregate kernel), while
+    the same loss without a gradient launches kernel 7."""
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.kernels.ops import tree_map
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    launched = {}
+    for arch in ARCH_REDUCED:
+        cfg = get(arch)
+        model = build_model(cfg)
+        cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+        argv = ["--arch", arch] + ARCH_REDUCED_FLAGS
+        _, want = train.main(argv + ["--device", "cpu"], init_fn=lambda dev: cpu)
+        run = _arch_run(torch, argv, init_fn=lambda dev: tree_map(lambda t: t.to(dev), cpu))
+        if any(run["counts"].values()):
+            raise AssertionError(f"--arch {arch}: the gradient passes launched {run['counts']}")
+        worst = {"norms": 0.0, "loss": 0.0}
+        for k, (g, w) in enumerate(zip(run["rows"], want)):
+            if not np.array_equal(g["mask"], w["mask"]):
+                raise AssertionError(f"--arch {arch}: round {k}'s mask differs from the CPU's")
+            n_err = float(np.abs(g["norms"] - w["norms"]).max() / np.abs(w["norms"]).max())
+            worst["norms"] = max(worst["norms"], n_err)
+            worst["loss"] = max(worst["loss"], abs(g["loss"] - w["loss"]))
+        if not (worst["norms"] <= REDUCED_LOGIT_ATOL and worst["loss"] <= REDUCED_LOGIT_ATOL):
+            raise AssertionError(f"--arch {arch}: the card's rounds differ from the CPU's by "
+                                 f"{worst}")
+        seq = int(ARCH_REDUCED_FLAGS[ARCH_REDUCED_FLAGS.index("--seq") + 1])
+        toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (1, seq)))
+        reset_counts()
+        with torch.inference_mode():
+            model.loss(tree_map(lambda t: t.to("cuda"), cpu),
+                       {"tokens": toks.cuda(), "targets": toks.cuda()})
+        launched[arch] = read_counts()["flash_attention"]
+        if launched[arch] != cfg.num_layers:
+            raise AssertionError(f"{arch}: the loss without a gradient launched kernel 7 "
+                                 f"{launched[arch]} times, want {cfg.num_layers}")
+        print(f"path arch {arch} ({' '.join(ARCH_REDUCED_FLAGS)}, f32, TF32 off): the card's "
+              f"rounds against the CPU's, masks bitwise, max relative norm diff "
+              f"{worst['norms']}, max loss diff {worst['loss']} (bound {REDUCED_LOGIT_ATOL}); "
+              f"kernel launches in the rounds {run['counts']}; the same loss without a "
+              f"gradient launches kernel 7 {launched[arch]} times; {card_line()}")
+    print(f"phase arch reduced: {time.perf_counter() - t0:.1f} s")
+    return launched
+
+
+def _attention_pairs(s: int, window, prefix: int) -> int:
+    """The (query, key) pairs that causal attention over ``s`` tokens keeps
+    under a sliding ``window`` and a bidirectional ``prefix``."""
+    import numpy as np
+
+    i = np.arange(s)
+    keep = np.minimum(i + 1, window) if window else i + 1
+    return int(keep.sum()) + (prefix * (prefix - 1) // 2 if prefix else 0)
+
+
+def decoder_attention_timing(torch, dev, flush, cfg, bsz, seq) -> dict:
+    """Kernel 7 at one decoder's prefill shape (the model's (B, S, H, hd)
+    views, kv heads repeated) against its plain version on a few rows, then
+    timed beside the plain version and ``scaled_dot_product_attention`` on
+    the same mask, with the bound of the pairs the mask keeps."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers
+
+    window = cfg.sliding_window
+    prefix = cfg.prefix_tokens if cfg.prefix_lm else 0
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = ((torch.randn((bsz, seq, h, hd), generator=gen, device=dev) * 0.5)
+               .to(torch.bfloat16) for _ in range(3))
+    got = layers.flash_attention_heads(q, k, v, window=window, prefix=prefix)
+    rows = lambda t: t[:1, :, :2].permute(0, 2, 1, 3).reshape(2, seq, hd)   # noqa: E731
+    want = fa.flash_attention_ref(rows(q), rows(k), rows(v), window=window, prefix=prefix)
+    atol, rtol = ATTN_TOL["bfloat16"]
+    err = (rows(got).float() - want.float()).abs()
+    if bool((err > atol + rtol * want.float().abs()).any()):
+        raise AssertionError(f"flash_attention at {cfg.name}'s prefill shape: max abs err "
+                             f"{float(err.max())}")
+    q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if window or prefix:
+        mask = layers.causal_mask(seq, window, prefix, dev)
+        lib = lambda: sdpa(q4, k4, v4, attn_mask=mask)           # noqa: E731
+    else:
+        lib = lambda: sdpa(q4, k4, v4, is_causal=True)           # noqa: E731
+    lib_err = float((lib().transpose(1, 2).float() - got.float()).abs().max())
+    out = {
+        "shape": [bsz, seq, h, hd], "window": window, "prefix": prefix,
+        "max_abs_err": float(err.max()),
+        "ms": time_ms(lambda: layers.flash_attention_heads(q, k, v, window=window,
+                                                           prefix=prefix), torch, flush,
+                      reps=ARCH_TIMING_REPS),
+        "plain_ms": time_ms(lambda: fa.flash_attention_ref(rows(q), rows(k), rows(v),
+                                                           window=window, prefix=prefix),
+                            torch, flush, reps=3) * (bsz * h) / 2,
+        "library_ms": time_ms(lib, torch, flush, reps=ARCH_TIMING_REPS),
+        "library_max_abs_diff": lib_err,
+    }
+    flops = 4 * bsz * h * hd * _attention_pairs(seq, window, prefix)
+    out["bound_ms"], out["bound_by"] = bound(4 * bsz * seq * h * hd * 2, flops,
+                                             BF16_FLOPS_PER_S)
+    print(f"kernel decoder shape flash_attention {cfg.name} (B {bsz}, S {seq}, H {h}, hd {hd}, "
+          f"window {window}, prefix {prefix}) bf16 (median, L2 flushed): kernel {out['ms']} ms, "
+          f"plain {out['plain_ms']} ms (two rows timed, scaled to the {bsz * h}), "
+          f"scaled_dot_product_attention on the same mask {out['library_ms']} ms (max abs diff "
+          f"{lib_err}); bound {out['bound_ms']} ms ({out['bound_by']}: {flops} flops at 989 "
+          f"TFLOP/s); rows against the plain version, max abs err {out['max_abs_err']}; "
+          f"{card_line()}")
+    return out
+
+
+def repeat_kv_timing(torch, dev) -> dict:
+    """The GQA/MQA kv-head repeat (``layers._repeat_kv``, a copy of k and v
+    before kernel 7) at REPEAT_SHAPES: per call and per prefill."""
+    from repro_torch.models import layers
+
+    out = {}
+    for arch, bsz, seq, kvh, h, hd, nl in REPEAT_SHAPES:
+        k = torch.randn((bsz, seq, kvh, hd), device=dev).to(torch.bfloat16)
+        ms = time_ms(lambda: layers._repeat_kv(k, h // kvh), torch, reps=ARCH_TIMING_REPS)
+        out[arch] = {"ms_per_call": ms, "ms_per_prefill": ms * 2 * nl,
+                     "bytes_per_call": bsz * seq * h * hd * 2}
+        print(f"kernel decoder repeat_kv {arch}: (B {bsz}, S {seq}, {kvh} kv heads -> {h}, hd "
+              f"{hd}) bf16 {ms} ms a call, {ms * 2 * nl} ms a prefill (k and v, {nl} layers); "
+              f"{card_line()}")
+    return out
+
+
+def decoder_serve_phase(torch, dev, arch, depth, bsz, prompt, gen) -> dict:
+    """One decoder served at full width (``depth`` layers if given): set-up,
+    a measured run with the launch counts zeroed just before and read just
+    after (kernel 7 once per layer in the prefill, none in decode), a second
+    run with the same tokens, the first block's attention through the kernel
+    against the eager core, and the kernel prefill's last logits against the
+    eager-core prefill's."""
+    from repro_torch.configs import get
+    from repro_torch.kernels.ops import tree_leaves
+    from repro_torch.launch.serve import prompt_batch, serve
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import apply_attention, apply_norm
+    from repro_torch.models.model import _attn_ctx, _positions
+
+    cfg = get(arch)
+    if depth is not None:
+        cfg = cfg.with_(num_layers=depth)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    toks0, _ = serve(cfg, bsz, prompt, gen, device=dev, params=params)
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    toks, t = serve(cfg, bsz, prompt, gen, device=dev, params=params)
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    want = _want_counts({"flash_attention": cfg.num_layers}, 1)
+    if counts != want:
+        raise AssertionError(f"{arch} serve: launches {counts}, want {want} (one prefill, "
+                             f"none in decode)")
+    if toks.shape != (bsz, gen) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"{arch} serve: bad tokens {toks.shape}")
+    if not (toks == toks0).all():
+        raise AssertionError(f"{arch} serve: a second run gave other tokens")
+    steps = t["decode_steps"]
+    tok_s = steps * bsz / (t["decode_ms"] / 1e3)
+    cut = "" if depth is None else f" (depth cut from {get(arch).num_layers} to {depth} layers)"
+    print(f"path serve {arch}{cut}: {cfg.num_layers} layers, d {cfg.d_model}, {cfg.dtype}, "
+          f"{n_params} parameters, window {cfg.sliding_window}, prefix {cfg.prefix_tokens}; "
+          f"batch {bsz}, prompt {prompt}, gen {gen}; launches in the run {counts}; a second run "
+          f"gave the same tokens; first tokens {toks[0][:8].tolist()}")
+    print(f"path serve {arch} timing: prefill {t['prefill_ms']} ms; decode {t['decode_ms']} ms "
+          f"for {steps} steps = {t['decode_ms'] / steps} ms per step, {tok_s} generated "
+          f"tokens/s; set-up (init + the first serve call) {setup_ms} ms; peak device memory "
+          f"{peak_gb} GB; {card_line()}")
+
+    inputs = {k: torch.as_tensor(v, device=dev) for k, v in prompt_batch(cfg, bsz, prompt).items()}
+    with torch.inference_mode():
+        h = T.embed_tokens(params["embed"], inputs["tokens"], cfg)
+        if cfg.prefix_tokens:
+            h = torch.cat([inputs["patches"].to(h.dtype), h], dim=1)
+        seq = h.shape[1]
+        mask, ci = _attn_ctx(cfg, seq, cfg.prefix_tokens if cfg.prefix_lm else 0, h.device)
+        kw = {"positions": _positions(bsz, seq, h.device), "mask": mask, "chunked_info": ci}
+        blk = T.layer(params["layers"], 0)
+        x = apply_norm(blk["norm1"], h, cfg)
+        got, _ = apply_attention(blk["attn"], x, cfg, **kw)
+        with _eager_cores():
+            want_blk, _ = apply_attention(blk["attn"], x, cfg, **kw)
+        del h, x
+        got_logits, _ = model.prefill(params, inputs, prompt + gen)
+        reset_counts()
+        with _eager_cores():
+            want_logits, _ = model.prefill(params, inputs, prompt + gen)
+        eager_counts = read_counts()
+    diff = (got.float() - want_blk.float()).abs()
+    d_max, d_rms = float(diff.max()), float(diff.square().mean().sqrt())
+    w_max = float(want_blk.float().abs().max())
+    w_rms = float(want_blk.float().square().mean().sqrt())
+    print(f"path serve {arch} attention of block 0: kernel core against eager core, bf16 output "
+          f"{tuple(got.shape)}: max abs diff {d_max} (bound {SERVE_BLOCK_MAX} x max |out| "
+          f"{w_max}), rms diff {d_rms} (bound {SERVE_BLOCK_RMS} x rms(out) {w_rms})")
+    if not (d_max <= SERVE_BLOCK_MAX * w_max and d_rms <= SERVE_BLOCK_RMS * w_rms):
+        raise AssertionError(f"{arch} attention of block 0: the kernel core's output is not "
+                             f"within bf16 rounding of the eager core's")
+    got_logits, want_logits = got_logits.float(), want_logits.float()
+    err = float((got_logits - want_logits).abs().max())
+    scale = float(want_logits.abs().max())
+    agree = float((got_logits[:, -1].argmax(-1) == want_logits[:, -1].argmax(-1)).float().mean())
+    if any(eager_counts.values()):
+        raise AssertionError(f"the eager-core prefill launched kernels: {eager_counts}")
+    if not bool(torch.isfinite(got_logits).all()) or not err <= SERVE_LOGIT_RTOL * scale:
+        raise AssertionError(f"{arch}: kernel prefill logits differ from the eager cores' by "
+                             f"{err} (max |logit| {scale}, rtol {SERVE_LOGIT_RTOL})")
+    print(f"path serve {arch}: the kernel prefill's last-position logits against the "
+          f"eager-core prefill: max abs diff {err}, max |logit| {scale} (bound "
+          f"{SERVE_LOGIT_RTOL} x max |logit|), top-1 agreement {agree}")
+    busy = None
+    if arch == DECODER_SERVES[0][0]:
+        busy, wall, rows, _ = _profile_serve(torch, dev, cfg, params, 1, bsz, prompt)
+        for key, ms, count in rows[:8]:
+            print(f"profile serve {arch} prefill: {ms:10.3f} ms {count:6d}x  {key[:80]}")
+        print(f"profile serve {arch} prefill alone (gen 1): wall {wall} ms, device busy {busy} "
+              f"ms; {card_line()}")
+    del params, got, want_blk, got_logits, want_logits
+    torch.cuda.empty_cache()
+    return {"arch": arch, "layers": cfg.num_layers, "counts": counts,
+            "prefill_ms": t["prefill_ms"], "decode_ms_per_step": t["decode_ms"] / steps,
+            "tokens_per_s": tok_s, "setup_ms": setup_ms, "peak_gb": peak_gb,
+            "logit_max_abs_diff": err, "prefill_busy_ms": busy}
+
+
+def decoder_phase(torch, dev) -> dict:
+    """Every DECODER_SERVES path (:func:`decoder_serve_phase`) with kernel 7
+    timed at its prefill shape, then the GQA/MQA repeat copies."""
+    from repro_torch.configs import get
+
+    t0 = time.perf_counter()
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+    out = {}
+    for arch, depth, bsz, prompt, gen in DECODER_SERVES:
+        out[arch] = decoder_serve_phase(torch, dev, arch, depth, bsz, prompt, gen)
+        cfg = get(arch)
+        out[arch]["kernel"] = decoder_attention_timing(torch, dev, flush, cfg, bsz,
+                                                       prompt + cfg.prefix_tokens)
+        torch.cuda.empty_cache()
+    out["repeat_kv"] = repeat_kv_timing(torch, dev)
+    del flush
+    torch.cuda.empty_cache()
+    print(f"phase decoder: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _finite(x: float) -> bool:
     return x == x and abs(x) != float("inf")
 
@@ -3309,12 +3855,16 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"build:   {line.strip()}")
 
+    def mark(label):
+        print(f"chip_smoke: {label} done at {time.perf_counter() - t_main:.1f} s")
+
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
     kernels = [kernel_phase(torch, dev, flush)] + norm_kernel_phase(torch, dev, flush)
     kernels += shard_kernel_phase(torch, dev, flush)
     kernels += [attention_kernel_phase(torch, dev, flush), ssd_kernel_phase(torch, dev, flush)]
     kernels[0].update(charlm_kernel_check(torch, dev, flush))
     del flush
+    mark("kernel phases")
 
     main_sc = main_scenario()
     print(f"path: the main path is the reference cell {MAIN_CELL} built with "
@@ -3337,7 +3887,7 @@ def main() -> int:
     print(f"path {main_sc.name}: host {main_ledger.rounds_per_sec} vs prefetch "
           f"{pre_ledger.rounds_per_sec} rounds/s after the first round; ClientPool.nbytes "
           f"{pre_ledger.workload['pool_bytes']}")
-    # the scan-over-rounds mode: blocks of 8, 8 and 4, each round one replay
+    # the scan-over-rounds mode: blocks of 8 and 4, each round one replay
     # of a CUDA graph of the round body
     scan_counts, scan_params, scan_ledger = path_phase(
         torch, main_sc, PATH_ROUNDS, main_per_round, args.out, mode="scan")
@@ -3372,6 +3922,7 @@ def main() -> int:
             f"{mode} {led.rounds_per_sec} rounds/s, median {statistics.median(led.wall_ms[1:])} "
             f"ms per round" for led, mode in runs) + f"; {card_line()}")
     server_opt_phase(torch, dev)
+    mark("main path, charlm and server optimizers")
     vmap_counts, vmap_params, vmap_ledger = path_phase(
         torch, vmap_scenario(), VMAP_ROUNDS, {"compress_norm_scale_aggregate": 1}, args.out)
     from repro_torch.sim.scenarios import get_scenario
@@ -3393,14 +3944,23 @@ def main() -> int:
     system_phase(torch, args.out)
     zoo_phase(torch, args.out)
     system_shard_launches = system_shard_phase(torch, args.out)
+    mark("vmap, mesh, system and zoo paths")
     mesh4_phase(torch, args.out)
+    mark("4 gloo ranks")
     serves = {arch: serve_phase(torch, dev, arch, gen, per_prefill, args.out)
               for arch, gen, per_prefill in SERVE_PATHS}
     serve_reduced_phase(torch, dev)
+    mark("serve phases")
     grad_launches = grad_phase(torch)
     resumed = resume_phase(torch)
     obs = obs_phase(torch, resumed.pop("straight"))
+    mark("grad, resume and obs phases")
     serve_restore_phase(torch, dev)
+    arch = arch_phase(torch, args.out)
+    arch_kernels = arch_kernel_timings(torch, dev)
+    arch_reduced = arch_reduced_phase(torch)
+    decoders = decoder_phase(torch, dev)
+    mark("restore, arch and decoder phases")
     zamba, mamba = (f"{arch} serve" for arch, _, _ in SERVE_PATHS)
     launches = {
         "masked_scale_aggregate": (slice1_counts, SLICE1_CELL),
@@ -3446,6 +4006,26 @@ def main() -> int:
         by_name[name]["diag_path"] = f"{main_sc.name}+full, diag_every 1"
     by_name["compress_norm_scale_aggregate"]["diag_path"] += (
         f" (vmap host: {VMAP_CELL}+pallas+full)")
+    # the --arch loop's aggregates (kernel 1, kernel 3 and kernel 5), each
+    # timed at its --arch shape, and kernel 7 in the decoder family's prefills
+    runs = arch["runs"]
+    by_name["masked_scale_aggregate"]["arch"] = dict(
+        arch_kernels["masked_scale_aggregate"], path=f"--arch {ARCH_MAMBA} vmap+pallas",
+        launches=runs["vmap+pallas"]["counts"]["masked_scale_aggregate"])
+    by_name["norm_scale_aggregate"]["arch"] = dict(
+        arch_kernels["norm_scale_aggregate"], path=f"--arch {ARCH_MAMBA} scan+pallas",
+        launches=runs["scan+pallas"]["counts"]["norm_scale_aggregate"],
+        zamba_path=f"--arch {ARCH_ZAMBA} {' '.join(ARCH_ZAMBA_FLAGS)}",
+        zamba_launches=arch["zamba"]["counts"]["norm_scale_aggregate"])
+    by_name["sharded_masked_aggregate"]["arch"] = dict(
+        arch_kernels["sharded_masked_aggregate"],
+        path=f"--arch {ARCH_MAMBA} --shard on --agg-backend pallas (world size 1)",
+        launches=runs["shard+pallas"]["counts"]["sharded_masked_aggregate"])
+    by_name["flash_attention"]["decoder"] = {
+        name: dict(d["kernel"], path=f"{name} serve", launches=d["counts"]["flash_attention"])
+        for name, d in decoders.items() if name != "repeat_kv"}
+    by_name["flash_attention"]["repeat_kv"] = decoders["repeat_kv"]
+    by_name["flash_attention"]["arch_reduced_loss_launches"] = arch_reduced
 
     profile_phase(torch, main_sc, args.out)
     profile_phase(torch, vmap_scenario(), args.out)
@@ -3454,6 +4034,7 @@ def main() -> int:
     scan_breakdown_phase(torch)
     breakdown_phase(torch)
     shard_breakdown_phase(torch)
+    mark("profile and breakdown phases")
 
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s in all, the builds included")
     print(card_line())

@@ -1,15 +1,12 @@
 """Run and architecture configuration: copies of the reference's
-``FLConfig`` and ``ModelConfig`` (``repro/configs/base.py``) with the same
-fields, defaults, validation and methods, so one scenario or one
-architecture name means the same run in both packages.
+``FLConfig``, ``ModelConfig`` and ``InputShape`` (``repro/configs/base.py``)
+with the same fields, defaults, validation and methods, so one scenario or
+one architecture name means the same run in both packages.
 
 ``ModelConfig`` is data: all of its fields are kept, also those of the
-families the port cannot build yet (``models/model.py::build_model`` raises
-for those).
-
-The axes the port does not run yet (the sampler zoo beyond
-optimal/aocs/uniform/full, the client-state layer, the mesh) keep their
-fields here and are rejected by the modules that would use them.
+encoder-decoder family, which the port cannot build yet
+(``models/model.py::build_model`` raises for it), and ``moe_ep_axis``, a
+sharding hint that the port's one-device MoE ignores.
 """
 
 from __future__ import annotations
@@ -193,6 +190,14 @@ class ModelConfig:
             prefix_tokens=min(self.prefix_tokens, 16) if self.prefix_tokens else 0,
             dtype="float32",
         )
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                   # 'train' | 'prefill' | 'decode'
 
 
 @dataclass(frozen=True)

@@ -1,0 +1,5 @@
+"""Assigned architecture config (see registry for the literal spec)."""
+
+from repro_torch.configs.registry import GEMMA_7B as CONFIG  # noqa: F401
+
+CONFIG_REDUCED = CONFIG.reduced()

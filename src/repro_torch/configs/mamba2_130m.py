@@ -1,0 +1,5 @@
+"""Assigned architecture config (see registry for the literal spec)."""
+
+from repro_torch.configs.registry import MAMBA2_130M as CONFIG  # noqa: F401
+
+CONFIG_REDUCED = CONFIG.reduced()

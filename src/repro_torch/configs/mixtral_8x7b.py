@@ -1,0 +1,5 @@
+"""Assigned architecture config (see registry for the literal spec)."""
+
+from repro_torch.configs.registry import MIXTRAL_8X7B as CONFIG  # noqa: F401
+
+CONFIG_REDUCED = CONFIG.reduced()

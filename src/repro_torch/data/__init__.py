@@ -7,4 +7,5 @@ from repro_torch.data.synthetic import (  # noqa: F401
     cifar_like,
     eval_split,
     femnist_like,
+    quadratics,
 )

@@ -7,6 +7,7 @@
 * ``charlm``       — the Shakespeare-like next-character pool (Sec. 4.2,
   Figs. 6-7): ``CHARLM_VOCAB`` symbols, ``tokens``/``targets`` windows.
 * ``eval_split``   — a held-out pool from the same generative process.
+* ``quadratics``   — the heterogeneous quadratic clients of the quickstart.
 
 Pure numpy, so the same ``Generator`` gives bit-identical client data and
 ``sample_round_batches`` output in both packages.
@@ -161,3 +162,19 @@ def charlm(
             {"tokens": chunk[:, :-1].astype(np.int32), "targets": chunk[:, 1:].astype(np.int32)}
         )
     return FederatedDataset(clients, v, seq_len)
+
+
+def quadratics(n_clients: int = 16, dim: int = 10, hetero: float = 1.0, seed: int = 0):
+    """f_i(x) = 0.5 (x-c_i)^T A_i (x-c_i); returns (A (n,d,d), c (n,d), x*)."""
+    rng = np.random.default_rng(seed)
+    a = []
+    for _ in range(n_clients):
+        q = rng.normal(size=(dim, dim))
+        eig = rng.uniform(0.5, 2.0, size=dim)
+        qq, _ = np.linalg.qr(q)
+        a.append((qq * eig) @ qq.T)
+    a = np.stack(a).astype(np.float32)
+    c = (rng.normal(size=(n_clients, dim)) * hetero).astype(np.float32)
+    # global optimum of (1/n) sum f_i: solve (sum A_i) x = sum A_i c_i
+    x_star = np.linalg.solve(a.sum(0), np.einsum("nij,nj->i", a, c)).astype(np.float32)
+    return a, c, x_star

@@ -192,7 +192,11 @@ def make_local_update(loss_fn: Callable, fl: FLConfig):
         for r in range(fl.local_steps):
             g, loss = grad_fn(p, {k: v[r] for k, v in client_batch.items()})
             m = step_mask[r]
-            p = kops.tree_map(lambda a, b: a - m * fl.lr_local * b.to(a.dtype), p, g)
+            # in f32, rounded once to the parameter's dtype: the reference's
+            # (a - m * lr * b).astype(a.dtype) promotes a bf16 leaf against
+            # the f32 step mask, where torch would round m * lr * b to bf16
+            p = kops.tree_map(
+                lambda a, b: (a - m * fl.lr_local * b.to(a.dtype).float()).to(a.dtype), p, g)
             losses.append(loss)
         update = kops.tree_map(lambda a, b: a - b, params, p)
         loss = torch.sum(torch.stack(losses) * step_mask) / torch.clamp(

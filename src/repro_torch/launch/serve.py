@@ -1,12 +1,14 @@
 """Serving driver: batched prefill + greedy decode — the port of
-``repro/launch/serve.py`` for the families the port builds (ssm: mamba2;
-hybrid: zamba2).  It follows the reference's steps: prompt tokens from
+``repro/launch/serve.py`` for the families the port builds (decoder:
+dense, MoE, VLM prefix; ssm: mamba2; hybrid: zamba2).  It follows the
+reference's steps: prompt tokens (and a VLM's stub ``patches``) from
 ``np.random.default_rng(0)``, ``cache_len = prompt_len + gen``, greedy
 argmax, decode position ``prompt_len + prefix + i``.
 
 On the card the prefill of a long prompt runs the hand-written kernels: the
-SSD scan in every Mamba2 block, and flash attention in the hybrid's shared
-attention block at ``prompt_len >= CHUNK_THRESHOLD``.  Decode is eager.
+SSD scan in every Mamba2 block, and flash attention (with the sliding window
+or the bidirectional prefix where the config has one) in every attention
+block at ``prompt_len >= CHUNK_THRESHOLD``.  Decode is eager.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b-reduced \\
       --batch 4 --prompt-len 32 --gen 16 --device cpu
@@ -61,7 +63,19 @@ def load_params(path: str, like_params):
 
 def prompt_tokens(cfg: ModelConfig, batch: int, prompt_len: int) -> np.ndarray:
     """The reference's prompt: ``default_rng(0).integers(0, vocab, (B, S))``."""
-    return np.random.default_rng(0).integers(0, cfg.vocab_size, (batch, prompt_len))
+    return prompt_batch(cfg, batch, prompt_len)["tokens"]
+
+
+def prompt_batch(cfg: ModelConfig, batch: int, prompt_len: int) -> dict:
+    """The reference's prefill batch as numpy arrays: the prompt tokens and,
+    for a VLM prefix, the stub ``patches`` ``(B, prefix_tokens, d)`` f32,
+    drawn after the tokens from the same ``default_rng(0)``."""
+    rng = np.random.default_rng(0)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, prompt_len))}
+    if cfg.prefix_tokens:
+        out["patches"] = (rng.normal(size=(batch, cfg.prefix_tokens, cfg.d_model))
+                          * 0.02).astype(np.float32)
+    return out
 
 
 def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int, *, device=None,
@@ -87,10 +101,11 @@ def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int, *, device=Non
     init_ms = (time.perf_counter() - t0) * 1e3
     cache_len = prompt_len + gen
     prefix = cfg.prefix_tokens or 0
-    tokens = torch.as_tensor(prompt_tokens(cfg, batch, prompt_len), device=dev)
+    inputs = {k: torch.as_tensor(v, device=dev)
+              for k, v in prompt_batch(cfg, batch, prompt_len).items()}
     with torch.inference_mode():
         with span("prefill", sink) as sp:
-            logits, cache = model.prefill(params, {"tokens": tokens}, cache_len)
+            logits, cache = model.prefill(params, inputs, cache_len)
             tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
             sp.block(tok)
         prefill_ms = sp.seconds * 1e3

@@ -9,17 +9,20 @@
   init_cache(batch_size, cache_len, device) -> cache
 
 ``batch`` is a dict with ``tokens`` (and ``targets`` for the loss), (B, S)
-integers.  The port builds the ``ssm`` family (mamba2) and the ``hybrid``
-family (zamba2: a Mamba2 backbone with one weight-shared attention block
-every ``shared_attn_every`` layers); the decoder family (dense, MoE, VLM
-prefix) and the encoder-decoder family (whisper) raise
-``NotImplementedError``.  Stacked layers are looped over in Python; there is
-no training step (and so no rematerialisation) yet.
+integers, and for a VLM prefix (paligemma) the stub embeddings ``patches``
+(B, prefix_tokens, d).  The port builds the decoder family (dense, MoE with
+an optional sliding window, VLM prefix), the ``ssm`` family (mamba2) and
+the ``hybrid`` family (zamba2: a Mamba2 backbone with one weight-shared
+attention block every ``shared_attn_every`` layers); the encoder-decoder
+family (whisper) raises ``NotImplementedError``.  Stacked layers are looped
+over in Python, with no rematerialisation (the reference's ``remat`` is
+not taken).
 
 ``init`` draws from a ``torch.Generator`` (on its own device) and places the
 parameters on ``device`` cast to ``cfg.dtype``, as the reference's ``_cast``
-does.  ``decode_step`` writes the step into ``cache`` in place and returns
-it (the reference returns an updated copy).
+does; the decoder casts each layer as it is drawn, so a full-width init
+never holds the whole stack in f32.  ``decode_step`` writes the step into
+``cache`` in place and returns it (the reference returns an updated copy).
 """
 
 from __future__ import annotations
@@ -38,10 +41,8 @@ from repro_torch.models.layers import causal_mask, decode_mask
 # and never materialise an (S, S) mask or score matrix
 CHUNK_THRESHOLD = 2048
 
-DECODER_TODO = ("the decoder family (dense, MoE, VLM prefix) is not ported yet "
-                "(ROADMAP queue 1: llama3-8b dense first)")
 ENCDEC_TODO = ("the encoder-decoder family (whisper) is not ported yet "
-               "(ROADMAP queue 1, after the decoder family)")
+               "(ROADMAP queue 1, item 5)")
 
 
 def _cast(tree, dtype, device):
@@ -102,6 +103,83 @@ def _fit_kv(k: torch.Tensor, seq: int, buf_len: int) -> torch.Tensor:
         shift = (seq - buf_len) % buf_len
         return torch.roll(k[:, -buf_len:], shift, dims=1)
     return torch.nn.functional.pad(k, (0, 0, 0, 0, 0, buf_len - seq))
+
+
+# ---------------------------------------------------------------------------
+# decoder-only family (dense / moe / vlm prefix)
+
+
+def _build_decoder(cfg: ModelConfig) -> Model:
+    ff_kind = "moe" if cfg.layer_kinds()[0] == "attn_moe" else "mlp"
+    nl = cfg.num_layers
+    dtype = getattr(torch, cfg.dtype)
+
+    def init(gen: torch.Generator, device=None):
+        dev = device if device is not None else gen.device
+        embed = _cast(T.init_embed(gen, cfg), dtype, dev)
+        layers = T._stacked(nl, lambda: _cast(T.init_attn_block(gen, cfg, ff_kind), dtype, dev))
+        return {"embed": embed, "layers": layers}
+
+    def _inputs(p, batch):
+        h = T.embed_tokens(p["embed"], batch["tokens"], cfg)
+        prefix = 0
+        if cfg.prefix_tokens:
+            patches = batch["patches"].to(h.dtype)          # stub embeddings (B, P, d)
+            h = torch.cat([patches, h], dim=1)
+            prefix = cfg.prefix_tokens
+        bsz, seq, _ = h.shape
+        return h, _positions(bsz, seq, h.device), prefix
+
+    def forward(p, batch):
+        h, positions, prefix = _inputs(p, batch)
+        mask, ci = _attn_ctx(cfg, h.shape[1], prefix if cfg.prefix_lm else 0, h.device)
+        auxes = []
+        for i in range(nl):
+            h, _, aux = T.attn_block(T.layer(p["layers"], i), h, cfg, positions=positions,
+                                     mask=mask, ff_kind=ff_kind, chunked_info=ci)
+            auxes.append(aux)
+        logits = T.lm_logits(p["embed"], h, cfg)
+        if prefix:
+            logits = logits[:, prefix:]
+        return logits, torch.sum(torch.stack(auxes))
+
+    def loss(p, batch):
+        logits, aux = forward(p, batch)
+        ce = cross_entropy(logits, batch["targets"], batch.get("loss_mask"))
+        return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
+
+    def init_cache(batch_size, cache_len, device=None):
+        return {"kv": KV.init_kv(cfg, nl, batch_size, cache_len + (cfg.prefix_tokens or 0),
+                                 dtype, device)}
+
+    def prefill(p, batch, cache_len):
+        h, positions, prefix = _inputs(p, batch)
+        seq = h.shape[1]
+        mask, ci = _attn_ctx(cfg, seq, prefix if cfg.prefix_lm else 0, h.device)
+        cache = init_cache(h.shape[0], cache_len, h.device)
+        k_all, v_all = cache["kv"]["k"], cache["kv"]["v"]
+        buf_len = k_all.shape[2]
+        for i in range(nl):
+            h, (k, v), _ = T.attn_block(T.layer(p["layers"], i), h, cfg, positions=positions,
+                                        mask=mask, ff_kind=ff_kind, cache=(), chunked_info=ci)
+            k_all[i] = _fit_kv(k, seq, buf_len)
+            v_all[i] = _fit_kv(v, seq, buf_len)
+        return T.lm_logits(p["embed"], h[:, -1:, :], cfg), cache
+
+    def decode_step(p, tokens, cache, pos):
+        """tokens: (B, 1); pos: the position of this token (0-based; it counts
+        a VLM's prefix)."""
+        h = T.embed_tokens(p["embed"], tokens, cfg)
+        positions = torch.full((h.shape[0], 1), pos, dtype=torch.int64, device=h.device)
+        k_all, v_all = cache["kv"]["k"], cache["kv"]["v"]
+        mask = decode_mask(k_all.shape[2], pos, cfg.sliding_window, h.device)
+        for i in range(nl):
+            h, _, _ = T.attn_block(T.layer(p["layers"], i), h, cfg, positions=positions,
+                                   mask=mask, ff_kind=ff_kind, cache=(k_all[i], v_all[i]),
+                                   cache_index=pos)
+        return T.lm_logits(p["embed"], h, cfg), cache
+
+    return Model(cfg, init, forward, loss, prefill, decode_step, init_cache)
 
 
 # ---------------------------------------------------------------------------
@@ -245,4 +323,4 @@ def build_model(cfg: ModelConfig) -> Model:
         return _build_ssm(cfg)
     if "mamba2" in kinds:
         return _build_hybrid(cfg)
-    raise NotImplementedError(DECODER_TODO)
+    return _build_decoder(cfg)

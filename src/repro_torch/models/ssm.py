@@ -96,7 +96,12 @@ def ssd_chunked_eager(xs, bmat, cmat, dt, da, chunk: int) -> tuple:
     """The reference's chunked SSD core in eager torch, both of its forms:
     more than 64 chunks run one fused pass over the chunks (live memory
     O(B Q Q H)), fewer run all chunks at once and then the inter-chunk
-    recurrence.  Same arguments and results as :func:`ssd_chunked`."""
+    recurrence.  Same arguments and results as :func:`ssd_chunked`.
+
+    The decay masks the segment sums before ``exp`` (the reference masks
+    after it): the values are the same, but above the diagonal a segment sum
+    can pass float32's ``exp`` range at full width, and there the
+    reference's gradient is ``0 * inf = nan`` where this one is 0."""
     bsz, seq, h, p = xs.shape
     n, q = bmat.shape[-1], chunk
     nc = seq // q
@@ -115,7 +120,7 @@ def ssd_chunked_eager(xs, bmat, cmat, dt, da, chunk: int) -> tuple:
             dt_i, da_i = dt_c[:, ci], da_c[:, ci]
             a_cs = torch.cumsum(da_i, dim=1)                           # (B,Q,H)
             seg = a_cs[:, :, None, :] - a_cs[:, None, :, :]            # (B,Q,Q,H)
-            decay = torch.where(tri[None, :, :, None], torch.exp(seg), 0.0)
+            decay = torch.exp(torch.where(tri[None, :, :, None], seg, -torch.inf))
             cb = torch.einsum("bsn,btn->bst", c_i, b_i)
             att = cb[..., None] * decay * dt_i[:, None, :, :]
             y_diag = torch.einsum("bsth,bthp->bshp", att, x_i)
@@ -129,7 +134,7 @@ def ssd_chunked_eager(xs, bmat, cmat, dt, da, chunk: int) -> tuple:
 
     a_cs = torch.cumsum(da_c, dim=2)                                   # (B,NC,Q,H)
     seg = a_cs[:, :, :, None, :] - a_cs[:, :, None, :, :]              # (B,NC,Q,Q,H)
-    decay = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
+    decay = torch.exp(torch.where(tri[None, None, :, :, None], seg, -torch.inf))
     cb = torch.einsum("bcsn,bctn->bcst", c_c, b_c)                     # (B,NC,Q,Q)
     att = cb[..., None] * decay * dt_c[:, :, None, :, :]               # (B,NC,Q,Q,H)
     y_diag = torch.einsum("bcsth,bcthp->bcshp", att, xs_c)

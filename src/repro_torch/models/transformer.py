@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import tree_map
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import (
     _dense_init,
@@ -22,10 +23,6 @@ from repro_torch.models.layers import (
     init_mlp,
     init_norm,
 )
-
-MOE_TODO = ("the MoE feed-forward (models/moe.py) is not ported yet "
-            "(ROADMAP queue 1: the decoder family, then MoE)")
-
 
 def _stacked(n: int, init_fn):
     """``n`` draws of ``init_fn()`` stacked leaf by leaf on a leading axis."""
@@ -47,30 +44,32 @@ def layer(tree, i: int):
 
 
 def init_attn_block(gen: torch.Generator, cfg: ModelConfig, ff_kind: str):
-    """An attention + MLP block (the reference's, without the cross-attention
-    of the encoder-decoder family, which the port does not build yet)."""
-    if ff_kind == "moe":
-        raise NotImplementedError(MOE_TODO)
+    """An attention block with an MLP or (``ff_kind="moe"``) a
+    mixture-of-experts feed-forward (the reference's, without the
+    cross-attention of the encoder-decoder family, which the port does not
+    build yet)."""
     dev = gen.device
     return {
         "norm1": init_norm(cfg, cfg.d_model, dev),
         "attn": init_attention(gen, cfg),
         "norm2": init_norm(cfg, cfg.d_model, dev),
-        "ff": init_mlp(gen, cfg),
+        "ff": M.init_moe(gen, cfg) if ff_kind == "moe" else init_mlp(gen, cfg),
     }
 
 
 def attn_block(p, h, cfg: ModelConfig, *, positions, mask, ff_kind: str, cache=None,
                cache_index=None, chunked_info=None):
-    if ff_kind == "moe":
-        raise NotImplementedError(MOE_TODO)
     a, new_cache = apply_attention(
         p["attn"], apply_norm(p["norm1"], h, cfg), cfg, positions=positions, mask=mask,
         cache=cache, cache_index=cache_index, chunked_info=chunked_info,
     )
     h = h + a
-    f = apply_mlp(p["ff"], apply_norm(p["norm2"], h, cfg), cfg)
-    return h + f, new_cache, torch.zeros((), device=h.device)
+    hn = apply_norm(p["norm2"], h, cfg)
+    if ff_kind == "moe":
+        f, aux = M.apply_moe(p["ff"], hn, cfg)
+    else:
+        f, aux = apply_mlp(p["ff"], hn, cfg), torch.zeros((), device=h.device)
+    return h + f, new_cache, aux
 
 
 def init_mamba_block(gen: torch.Generator, cfg: ModelConfig):

@@ -41,7 +41,14 @@ forms on the card, and the reduced hybrid's prefill on the card against the
 CPU's (f32, TF32 off) at atol 1e-4.  The gradient of ``Model.loss`` of both
 reduced families on the card (``loss.backward()`` and ``torch.func.grad``)
 against the CPU's within atol 1e-4 of its largest entry, with no kernel
-launched while autograd records (the kernels have no backward).
+launched while autograd records (the kernels have no backward).  The
+``--arch`` loop (``launch/train.py``) on the card: round 0's masks bitwise
+across vmap + jnp, vmap + pallas (kernel 1) and scan + pallas (kernel 3),
+its norms bitwise across the vmap runs (the scan engine's within 1e-5) and
+every round run to run; the reduced decoder rounds equal to the CPU's with no kernel
+launched in the gradient passes; the decoder family's prefill (kernel 7
+once a layer, with a prefix or a window) equal to the CPU's within 1e-4 in
+f32, and its greedy tokens.
 """
 
 import json
@@ -900,3 +907,103 @@ def test_model_loss_gradient_on_the_card_equals_the_cpu(cuda, arch, bsz, seq):
     with torch.no_grad():
         model.loss(g_params, g_batch)
     assert ss.ssd_scan_cuda.launches > before[1]
+
+
+def _arch_rows(argv, init_fn=None):
+    from repro_torch.launch import train
+
+    return train.main(argv, init_fn=init_fn)[1]
+
+
+@pytest.mark.cuda
+def test_arch_rounds_on_the_card_agree_across_engines_and_backends(cuda):
+    # chip_smoke.py's arch_phase at the reduced size: --arch on vmap + jnp,
+    # vmap + pallas (kernel 1 once a round), scan + pallas (kernel 3 once a
+    # group); masks bitwise across the three, norms bitwise across the vmap
+    # runs and run to run; the scan engine's groups of 2 run the products at
+    # other shapes, which the card rounds otherwise: its norms within 1e-5
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = ["--arch", "mamba2-130m-reduced", "--rounds", "2", "--seq", "16"]
+    runs = {}
+    for label, flags, kernel, per_round in (
+            ("vmap+jnp", [], None, 0),
+            ("vmap+pallas", ["--agg-backend", "pallas"], ma.masked_scale_aggregate_cuda, 1),
+            ("scan+pallas", ["--engine", "scan", "--agg-backend", "pallas"],
+             na.norm_scale_aggregate_cuda, 4),
+            ("vmap+pallas again", ["--agg-backend", "pallas"], None, 0)):
+        before = None if kernel is None else kernel.launches
+        runs[label] = _arch_rows(base + flags)
+        if kernel is not None:
+            assert kernel.launches - before == 2 * per_round, label
+    for label, rows in runs.items():
+        r, w = rows[0], runs["vmap+jnp"][0]
+        assert np.array_equal(r["mask"], w["mask"]), label
+        if label == "scan+pallas":
+            np.testing.assert_allclose(r["norms"], w["norms"], rtol=1e-5)
+        else:
+            assert np.array_equal(r["norms"], w["norms"]), label
+    for r, w in zip(runs["vmap+pallas again"], runs["vmap+pallas"]):
+        assert np.array_equal(r["mask"], w["mask"]) and np.array_equal(r["norms"], w["norms"])
+        assert r["loss"] == w["loss"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ("llama3-8b-reduced", "mixtral-8x7b-reduced"))
+def test_reduced_arch_rounds_on_the_card_equal_the_cpu(cuda, arch):
+    # chip_smoke.py's arch_reduced_phase: f32, TF32 off, the same parameters;
+    # masks bitwise, norms and losses within the forward tolerance, and no
+    # kernel launched while autograd records
+    from repro_torch.configs import get
+    from repro_torch.kernels.ops import tree_map
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params = build_model(get(arch)).init(torch.Generator().manual_seed(0), "cpu")
+    argv = ["--arch", arch, "--rounds", "2", "--clients", "2", "--expected", "1",
+            "--batch", "1", "--seq", "2100"]
+    want = _arch_rows(argv + ["--device", "cpu"], init_fn=lambda dev: params)
+    before = fa.flash_attention_cuda.launches
+    got = _arch_rows(argv, init_fn=lambda dev: tree_map(lambda t: t.to(dev), params))
+    assert fa.flash_attention_cuda.launches == before
+    for g, w in zip(got, want):
+        assert np.array_equal(g["mask"], w["mask"])
+        assert np.abs(g["norms"] - w["norms"]).max() <= 1e-4 * np.abs(w["norms"]).max()
+        assert abs(g["loss"] - w["loss"]) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ("llama3-8b-reduced", "paligemma-3b-reduced",
+                                  "mixtral-8x7b-reduced"))
+def test_decoder_prefill_on_the_card_equals_the_cpu(cuda, arch):
+    # chip_smoke.py's decoder_phase at the reduced size in f32: kernel 7 once
+    # a layer (with the VLM's prefix, or mixtral's window of 64 at 2,100
+    # tokens), the prefill's logits within 1e-4 of the CPU's, greedy decode
+    # tokens equal
+    from repro_torch.configs import get
+    from repro_torch.kernels.ops import tree_map
+    from repro_torch.launch.serve import serve
+
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    r = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(r.integers(0, cfg.vocab_size, (1, 2100)))}
+    if cfg.prefix_tokens:
+        batch["patches"] = torch.from_numpy(
+            (r.normal(size=(1, cfg.prefix_tokens, cfg.d_model)) * 0.02).astype(np.float32))
+    g_params = tree_map(lambda t: t.to(cuda), params)
+    with torch.inference_mode():
+        want, _ = model.prefill(params, batch, 2108)
+        before = fa.flash_attention_cuda.launches
+        got, _ = model.prefill(g_params, {k: v.to(cuda) for k, v in batch.items()}, 2108)
+    assert fa.flash_attention_cuda.launches - before == cfg.num_layers
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    toks_cpu, _ = serve(cfg, 1, 2100, 4, device="cpu", params=params)
+    toks_card, _ = serve(cfg, 1, 2100, 4, device=cuda, params=g_params)
+    assert (toks_cpu == toks_card).all()

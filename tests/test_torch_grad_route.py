@@ -19,6 +19,10 @@ autograd would record the call (``layers.autograd_records``):
   relative).  Both routes differentiate the same eager ops, so each case
   takes one: the zamba2 gradient is this file's cost.
 
+Where a segment sum of the SSD core passes float32's ``exp`` range, the
+reference's gradient is nan and the port's finite (the port masks before
+``exp``; the forward values are the same).
+
 On the card the same gradient against the CPU's is
 ``tests/test_torch_cuda.py::test_model_loss_gradient_on_the_card_equals_the_cpu``.
 """
@@ -110,3 +114,24 @@ def test_loss_gradient_matches_reference_grad(arch, bsz, seq, route):
     assert scale > 0
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=GRAD_ATOL * scale)
+
+
+def test_ssd_gradient_stays_finite_where_the_references_overflows():
+    """A divergence kept on purpose: the eager SSD core masks the segment
+    sums before ``exp``.  With a large step (``dt_bias`` 3, so |dt * A| ~ 50
+    a step) a segment sum above the diagonal passes float32's ``exp`` range:
+    the reference's gradient is then ``0 * inf = nan`` on every leaf, the
+    port's finite, and the two losses equal within the forward tolerance."""
+    arch = "mamba2-130m-reduced"
+    jm, m = j_build(j_get(arch), remat=False), build_model(get(arch))
+    jp = jm.init(jax.random.PRNGKey(0))
+    jp["layers"]["mamba"]["dt_bias"] = jnp.full_like(jp["layers"]["mamba"]["dt_bias"], 3.0)
+    tp = params_from_jax(jax.device_get(jp))
+    toks = np.random.default_rng(0).integers(0, get(arch).vocab_size, (2, 40))
+    jb = {"tokens": jnp.asarray(toks[:, :-1]), "targets": jnp.asarray(toks[:, 1:])}
+    tb = {"tokens": torch.as_tensor(toks[:, :-1]), "targets": torch.as_tensor(toks[:, 1:])}
+    j_loss, j_grad = jax.value_and_grad(lambda p: jm.loss(p, jb)[0])(jp)
+    t_grad, t_loss = torch.func.grad_and_value(lambda p: m.loss(p, tb)[0])(tp)
+    assert abs(float(t_loss) - float(j_loss)) <= GRAD_ATOL
+    assert not all(np.isfinite(np.asarray(g)).all() for g in jax.tree_util.tree_leaves(j_grad))
+    assert all(bool(torch.isfinite(g).all()) for g in tree_leaves(t_grad))

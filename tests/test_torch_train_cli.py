@@ -16,7 +16,8 @@
   ledger equal minus timing to the straight run's (a changed ``--sampler``
   refused by the fingerprint);
 * scan with ``--shard on`` (or on a sharded cell) exits with the reference's
-  message; ``--arch`` raises ``NotImplementedError``.
+  message; ``--arch`` runs one round (its parity is
+  ``tests/test_torch_arch_cli.py``).
 """
 
 import argparse
@@ -206,11 +207,14 @@ def test_parse_stragglers_rejects_as_the_reference_does():
 
 
 def test_arch_and_unported_sampler_raise(tmp_path, monkeypatch):
-    # --arch still raises; the zoo samplers, once refused, now run through
-    # --sampler (their ledger equal minus timing to run_scenario's)
+    # --arch, once refused, now runs the arch loop (its parity with the
+    # reference is tests/test_torch_arch_cli.py); the zoo samplers, once
+    # refused, run through --sampler (their ledger equal minus timing to
+    # run_scenario's)
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        train.main(["--arch", "llama3-8b-reduced"])
+    _, rows = train.main(["--arch", "llama3-8b-reduced", "--rounds", "1", "--seq", "8",
+                          "--device", "cpu"])
+    assert len(rows) == 1 and rows[0]["mask"].shape == (8,) and rows[0]["loss"] > 0
     ledger = train.main(["--scenario", "femnist1-fedavg-aocs", "--reduced", "--rounds", "2",
                          "--sampler", "cyclic", "--device", "cpu"])
     assert ledger.fl["sampler"] == "cyclic"
