@@ -164,6 +164,25 @@ nvcc (one process per source, all at once), then:
   eager cores, kernel 7 timed at each prefill shape beside its plain
   version, ``scaled_dot_product_attention`` on the same mask and its bound,
   and the GQA/MQA kv-head repeat before it (llama3-8b, granite-20b);
+* the encoder-decoder family (``encdec_phase``): whisper-small served at
+  full width (batch 2, prompt 4,096, 32 new tokens over 1,500 encoder
+  frames: kernel 7 12 times a prefill, once per decoder layer; the encoder
+  and the cross-attention stay dense; none in decode), a second run's
+  tokens, the first decoder block (its self-attention and the whole block
+  with the cross-attention, on the inputs a prefill hands it) and the
+  prefill's last logits against the eager cores, kernel 7 timed at (2,
+  4,096, 12, 64) beside its plain version, SDPA and its bound; then
+  ``--arch whisper-small`` (D = 238,200,576, bf16) with the reference's
+  default flags and pallas for 3 rounds, with the peak memory: on the vmap
+  engine (each layer rematerialised in the backward; kernel 1 once a round),
+  its twin (round 0's masks and norms bitwise), and on the scan engine's
+  groups of 2 (kernel 3 four times a round; round 0's mask bitwise vmap's);
+  kernels 1 and 3 at those shapes, (8, D) and (2, D), against their plain
+  versions and timed; the reduced whisper's rounds on the card against the
+  CPU with the other reduced architectures;
+* the example scripts (``examples_phase``): each ``examples/torch/*.py``
+  ``main`` on the card at a small size (quickstart's distances within 1e-5
+  of its CPU run);
 * a profiler pass (device ops per round among its numbers) of the main
   path, of the vmap + rand-k + pallas path, of the first slice's path and of
   the mesh round, and a per-layer breakdown of the main path, of the first
@@ -323,7 +342,7 @@ ARCH_TIMING_REPS = 20
 # sequence that reaches the chunked attention (>= CHUNK_THRESHOLD; mixtral's
 # window of 64 hides keys): masks bitwise, norms and losses within the
 # forward tolerance REDUCED_LOGIT_ATOL (relative, for the norms)
-ARCH_REDUCED = ("llama3-8b-reduced", "mixtral-8x7b-reduced")
+ARCH_REDUCED = ("llama3-8b-reduced", "mixtral-8x7b-reduced", "whisper-small-reduced")
 ARCH_REDUCED_FLAGS = ["--rounds", "2", "--clients", "2", "--expected", "1", "--batch", "1",
                       "--seq", "2100"]
 # the decoder family served at full width (random weights from a seeded
@@ -336,6 +355,36 @@ DECODER_SERVES = (
     ("paligemma-3b", None, 2, 4096, 32),
     ("mixtral-8x7b", 4, 1, 8192, 16),
 )
+# the encoder-decoder family (whisper-small at full width, bf16, seeded
+# random weights): served at batch 2, prompt 4,096, 32 new tokens over 1,500
+# encoder frames (kernel 7 once per decoder layer in the prefill: 12; the
+# encoder and the cross-attention are dense), then --arch whisper-small with
+# the reference's default flags and the pallas backend (ENCDEC_RUNS: label,
+# flags, launches per round): vmap over the 8 clients (each layer
+# rematerialised in the backward, as the reference's remat does; kernel 1
+# once a round at (8, D)), its twin, and the scan engine's groups of 2
+# (kernel 3 once a group, at (2, D)); D is the leaf count of the parameter
+# tree (ModelConfig.param_count() leaves out the biases)
+ENCDEC_ARCH, ENCDEC_DIM = "whisper-small", 238200576
+ENCDEC_SERVE = (2, 4096, 32)         # batch, prompt, generated tokens
+ENCDEC_ROUNDS = 3
+ENCDEC_RUNS = (
+    ("vmap+pallas", ["--agg-backend", "pallas"], {"masked_scale_aggregate": 1}),
+    ("vmap+pallas twin", ["--agg-backend", "pallas"], {"masked_scale_aggregate": 1}),
+    ("scan+pallas", ["--engine", "scan", "--scan-group", "2", "--agg-backend", "pallas"],
+     {"norm_scale_aggregate": 4}),
+)
+# the example scripts (examples/torch/*.py) on the card at a small size:
+# (script, argv); quickstart is also held against its CPU run
+EXAMPLE_RUNS = (
+    ("quickstart", ["--rounds", "100"]),
+    ("femnist_fedavg", ["--rounds", "12", "--n", "8", "--m", "2", "--hidden", "64"]),
+    ("shakespeare_gru", ["--rounds", "12", "--pool", "32", "--n", "8", "--m", "2",
+                         "--hidden", "64"]),
+    ("federated_llm", ["--arch", "whisper-small-reduced", "--rounds", "6"]),
+    ("serve_decode", []),
+)
+QUICKSTART_TOL = 1e-5
 # the GQA/MQA kv-head repeat before kernel 7 (layers._repeat_kv), timed at
 # (arch, batch, S, kv heads, query heads, head dim, layers)
 REPEAT_SHAPES = (("llama3-8b", 2, 4096, 8, 32, 128, 32),
@@ -3451,20 +3500,15 @@ def arch_phase(torch, out_dir) -> dict:
     return out
 
 
-def arch_kernel_timings(torch, dev) -> dict:
-    """Kernel 1 at --arch mamba2-130m's (8, D) bf16 update matrix, kernel 5
-    (the mesh round's partial at world size 1) on the same matrix, and
-    kernel 3 at --arch zamba2-2.7b's (1, D) group: against their plain
-    versions, then timed beside them, beside the ``ops`` calls (kernels 1's
-    and 5's pad D to the tile: a copy of the matrix) and a library product,
-    with their bounds."""
+def _masked_aggregate_at(torch, dev, gen, c, d, what):
+    """Kernel 1 on a seeded (c, d) bf16 update matrix, a third of its clients
+    scaled: against its plain version and bitwise its ``ops`` call (which
+    pads D to the tile: a copy of the matrix), then timed beside both and
+    beside a library product, with its bound.  Returns the entry, the inputs
+    and the kernel's result."""
     from repro_torch.kernels import masked_aggregate as ma
-    from repro_torch.kernels import norm_aggregate as na
     from repro_torch.kernels import ops
-    from repro_torch.kernels import sharded_aggregate as sa
 
-    gen = torch.Generator(device=dev).manual_seed(11)
-    c, d = 8, ARCH_MAMBA_DIM
     u = (torch.randn((c, d), generator=gen, device=dev) * 1e-3).to(torch.bfloat16)
     s = torch.rand((c,), generator=gen, device=dev) * (torch.arange(c, device=dev) % 3 == 0)
     got = ma.masked_scale_aggregate_cuda(u, s)
@@ -3473,7 +3517,8 @@ def arch_kernel_timings(torch, dev) -> dict:
                       ma.masked_scale_aggregate_ref(u, s), u, s, RTOL, ATOL)
     if not torch.equal(got, via_ops):
         raise AssertionError("masked_scale_aggregate on the padded matrix differs from the "
-                             "kernel on the unpadded one")
+                             f"kernel on the unpadded one at ({c}, {d})")
+    del via_ops
     reps = ARCH_TIMING_REPS
     s16 = s.to(torch.bfloat16)
     k1 = {
@@ -3486,21 +3531,67 @@ def arch_kernel_timings(torch, dev) -> dict:
     k1["bound_ms"], k1["bound_by"] = bound(c * d * 2 + c * 4 + d * 4, 2 * c * d,
                                            BF16_FLOPS_PER_S)
     pad = (-d) % ma.TILE
-    print(f"kernel arch shape masked_scale_aggregate ({c}, {d}) bf16 (--arch {ARCH_MAMBA} "
-          f"vmap+pallas; the matrix exceeds L2): kernel {k1['ms']} ms, the ops call with its "
-          f"zero pad of {pad} columns (a copy of the whole {c * (d + pad) * 2} byte matrix) "
-          f"{k1['ops_ms']} ms, plain {k1['plain_ms']} ms, torch.matmul(scale as bf16, U) "
-          f"{k1['library_ms']} ms (bf16 result), bound {k1['bound_ms']} ms ({k1['bound_by']}); "
-          f"max abs err {err}; {card_line()}")
+    print(f"kernel arch shape masked_scale_aggregate ({c}, {d}) bf16 ({what}; the matrix "
+          f"exceeds L2): kernel {k1['ms']} ms, the ops call with its zero pad of {pad} "
+          f"columns (a copy of the whole {c * (d + pad) * 2} byte matrix) {k1['ops_ms']} ms, "
+          f"plain {k1['plain_ms']} ms, torch.matmul(scale as bf16, U) {k1['library_ms']} ms "
+          f"(bf16 result), bound {k1['bound_ms']} ms ({k1['bound_by']}); max abs err {err}; "
+          f"{card_line()}")
+    return k1, u, s, got
+
+
+def _norm_aggregate_at(torch, dev, gen, c, d, s, what):
+    """Kernel 3 on a seeded (c, d) bf16 update matrix with scales ``s``:
+    its aggregate and norms against its plain version, then timed beside it,
+    with its bound (no one library call gives the norms and the aggregate)."""
+    from repro_torch.kernels import norm_aggregate as na
+
+    u = (torch.randn((c, d), generator=gen, device=dev) * 1e-3).to(torch.bfloat16)
+    sq, agg = na.norm_scale_aggregate_cuda(u, s)
+    want_sq, want_agg = na.norm_scale_aggregate_ref(u, s)
+    err = check_close(f"norm_scale_aggregate ({c}, {d}) bf16", agg, want_agg, u, s, RTOL, ATOL)
+    check_sq(f"norm_scale_aggregate ({c}, {d}) bf16 norms", sq, want_sq, 1e-5)
+    del sq, agg, want_sq, want_agg
+    k3 = {
+        "shape": [c, d], "dtype": "bfloat16", "max_abs_err": err,
+        "ms": time_ms(lambda: na.norm_scale_aggregate_cuda(u, s), torch, reps=ARCH_TIMING_REPS),
+        "plain_ms": time_ms(lambda: na.norm_scale_aggregate_ref(u, s), torch, reps=3),
+        "library_ms": None,
+    }
+    k3["bound_ms"], k3["bound_by"] = bound(c * d * 2 + c * 4 + c * 4 + d * 4, 4 * c * d,
+                                           BF16_FLOPS_PER_S)
+    print(f"kernel arch shape norm_scale_aggregate ({c}, {d}) bf16 ({what}): kernel "
+          f"{k3['ms']} ms, plain {k3['plain_ms']} ms, bound {k3['bound_ms']} ms "
+          f"({k3['bound_by']}); no one library call gives the norms and the aggregate; max "
+          f"abs err {err}; {card_line()}")
+    return k3
+
+
+def arch_kernel_timings(torch, dev) -> dict:
+    """Kernel 1 at --arch mamba2-130m's (8, D) bf16 update matrix, kernel 5
+    (the mesh round's partial at world size 1) on the same matrix, and
+    kernel 3 at --arch zamba2-2.7b's (1, D) group: against their plain
+    versions, then timed beside them, beside the ``ops`` calls (kernels 1's
+    and 5's pad D to the tile: a copy of the matrix) and a library product,
+    with their bounds."""
+    from repro_torch.kernels import masked_aggregate as ma
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sharded_aggregate as sa
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    c, d = 8, ARCH_MAMBA_DIM
+    k1, u, s, got = _masked_aggregate_at(torch, dev, gen, c, d, f"--arch {ARCH_MAMBA} "
+                                         "vmap+pallas")
     # kernel 5, the mesh round's partial (world size 1: the whole cohort),
     # on the same matrix: bitwise kernel 1's result (one client block)
-    upad = torch.nn.functional.pad(u, (0, pad))
+    reps = ARCH_TIMING_REPS
+    upad = torch.nn.functional.pad(u, (0, (-d) % ma.TILE))
     got5 = sa.sharded_masked_aggregate_cuda(upad, s)[:d]
     if not torch.equal(got5, got):
         raise AssertionError("sharded_masked_aggregate differs from masked_scale_aggregate "
                              f"at ({c}, {d})")
     k5 = {
-        "shape": [c, d], "dtype": "bfloat16", "max_abs_err": err,
+        "shape": [c, d], "dtype": "bfloat16", "max_abs_err": k1["max_abs_err"],
         "ms": time_ms(lambda: sa.sharded_masked_aggregate_cuda(upad, s), torch, reps=reps),
         "ops_ms": time_ms(lambda: ops.shard_masked_aggregate(u, s), torch, reps=reps),
         "plain_ms": time_ms(lambda: sa.sharded_masked_aggregate_ref(upad, s), torch, reps=5),
@@ -3512,33 +3603,31 @@ def arch_kernel_timings(torch, dev) -> dict:
           f"matrix {k5['ms']} ms, its ops call with the pad {k5['ops_ms']} ms, plain "
           f"{k5['plain_ms']} ms, torch.matmul {k5['library_ms']} ms, bound {k5['bound_ms']} ms; "
           f"{card_line()}")
-    del u, upad, got, got5, via_ops
+    del u, upad, got, got5
     torch.cuda.empty_cache()
 
-    c, d = 1, ARCH_ZAMBA_DIM
-    u = (torch.randn((c, d), generator=gen, device=dev) * 1e-3).to(torch.bfloat16)
-    s = torch.full((c,), 0.75, device=dev)
-    sq, agg = na.norm_scale_aggregate_cuda(u, s)
-    want_sq, want_agg = na.norm_scale_aggregate_ref(u, s)
-    err = check_close(f"norm_scale_aggregate ({c}, {d}) bf16", agg, want_agg, u, s, RTOL, ATOL)
-    check_sq(f"norm_scale_aggregate ({c}, {d}) bf16 norms", sq, want_sq, 1e-5)
-    del want_sq, want_agg
-    k3 = {
-        "shape": [c, d], "dtype": "bfloat16", "max_abs_err": err,
-        "ms": time_ms(lambda: na.norm_scale_aggregate_cuda(u, s), torch, reps=reps),
-        "plain_ms": time_ms(lambda: na.norm_scale_aggregate_ref(u, s), torch, reps=3),
-        "library_ms": None,
-    }
-    k3["bound_ms"], k3["bound_by"] = bound(c * d * 2 + c * 4 + c * 4 + d * 4, 4 * c * d,
-                                           BF16_FLOPS_PER_S)
-    print(f"kernel arch shape norm_scale_aggregate ({c}, {d}) bf16 (--arch {ARCH_ZAMBA} "
-          f"scan group 1): kernel {k3['ms']} ms, plain {k3['plain_ms']} ms, bound "
-          f"{k3['bound_ms']} ms ({k3['bound_by']}); no one library call gives the norms and "
-          f"the aggregate; max abs err {err}; {card_line()}")
-    del u, sq, agg
+    k3 = _norm_aggregate_at(torch, dev, gen, 1, ARCH_ZAMBA_DIM,
+                            torch.full((1,), 0.75, device=dev),
+                            f"--arch {ARCH_ZAMBA} scan group 1")
     torch.cuda.empty_cache()
     return {"masked_scale_aggregate": k1, "norm_scale_aggregate": k3,
             "sharded_masked_aggregate": k5}
+
+
+def encdec_kernel_timings(torch, dev) -> dict:
+    """The aggregates at --arch whisper-small's shapes, against their plain
+    versions and timed: kernel 1 at the vmap round's (8, D) bf16 matrix,
+    kernel 3 at the scan engine's (2, D) group."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    k1, *tensors = _masked_aggregate_at(torch, dev, gen, 8, ENCDEC_DIM,
+                                        f"--arch {ENCDEC_ARCH} vmap+pallas")
+    del tensors
+    torch.cuda.empty_cache()
+    s = torch.rand((2,), generator=gen, device=dev) * torch.tensor([1.0, 0.0], device=dev)
+    k3 = _norm_aggregate_at(torch, dev, gen, 2, ENCDEC_DIM, s,
+                            f"--arch {ENCDEC_ARCH} scan group 2, one client scaled")
+    torch.cuda.empty_cache()
+    return {"masked_scale_aggregate": k1, "norm_scale_aggregate": k3}
 
 
 def arch_reduced_phase(torch) -> dict:
@@ -3546,12 +3635,14 @@ def arch_reduced_phase(torch) -> dict:
     rounds on the CPU from the same parameters: masks bitwise, norms and
     losses within REDUCED_LOGIT_ATOL, no kernel launched (the gradients take
     the eager cores; the vmap + jnp round runs no aggregate kernel), while
-    the same loss without a gradient launches kernel 7."""
+    the same loss without a gradient launches kernel 7 (once per decoder
+    layer; whisper's encoder is dense)."""
     import numpy as np
 
     from repro_torch.configs import get
     from repro_torch.kernels.ops import tree_map
     from repro_torch.launch import train
+    from repro_torch.launch.serve import prompt_batch
     from repro_torch.models import build_model
 
     t0 = time.perf_counter()
@@ -3576,11 +3667,13 @@ def arch_reduced_phase(torch) -> dict:
             raise AssertionError(f"--arch {arch}: the card's rounds differ from the CPU's by "
                                  f"{worst}")
         seq = int(ARCH_REDUCED_FLAGS[ARCH_REDUCED_FLAGS.index("--seq") + 1])
-        toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (1, seq)))
+        # the prompt (and whisper's frames) as the serving driver draws them
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in prompt_batch(cfg, 1, seq).items()}
+        batch["targets"] = batch["tokens"]
         reset_counts()
         with torch.inference_mode():
-            model.loss(tree_map(lambda t: t.to("cuda"), cpu),
-                       {"tokens": toks.cuda(), "targets": toks.cuda()})
+            model.loss(tree_map(lambda t: t.to("cuda"), cpu), batch)
         launched[arch] = read_counts()["flash_attention"]
         if launched[arch] != cfg.num_layers:
             raise AssertionError(f"{arch}: the loss without a gradient launched kernel 7 "
@@ -3676,20 +3769,73 @@ def repeat_kv_timing(torch, dev) -> dict:
     return out
 
 
+class _Captured(Exception):
+    """Stops a prefill once the first decoder block's inputs are captured."""
+
+
+def _first_block_checks(torch, cfg, model, params, inputs, cache_len) -> list:
+    """The first (decoder) block's attention sublayer run through kernel 7
+    and through the eager core on the same input, and for whisper also the
+    whole block (self-attention, cross-attention over the encoder's K/V,
+    MLP): [(name, kernel output, eager output)].  The decoder family's input
+    is the embedded prompt (after a VLM's patches); whisper's is what a
+    prefill hands its first decoder block, captured from the model's first
+    ``attn_block`` call with ``cross_kv``."""
+    from unittest import mock
+
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import apply_attention, apply_norm
+    from repro_torch.models.model import _attn_ctx, _positions
+
+    block = T.attn_block
+
+    def capture(p, h, cfg_, **kw):
+        if kw.get("cross_kv") is None:
+            return block(p, h, cfg_, **kw)
+        raise _Captured(p, h, kw)
+
+    with torch.inference_mode():
+        if cfg.encoder_layers:
+            try:
+                with mock.patch.object(T, "attn_block", capture):
+                    model.prefill(params, inputs, cache_len)
+            except _Captured as c:
+                blk, h, block_kw = c.args
+            else:
+                raise AssertionError(f"{cfg.name}: the prefill called no cross-attention block")
+            kw = {k: block_kw[k] for k in ("positions", "mask", "chunked_info")}
+        else:
+            h = T.embed_tokens(params["embed"], inputs["tokens"], cfg)
+            if cfg.prefix_tokens:
+                h = torch.cat([inputs["patches"].to(h.dtype), h], dim=1)
+            bsz, seq = h.shape[:2]
+            mask, ci = _attn_ctx(cfg, seq, cfg.prefix_tokens if cfg.prefix_lm else 0, h.device)
+            kw = {"positions": _positions(bsz, seq, h.device), "mask": mask, "chunked_info": ci}
+            blk = T.layer(params["layers"], 0)
+        x = apply_norm(blk["norm1"], h, cfg)
+        got, _ = apply_attention(blk["attn"], x, cfg, **kw)
+        with _eager_cores():
+            want, _ = apply_attention(blk["attn"], x, cfg, **kw)
+        out = [("attention of block 0", got, want)]
+        if cfg.encoder_layers:
+            got, _, _ = block(blk, h, cfg, **block_kw)
+            with _eager_cores():
+                want, _, _ = block(blk, h, cfg, **block_kw)
+            out.append(("decoder block 0 (self-attention, cross-attention, MLP)", got, want))
+    return out
+
+
 def decoder_serve_phase(torch, dev, arch, depth, bsz, prompt, gen) -> dict:
-    """One decoder served at full width (``depth`` layers if given): set-up,
-    a measured run with the launch counts zeroed just before and read just
-    after (kernel 7 once per layer in the prefill, none in decode), a second
-    run with the same tokens, the first block's attention through the kernel
-    against the eager core, and the kernel prefill's last logits against the
-    eager-core prefill's."""
+    """One decoder (or whisper) served at full width (``depth`` layers if
+    given): set-up, a measured run with the launch counts zeroed just before
+    and read just after (kernel 7 once per decoder layer in the prefill,
+    none in decode), a second run with the same tokens, the first block
+    through the kernel against the eager core (:func:`_first_block_checks`),
+    and the kernel prefill's last logits against the eager-core prefill's."""
     from repro_torch.configs import get
     from repro_torch.kernels.ops import tree_leaves
     from repro_torch.launch.serve import prompt_batch, serve
     from repro_torch.models import build_model
-    from repro_torch.models import transformer as T
-    from repro_torch.models.layers import apply_attention, apply_norm
-    from repro_torch.models.model import _attn_ctx, _positions
 
     cfg = get(arch)
     if depth is not None:
@@ -3726,34 +3872,25 @@ def decoder_serve_phase(torch, dev, arch, depth, bsz, prompt, gen) -> dict:
           f"{peak_gb} GB; {card_line()}")
 
     inputs = {k: torch.as_tensor(v, device=dev) for k, v in prompt_batch(cfg, bsz, prompt).items()}
+    blocks = _first_block_checks(torch, cfg, model, params, inputs, prompt + gen)
     with torch.inference_mode():
-        h = T.embed_tokens(params["embed"], inputs["tokens"], cfg)
-        if cfg.prefix_tokens:
-            h = torch.cat([inputs["patches"].to(h.dtype), h], dim=1)
-        seq = h.shape[1]
-        mask, ci = _attn_ctx(cfg, seq, cfg.prefix_tokens if cfg.prefix_lm else 0, h.device)
-        kw = {"positions": _positions(bsz, seq, h.device), "mask": mask, "chunked_info": ci}
-        blk = T.layer(params["layers"], 0)
-        x = apply_norm(blk["norm1"], h, cfg)
-        got, _ = apply_attention(blk["attn"], x, cfg, **kw)
-        with _eager_cores():
-            want_blk, _ = apply_attention(blk["attn"], x, cfg, **kw)
-        del h, x
         got_logits, _ = model.prefill(params, inputs, prompt + gen)
         reset_counts()
         with _eager_cores():
             want_logits, _ = model.prefill(params, inputs, prompt + gen)
         eager_counts = read_counts()
-    diff = (got.float() - want_blk.float()).abs()
-    d_max, d_rms = float(diff.max()), float(diff.square().mean().sqrt())
-    w_max = float(want_blk.float().abs().max())
-    w_rms = float(want_blk.float().square().mean().sqrt())
-    print(f"path serve {arch} attention of block 0: kernel core against eager core, bf16 output "
-          f"{tuple(got.shape)}: max abs diff {d_max} (bound {SERVE_BLOCK_MAX} x max |out| "
-          f"{w_max}), rms diff {d_rms} (bound {SERVE_BLOCK_RMS} x rms(out) {w_rms})")
-    if not (d_max <= SERVE_BLOCK_MAX * w_max and d_rms <= SERVE_BLOCK_RMS * w_rms):
-        raise AssertionError(f"{arch} attention of block 0: the kernel core's output is not "
-                             f"within bf16 rounding of the eager core's")
+    for name, got, want_blk in blocks:
+        diff = (got.float() - want_blk.float()).abs()
+        d_max, d_rms = float(diff.max()), float(diff.square().mean().sqrt())
+        w_max = float(want_blk.float().abs().max())
+        w_rms = float(want_blk.float().square().mean().sqrt())
+        print(f"path serve {arch} {name}: kernel core against eager core, bf16 output "
+              f"{tuple(got.shape)}: max abs diff {d_max} (bound {SERVE_BLOCK_MAX} x max |out| "
+              f"{w_max}), rms diff {d_rms} (bound {SERVE_BLOCK_RMS} x rms(out) {w_rms})")
+        if not (d_max <= SERVE_BLOCK_MAX * w_max and d_rms <= SERVE_BLOCK_RMS * w_rms):
+            raise AssertionError(f"{arch} {name}: the kernel core's output is not "
+                                 f"within bf16 rounding of the eager core's")
+    del blocks
     got_logits, want_logits = got_logits.float(), want_logits.float()
     err = float((got_logits - want_logits).abs().max())
     scale = float(want_logits.abs().max())
@@ -3767,13 +3904,13 @@ def decoder_serve_phase(torch, dev, arch, depth, bsz, prompt, gen) -> dict:
           f"eager-core prefill: max abs diff {err}, max |logit| {scale} (bound "
           f"{SERVE_LOGIT_RTOL} x max |logit|), top-1 agreement {agree}")
     busy = None
-    if arch == DECODER_SERVES[0][0]:
+    if arch in (DECODER_SERVES[0][0], ENCDEC_ARCH):
         busy, wall, rows, _ = _profile_serve(torch, dev, cfg, params, 1, bsz, prompt)
         for key, ms, count in rows[:8]:
             print(f"profile serve {arch} prefill: {ms:10.3f} ms {count:6d}x  {key[:80]}")
         print(f"profile serve {arch} prefill alone (gen 1): wall {wall} ms, device busy {busy} "
               f"ms; {card_line()}")
-    del params, got, want_blk, got_logits, want_logits
+    del params, got_logits, want_logits
     torch.cuda.empty_cache()
     return {"arch": arch, "layers": cfg.num_layers, "counts": counts,
             "prefill_ms": t["prefill_ms"], "decode_ms_per_step": t["decode_ms"] / steps,
@@ -3799,6 +3936,125 @@ def decoder_phase(torch, dev) -> dict:
     del flush
     torch.cuda.empty_cache()
     print(f"phase decoder: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def encdec_phase(torch, dev) -> dict:
+    """The encoder-decoder family at full width: whisper-small served
+    (:func:`decoder_serve_phase`: kernel 7 twelve times a prefill, none in
+    decode; the first decoder block and the prefill's last logits against
+    the eager cores), kernel 7 timed at its prefill shape
+    (:func:`decoder_attention_timing`), then ``--arch whisper-small`` for
+    ENCDEC_ROUNDS rounds in each of ENCDEC_RUNS: launches per round and peak
+    memory; the twin's masks and norms bitwise the first vmap run's, the scan
+    run's round-0 mask bitwise and its norms within SCAN_NORM_RTOL; last,
+    the aggregate kernels at the runs' shapes against their plain versions
+    (:func:`encdec_kernel_timings`)."""
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.kernels.ops import tree_leaves
+
+    t0 = time.perf_counter()
+    bsz, prompt, gen = ENCDEC_SERVE
+    out = {"serve": decoder_serve_phase(torch, dev, ENCDEC_ARCH, None, bsz, prompt, gen)}
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+    out["kernel"] = decoder_attention_timing(torch, dev, flush, get(ENCDEC_ARCH), bsz, prompt)
+    del flush
+    torch.cuda.empty_cache()
+    t_serve = time.perf_counter() - t0
+
+    base = ["--arch", ENCDEC_ARCH, "--rounds", str(ENCDEC_ROUNDS)]
+    runs = {}
+    for label, flags, per_round in ENCDEC_RUNS:
+        run = _arch_run(torch, base + flags)
+        want = _want_counts(per_round, ENCDEC_ROUNDS)
+        dim = sum(t.numel() for t in tree_leaves(run["params"]))
+        if run["counts"] != want or dim != ENCDEC_DIM:
+            raise AssertionError(f"--arch {ENCDEC_ARCH} {label}: launches {run['counts']} "
+                                 f"(want {want}), D {dim} (want {ENCDEC_DIM})")
+        print(f"path arch {ENCDEC_ARCH} {label} (full width, D {dim}, bf16; 8 clients, m 2, "
+              f"aocs, batch 2, seq 64, frames (2, 1500, 768) a client; {' '.join(flags)}; "
+              f"{ENCDEC_ROUNDS} rounds): launches {run['counts']}; per-round ms "
+              f"{run['round_ms']} (round 0 includes the first calls' set-up); wall "
+              f"{run['wall_s']} s; peak device memory {run['peak_gb']} GB; sent "
+              f"{[r['sent'] for r in run['rows']]}, losses "
+              f"{[r['loss'] for r in run['rows']]}; {card_line()}")
+        run.pop("params")
+        runs[label] = run
+        torch.cuda.empty_cache()
+    first = runs["vmap+pallas"]["rows"]
+    _same_rows(f"--arch {ENCDEC_ARCH} twin", runs["vmap+pallas twin"]["rows"], first, 1)
+    later = all(np.array_equal(x["mask"], y["mask"]) and np.array_equal(x["norms"], y["norms"])
+                for x, y in zip(first, runs["vmap+pallas twin"]["rows"]))
+    scan0 = runs["scan+pallas"]["rows"][0]
+    if not np.array_equal(scan0["mask"], first[0]["mask"]):
+        raise AssertionError(f"--arch {ENCDEC_ARCH} scan+pallas: round 0's mask differs "
+                             "from vmap's")
+    scan_rel = float(np.abs(scan0["norms"] - first[0]["norms"]).max()
+                     / np.abs(first[0]["norms"]).max())
+    if not scan_rel <= SCAN_NORM_RTOL:
+        raise AssertionError(f"--arch {ENCDEC_ARCH} scan+pallas: round 0's norms differ from "
+                             f"vmap's by {scan_rel} (relative, bound {SCAN_NORM_RTOL})")
+    print(f"path arch {ENCDEC_ARCH}: round 0's masks and norms bitwise across the vmap run "
+          f"and its twin (every round's bitwise: {later}); scan+pallas: round 0's mask "
+          f"bitwise vmap's, its norms {scan_rel} from vmap's (relative)")
+    out["arch"] = {"every_round_bitwise": later, "scan_norm_rel": scan_rel,
+                   "runs": {label: {x: r[x] for x in ("counts", "round_ms", "wall_s", "peak_gb")}
+                            for label, r in runs.items()}}
+    out["arch_kernels"] = encdec_kernel_timings(torch, dev)
+    print(f"phase encdec: {time.perf_counter() - t0:.1f} s (serve and kernel timing "
+          f"{t_serve:.1f} s)")
+    return out
+
+
+def examples_phase(torch) -> dict:
+    """Each ``examples/torch/*.py`` script's ``main`` on the card at the
+    small sizes of EXAMPLE_RUNS: what it returns is finite, and
+    ``quickstart``'s distances equal its CPU run's within QUICKSTART_TOL."""
+    import importlib.util
+    import math
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    out = {}
+    for name, argv in EXAMPLE_RUNS:
+        spec = importlib.util.spec_from_file_location(
+            f"torch_example_{name}", ROOT / "examples" / "torch" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t1 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)     # femnist's alpha~ column
+            res = mod.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        if name == "quickstart":
+            cpu = mod.main(argv + ["--device", "cpu"])
+            diff = max(abs(res[k] - cpu[k]) for k in res)
+            if not all(math.isfinite(v) for v in res.values()) or not diff <= QUICKSTART_TOL:
+                raise AssertionError(f"examples/torch/quickstart.py: the card's distances "
+                                     f"{res} against the CPU's {cpu}")
+            note = f"distances {res}, max diff from the CPU's run {diff}"
+        elif name == "federated_llm":
+            losses = [r["loss"] for r in res]
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"examples/torch/federated_llm.py: losses {losses}")
+            note = f"losses {losses}"
+        elif name == "serve_decode":
+            shapes = {k: v.shape for k, v in res.items()}
+            if len(res) != 6 or any(v.shape != (2, 8) for v in res.values()):
+                raise AssertionError(f"examples/torch/serve_decode.py: tokens {shapes}")
+            note = f"tokens {shapes}"
+        else:
+            losses = {k: h.loss[-1] for k, h in res.items()}
+            if not all(np.isfinite(h.loss).all() for h in res.values()):
+                raise AssertionError(f"examples/torch/{name}.py: losses {losses}")
+            note = f"final losses {losses}, accuracies {({k: h.acc[-1] for k, h in res.items()})}"
+        out[name] = secs
+        print(f"path example {name} {' '.join(argv)}: {secs:.1f} s on the card; {note}")
+    print(f"phase examples: {time.perf_counter() - t0:.1f} s; {card_line()}")
     return out
 
 
@@ -3961,6 +4217,9 @@ def main() -> int:
     arch_reduced = arch_reduced_phase(torch)
     decoders = decoder_phase(torch, dev)
     mark("restore, arch and decoder phases")
+    encdec = encdec_phase(torch, dev)
+    examples_phase(torch)
+    mark("encdec and examples phases")
     zamba, mamba = (f"{arch} serve" for arch, _, _ in SERVE_PATHS)
     launches = {
         "masked_scale_aggregate": (slice1_counts, SLICE1_CELL),
@@ -4024,6 +4283,16 @@ def main() -> int:
     by_name["flash_attention"]["decoder"] = {
         name: dict(d["kernel"], path=f"{name} serve", launches=d["counts"]["flash_attention"])
         for name, d in decoders.items() if name != "repeat_kv"}
+    by_name["flash_attention"]["encdec"] = dict(
+        encdec["kernel"], path=f"{ENCDEC_ARCH} serve",
+        launches=encdec["serve"]["counts"]["flash_attention"])
+    # the --arch whisper-small runs' aggregates, each timed at its shape
+    for label, flags, per_round in ENCDEC_RUNS[::2]:
+        (name,) = per_round
+        by_name[name]["encdec_arch"] = dict(
+            encdec["arch_kernels"][name], path=f"--arch {ENCDEC_ARCH} {' '.join(flags)}",
+            launches=encdec["arch"]["runs"][label]["counts"][name],
+            peak_gb=encdec["arch"]["runs"][label]["peak_gb"])
     by_name["flash_attention"]["repeat_kv"] = decoders["repeat_kv"]
     by_name["flash_attention"]["arch_reduced_loss_launches"] = arch_reduced
 

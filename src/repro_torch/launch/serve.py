@@ -1,14 +1,17 @@
 """Serving driver: batched prefill + greedy decode — the port of
-``repro/launch/serve.py`` for the families the port builds (decoder:
-dense, MoE, VLM prefix; ssm: mamba2; hybrid: zamba2).  It follows the
-reference's steps: prompt tokens (and a VLM's stub ``patches``) from
-``np.random.default_rng(0)``, ``cache_len = prompt_len + gen``, greedy
-argmax, decode position ``prompt_len + prefix + i``.
+``repro/launch/serve.py`` for every family (decoder: dense, MoE, VLM
+prefix; ssm: mamba2; hybrid: zamba2; encoder-decoder: whisper).  It follows
+the reference's steps: prompt tokens (then whisper's stub ``frames``, then a
+VLM's stub ``patches``) from ``np.random.default_rng(0)``, ``cache_len =
+prompt_len + gen``, greedy argmax, decode position ``prompt_len + prefix +
+i``.  Status lines go through the obs logger (``[serve] ...``;
+``REPRO_LOG=WARNING`` silences them).
 
 On the card the prefill of a long prompt runs the hand-written kernels: the
 SSD scan in every Mamba2 block, and flash attention (with the sliding window
-or the bidirectional prefix where the config has one) in every attention
-block at ``prompt_len >= CHUNK_THRESHOLD``.  Decode is eager.
+or the bidirectional prefix where the config has one) in every causal
+self-attention block at ``prompt_len >= CHUNK_THRESHOLD`` (whisper's
+bidirectional encoder and its cross-attention stay dense).  Decode is eager.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b-reduced \\
       --batch 4 --prompt-len 32 --gen 16 --device cpu
@@ -36,7 +39,9 @@ from repro_torch.checkpoint.ckpt import _read_index, resolve_dir
 from repro_torch.configs import get
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import build_model
-from repro_torch.obs import MetricsServer, span
+from repro_torch.obs import MetricsServer, get_logger, span
+
+log = get_logger("serve")
 
 
 def _sync(dev: torch.device) -> None:
@@ -67,11 +72,15 @@ def prompt_tokens(cfg: ModelConfig, batch: int, prompt_len: int) -> np.ndarray:
 
 
 def prompt_batch(cfg: ModelConfig, batch: int, prompt_len: int) -> dict:
-    """The reference's prefill batch as numpy arrays: the prompt tokens and,
-    for a VLM prefix, the stub ``patches`` ``(B, prefix_tokens, d)`` f32,
-    drawn after the tokens from the same ``default_rng(0)``."""
+    """The reference's prefill batch as numpy arrays: the prompt tokens, then
+    for whisper the stub ``frames`` ``(B, encoder_seq, d)`` and for a VLM
+    prefix the stub ``patches`` ``(B, prefix_tokens, d)``, both f32, drawn in
+    that order from the same ``default_rng(0)``."""
     rng = np.random.default_rng(0)
     out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, prompt_len))}
+    if cfg.encoder_seq:
+        out["frames"] = (rng.normal(size=(batch, cfg.encoder_seq, cfg.d_model))
+                         * 0.02).astype(np.float32)
     if cfg.prefix_tokens:
         out["patches"] = (rng.normal(size=(batch, cfg.prefix_tokens, cfg.d_model))
                           * 0.02).astype(np.float32)
@@ -142,7 +151,7 @@ def main(argv=None):
     server = sink = None
     if args.metrics_port is not None:
         server = MetricsServer(port=args.metrics_port).start()
-        print(f"[serve] metrics endpoint at {server.url}/metrics")
+        log.info("metrics endpoint at %s/metrics", server.url)
         phase_seconds = {}
 
         class _Sink:
@@ -158,7 +167,7 @@ def main(argv=None):
         dev = resolve_device(args.device)
         like = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
         params, step = load_params(args.restore, like)
-        print(f"[serve] restored params from {args.restore} (round {step})")
+        log.info("restored params from %s (round %d)", args.restore, step)
     b, s = args.batch, args.prompt_len
     try:
         toks, t = serve(cfg, b, s, args.gen, device=args.device, params=params, sink=sink)
@@ -166,10 +175,11 @@ def main(argv=None):
         if server is not None:
             server.stop()
     steps = t["decode_steps"]
-    print(f"[serve] prefill {b}x{s} in {t['prefill_ms'] / 1e3:.2f}s")
-    print(f"[serve] generated {steps} steps x {b} seqs in {t['decode_ms'] / 1e3:.2f}s "
-          f"({steps * b / max(t['decode_ms'] / 1e3, 1e-9):.1f} tok/s)")
-    print(f"[serve] sample token ids: {toks[0][:16].tolist()}")
+    log.info("prefill %dx%d in %.2fs", b, s, t["prefill_ms"] / 1e3)
+    dt = t["decode_ms"] / 1e3
+    log.info("generated %d steps x %d seqs in %.2fs (%.1f tok/s)", steps, b, dt,
+             steps * b / max(dt, 1e-9))
+    log.info("sample token ids: %s", toks[0][:16].tolist())
     return toks
 
 

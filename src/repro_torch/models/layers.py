@@ -91,7 +91,10 @@ def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
 # attention
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig):
+def init_attention(gen: torch.Generator, cfg: ModelConfig, cross: bool = False):
+    """The four projections; a cross-attention (``cross=True``, whisper's
+    decoder) draws the same four, as the reference's does: its ``wk`` and
+    ``wv`` project the encoder's output."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, k = cfg.num_heads, cfg.num_kv_heads
     return {
@@ -108,10 +111,61 @@ def autograd_records(*tensors) -> bool:
     (under ``grad``, ``vjp`` or ``vmap``).  The model routes such a call to
     the eager form, which is differentiable, and every other CUDA call to
     its kernel: ``no_grad`` and ``inference_mode`` (serving) launch it."""
+    if _REMAT_FORWARDS[0]:
+        return True
     wrapped = torch._C._functorch.is_functorch_wrapped_tensor
     if any(wrapped(t) for t in tensors):
         return True
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+# the depth of :class:`_Remat` forwards running: their ops are recorded again
+# in the backward, so they take the eager forms the backward differentiates
+_REMAT_FORWARDS = [0]
+
+
+class _Remat(torch.autograd.Function):
+    """``fn(*args)`` that keeps only ``args`` for the backward and runs ``fn``
+    again there under ``torch.func.vjp``: the reference's ``jax.checkpoint``.
+    It works under ``torch.func.grad`` and ``vmap`` (which refuse
+    ``torch.utils.checkpoint``'s saved-tensor hooks) as under
+    ``loss.backward()``."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, *args):
+        _REMAT_FORWARDS[0] += 1
+        try:
+            return fn(*args)
+        finally:
+            _REMAT_FORWARDS[0] -= 1
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.fn = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, grad):
+        # torch.func.grad runs the backward with create_graph: a recompute on
+        # the saved inputs as they are would be recorded at the outer level
+        # too, which keeps every layer's activations until the gradient is
+        # done.  Detached, under no_grad, only the inner vjp records.
+        args = [t.detach() for t in ctx.saved_tensors]
+        with torch.no_grad():
+            _, pull = torch.func.vjp(ctx.fn, *args)
+            return (None, *pull(grad))
+
+
+def remat(fn, *args: torch.Tensor) -> torch.Tensor:
+    """``fn(*args)``, rematerialised in the backward when autograd records
+    the call (:func:`autograd_records`); else a plain call.  ``fn`` returns
+    one tensor, and every tensor it differentiates through is in ``args``:
+    what it closes over gets no gradient."""
+    if not autograd_records(*args):
+        return fn(*args)
+    return _Remat.apply(fn, *args)
 
 
 def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:

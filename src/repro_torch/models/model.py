@@ -9,14 +9,20 @@
   init_cache(batch_size, cache_len, device) -> cache
 
 ``batch`` is a dict with ``tokens`` (and ``targets`` for the loss), (B, S)
-integers, and for a VLM prefix (paligemma) the stub embeddings ``patches``
-(B, prefix_tokens, d).  The port builds the decoder family (dense, MoE with
-an optional sliding window, VLM prefix), the ``ssm`` family (mamba2) and
-the ``hybrid`` family (zamba2: a Mamba2 backbone with one weight-shared
-attention block every ``shared_attn_every`` layers); the encoder-decoder
-family (whisper) raises ``NotImplementedError``.  Stacked layers are looped
-over in Python, with no rematerialisation (the reference's ``remat`` is
-not taken).
+integers, and the stub modality inputs: for a VLM prefix (paligemma) the
+embeddings ``patches`` (B, prefix_tokens, d), for whisper the audio frames'
+embeddings ``frames`` (B, encoder_seq, d).  The port builds every family of
+the reference: the decoder family (dense, MoE with an optional sliding
+window, VLM prefix), the ``ssm`` family (mamba2), the ``hybrid`` family
+(zamba2: a Mamba2 backbone with one weight-shared attention block every
+``shared_attn_every`` layers) and the encoder-decoder family (whisper: a
+bidirectional encoder over ``frames``, a causal decoder with
+cross-attention).  Stacked layers are looped over in Python.  The
+encoder-decoder family rematerialises each encoder layer and each decoder
+layer of ``forward`` when autograd records it (:func:`~repro_torch.models.
+layers.remat`, the reference's ``remat=True``): its dense encoder scores
+would not fit in the card's memory for the vmap engine's 8 clients
+otherwise.  The other families keep every activation.
 
 ``init`` draws from a ``torch.Generator`` (on its own device) and places the
 parameters on ``device`` cast to ``cfg.dtype``, as the reference's ``_cast``
@@ -33,16 +39,21 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ops import tree_leaves, tree_rebuild
 from repro_torch.models import kvcache as KV
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import causal_mask, decode_mask
+from repro_torch.models.layers import (
+    apply_norm,
+    causal_mask,
+    decode_mask,
+    init_norm,
+    remat,
+    sinusoidal_positions,
+)
 
 # sequences at/above this length use the chunked (flash-style) attention path
 # and never materialise an (S, S) mask or score matrix
 CHUNK_THRESHOLD = 2048
-
-ENCDEC_TODO = ("the encoder-decoder family (whisper) is not ported yet "
-               "(ROADMAP queue 1, item 5)")
 
 
 def _cast(tree, dtype, device):
@@ -315,10 +326,138 @@ def _build_hybrid(cfg: ModelConfig) -> Model:
     return Model(cfg, init, forward, _ce_loss(forward), prefill, decode_step, init_cache)
 
 
+# ---------------------------------------------------------------------------
+# encoder-decoder family (whisper)
+
+
+def _remat_layer(body, h, lp, *extra):
+    """``body(h, lp, *extra)`` through :func:`remat`, with the layer's
+    parameter tree ``lp`` passed as its leaves so that they get gradients."""
+    leaves = tree_leaves(lp)
+    n = len(leaves)
+
+    def fn(h, *ts):
+        return body(h, tree_rebuild(lp, iter(ts[:n])), *ts[n:])
+
+    return remat(fn, h, *leaves, *extra)
+
+
+def _build_encdec(cfg: ModelConfig) -> Model:
+    nl, ne = cfg.num_layers, cfg.encoder_layers
+    dtype = getattr(torch, cfg.dtype)
+
+    def init(gen: torch.Generator, device=None):
+        dev = device if device is not None else gen.device
+
+        def block(cross):
+            return _cast(T.init_attn_block(gen, cfg, "mlp", cross=cross), dtype, dev)
+
+        return {
+            "embed": _cast(T.init_embed(gen, cfg), dtype, dev),
+            "enc_layers": T._stacked(ne, lambda: block(False)),
+            "dec_layers": T._stacked(nl, lambda: block(True)),
+            "enc_final_norm": _cast(init_norm(cfg, cfg.d_model, gen.device), dtype, dev),
+        }
+
+    def encode(p, frames):
+        """frames: (B, encoder_seq, d) stub embeddings (the conv front end is
+        the reference's carve-out).  Bidirectional: the dense masked form at
+        any length, so no kernel runs here."""
+        bsz, es, _ = frames.shape
+        h = frames.to(dtype) + sinusoidal_positions(es, cfg.d_model, frames.device).to(dtype)
+
+        def body(h, lp):
+            # the constants are made inside: a remat body closes over no tensor
+            positions = _positions(bsz, es, h.device)
+            mask = torch.ones((1, 1, es, es), dtype=torch.bool, device=h.device)
+            return T.attn_block(lp, h, cfg, positions=positions, mask=mask, ff_kind="mlp")[0]
+
+        for i in range(ne):
+            h = _remat_layer(body, h, T.layer(p["enc_layers"], i))
+        return apply_norm(p["enc_final_norm"], h, cfg)
+
+    def _cross_kv(p, enc_out):
+        """Every decoder layer's cross K/V of the encoder's output: two lists
+        of L tensors (B, ES, kv_heads, head_dim)."""
+        b, es, _ = enc_out.shape
+        shape = (b, es, cfg.num_kv_heads, cfg.resolved_head_dim)
+        xp = p["dec_layers"]["xattn"]
+        return ([(enc_out @ xp["wk"][i]).reshape(shape) for i in range(nl)],
+                [(enc_out @ xp["wv"][i]).reshape(shape) for i in range(nl)])
+
+    def _dec_inputs(p, tokens):
+        h = T.embed_tokens(p["embed"], tokens, cfg)
+        return h + sinusoidal_positions(h.shape[1], cfg.d_model, h.device).to(h.dtype)
+
+    def _dec_kw(h, es):
+        """A decoder layer's constants over ``h``'s (B, S) and ``es`` frames."""
+        bsz, seq, _ = h.shape
+        mask, ci = _attn_ctx(cfg, seq, device=h.device)
+        cmask = torch.ones((1, 1, seq, es), dtype=torch.bool, device=h.device)
+        return {"positions": _positions(bsz, seq, h.device), "mask": mask, "ff_kind": "mlp",
+                "cross_mask": cmask, "chunked_info": ci}
+
+    def _decoder_ctx(p, batch):
+        ck, cv = _cross_kv(p, encode(p, batch["frames"]))
+        return _dec_inputs(p, batch["tokens"]), ck, cv
+
+    def forward(p, batch):
+        h, ck, cv = _decoder_ctx(p, batch)
+
+        def body(h, lp, k, v):
+            return T.attn_block(lp, h, cfg, cross_kv=(k, v), **_dec_kw(h, k.shape[1]))[0]
+
+        for i in range(nl):
+            h = _remat_layer(body, h, T.layer(p["dec_layers"], i), ck[i], cv[i])
+        return T.lm_logits(p["embed"], h, cfg), torch.zeros((), device=h.device)
+
+    def init_cache(batch_size, cache_len, device=None):
+        return {"kv": KV.init_kv(cfg, nl, batch_size, cache_len, dtype, device),
+                "cross": KV.init_cross(cfg, nl, batch_size, dtype, device)}
+
+    def prefill(p, batch, cache_len):
+        h, ck, cv = _decoder_ctx(p, batch)
+        bsz, seq, _ = h.shape
+        kw = _dec_kw(h, ck[0].shape[1])
+        # the self K/V padded to cache_len (the reference keeps all seq keys
+        # when the prompt is longer)
+        kv = KV.init_kv(cfg, nl, bsz, max(cache_len, seq), dtype, h.device)
+        for i in range(nl):
+            h, (k, v), _ = T.attn_block(T.layer(p["dec_layers"], i), h, cfg, cache=(),
+                                        cross_kv=(ck[i], cv[i]), **kw)
+            kv["k"][i, :, :seq] = k
+            kv["v"][i, :, :seq] = v
+        logits = T.lm_logits(p["embed"], h[:, -1:, :], cfg)
+        return logits, {"kv": kv, "cross": {"k": torch.stack(ck), "v": torch.stack(cv)}}
+
+    tables = {}
+
+    def decode_step(p, tokens, cache, pos):
+        h = T.embed_tokens(p["embed"], tokens, cfg)
+        k_all, v_all = cache["kv"]["k"], cache["kv"]["v"]
+        t = k_all.shape[2]
+        key = (t, h.device, h.dtype)
+        if key not in tables:         # the position table, made once per cache length
+            tables.clear()
+            tables[key] = sinusoidal_positions(t, cfg.d_model, h.device).to(h.dtype)
+        h = h + tables[key][pos]
+        positions = torch.full((h.shape[0], 1), pos, dtype=torch.int64, device=h.device)
+        mask = decode_mask(t, pos, None, h.device)
+        ck, cv = cache["cross"]["k"], cache["cross"]["v"]
+        cmask = torch.ones((1, 1, 1, ck.shape[2]), dtype=torch.bool, device=h.device)
+        for i in range(nl):
+            h, _, _ = T.attn_block(T.layer(p["dec_layers"], i), h, cfg, positions=positions,
+                                   mask=mask, ff_kind="mlp", cache=(k_all[i], v_all[i]),
+                                   cache_index=pos, cross_kv=(ck[i], cv[i]), cross_mask=cmask)
+        return T.lm_logits(p["embed"], h, cfg), cache
+
+    return Model(cfg, init, forward, _ce_loss(forward), prefill, decode_step, init_cache)
+
+
 def build_model(cfg: ModelConfig) -> Model:
     kinds = set(cfg.layer_kinds())
     if cfg.encoder_layers:
-        raise NotImplementedError(ENCDEC_TODO)
+        return _build_encdec(cfg)
     if kinds == {"mamba2"}:
         return _build_ssm(cfg)
     if "mamba2" in kinds:

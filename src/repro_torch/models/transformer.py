@@ -43,27 +43,40 @@ def layer(tree, i: int):
 # layer bodies
 
 
-def init_attn_block(gen: torch.Generator, cfg: ModelConfig, ff_kind: str):
+def init_attn_block(gen: torch.Generator, cfg: ModelConfig, ff_kind: str, cross: bool = False):
     """An attention block with an MLP or (``ff_kind="moe"``) a
-    mixture-of-experts feed-forward (the reference's, without the
-    cross-attention of the encoder-decoder family, which the port does not
-    build yet)."""
+    mixture-of-experts feed-forward; ``cross=True`` adds the
+    encoder-decoder family's cross-attention (``norm_x``, ``xattn``)."""
     dev = gen.device
-    return {
+    p = {
         "norm1": init_norm(cfg, cfg.d_model, dev),
         "attn": init_attention(gen, cfg),
         "norm2": init_norm(cfg, cfg.d_model, dev),
         "ff": M.init_moe(gen, cfg) if ff_kind == "moe" else init_mlp(gen, cfg),
     }
+    if cross:
+        p["norm_x"] = init_norm(cfg, cfg.d_model, dev)
+        p["xattn"] = init_attention(gen, cfg, cross=True)
+    return p
 
 
 def attn_block(p, h, cfg: ModelConfig, *, positions, mask, ff_kind: str, cache=None,
-               cache_index=None, chunked_info=None):
+               cache_index=None, cross_kv=None, cross_mask=None, chunked_info=None):
+    """Self-attention, then (with ``cross_kv``, the encoder's per-layer K/V)
+    cross-attention over the encoder's output without RoPE, then the
+    feed-forward; each a pre-norm residual.  The cross-attention takes the
+    dense ``cross_mask`` form at any length: ``chunked_info`` (the causal
+    kernel's) applies to the self-attention alone."""
     a, new_cache = apply_attention(
         p["attn"], apply_norm(p["norm1"], h, cfg), cfg, positions=positions, mask=mask,
         cache=cache, cache_index=cache_index, chunked_info=chunked_info,
     )
     h = h + a
+    if cross_kv is not None:
+        xa, _ = apply_attention(p["xattn"], apply_norm(p["norm_x"], h, cfg), cfg,
+                                positions=positions, mask=cross_mask, kv_override=cross_kv,
+                                use_rope=False)
+        h = h + xa
     hn = apply_norm(p["norm2"], h, cfg)
     if ff_kind == "moe":
         f, aux = M.apply_moe(p["ff"], hn, cfg)

@@ -6,7 +6,8 @@ once per argument list in this module;
 the port's run starts from the reference's initial parameters
 (``main(argv, init_fn=...)`` with ``convert.params_from_jax``).
 
-* ``mamba2-``, ``zamba2-``, ``llama3-`` and ``mixtral-8x7b-reduced`` at the
+* ``mamba2-``, ``zamba2-``, ``llama3-``, ``mixtral-8x7b-`` and
+  ``whisper-small-reduced`` (its ``frames`` drawn after the tokens) at the
   reference's default flags (8 clients, m = 2, aocs, vmap, jnp; seq 16): per
   round the mask and the sent count bitwise, the ``[round k]`` line's
   ``sent`` and ``bits`` fields equal, the norms, alpha and gamma within
@@ -24,7 +25,7 @@ the port's run starts from the reference's initial parameters
   a resumed run prints the uninterrupted run's round lines exactly; a port
   checkpoint resumed by the reference and a reference checkpoint resumed by
   the port give the port's straight run's masks; a changed flag is refused with
-  the reference's message;
+  the reference's message; a whisper round checkpoint crosses both ways too;
 * ``--shard on`` on gloo meshes of 1 (in this process) and 2 ranks
   (``spawn_mesh``): masks equal the reference's (its mesh round draws its
   plain round's masks);
@@ -42,6 +43,7 @@ import re
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get as j_get
 from repro.launch import train as j_train
@@ -52,8 +54,20 @@ from repro_torch.launch import train
 BASE = ["--rounds", "2", "--seq", "16"]
 RTOL = 1e-5
 LOSS_ATOL = 1e-4
+WHISPER_CKPT = ["--arch", "whisper-small-reduced", "--rounds", "2", "--clients", "2",
+                "--expected", "1", "--batch", "1", "--seq", "8"]
 RESUME = ["--arch", "llama3-8b-reduced", "--rounds", "4", "--clients", "2", "--expected", "1",
           "--batch", "1", "--seq", "8", "--server-opt", "momentum", "--sampler", "threshold"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU ops in this file are small: one intra-op thread keeps a
+    test worker's torch from contending with the other workers' threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 class _RecordingJax:
@@ -137,7 +151,8 @@ def _same_rounds(rows, lines, ref, ref_lines, rtol=RTOL, loss_atol=LOSS_ATOL):
 
 
 @pytest.mark.parametrize("arch", ("mamba2-130m-reduced", "zamba2-2.7b-reduced",
-                                  "llama3-8b-reduced", "mixtral-8x7b-reduced"))
+                                  "llama3-8b-reduced", "mixtral-8x7b-reduced",
+                                  "whisper-small-reduced"))
 def test_arch_rounds_match_reference(monkeypatch, capsys, arch):
     argv = ["--arch", arch] + BASE
     ref, ref_lines = _ref(monkeypatch, capsys, argv)
@@ -234,6 +249,28 @@ def test_checkpoints_cross_between_packages(tmp_path, monkeypatch, capsys):
         np.testing.assert_array_equal(r_res["mask"], want["mask"])
         assert abs(float(j_res.loss) - want["loss"]) <= LOSS_ATOL
         assert abs(r_res["loss"] - want["loss"]) <= LOSS_ATOL
+
+
+def test_whisper_checkpoints_cross_between_packages(tmp_path, monkeypatch, capsys):
+    """A whisper round checkpoint (its encoder and cross-attention leaves)
+    written by either package resumes in the other on the straight run's
+    masks."""
+    arch = WHISPER_CKPT[1]
+    straight, _ = _port(capsys, WHISPER_CKPT, arch)
+    first = WHISPER_CKPT[:3] + ["1"] + WHISPER_CKPT[4:]
+    d_port, d_ref = str(tmp_path / "port"), str(tmp_path / "ref")
+    _port(capsys, first + ["--checkpoint", d_port, "--ckpt-every", "1"], arch)
+    rec, _ = _ref(monkeypatch, capsys, WHISPER_CKPT + ["--resume", d_port])
+    _ref(monkeypatch, capsys, first + ["--checkpoint", d_ref, "--ckpt-every", "1"])
+    rows, _ = _port(capsys, WHISPER_CKPT + ["--resume", d_ref], arch)
+    idx = json.load(open(os.path.join(d_port, "step-00000001", "index.json")))
+    assert any("['xattn']" in k for k in idx["keys"])
+    assert any(k.startswith("['params']['enc_layers']") for k in idx["keys"])
+    assert len(rec) == len(rows) == 1
+    for got in (np.asarray(rec[0].mask), rows[0]["mask"]):
+        np.testing.assert_array_equal(got, straight[1]["mask"])
+    for loss in (float(rec[0].loss), rows[0]["loss"]):
+        assert abs(loss - straight[1]["loss"]) <= LOSS_ATOL
 
 
 def _mesh_arch(mesh, argv, tree):

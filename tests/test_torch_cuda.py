@@ -46,9 +46,9 @@ launched while autograd records (the kernels have no backward).  The
 across vmap + jnp, vmap + pallas (kernel 1) and scan + pallas (kernel 3),
 its norms bitwise across the vmap runs (the scan engine's within 1e-5) and
 every round run to run; the reduced decoder rounds equal to the CPU's with no kernel
-launched in the gradient passes; the decoder family's prefill (kernel 7
-once a layer, with a prefix or a window) equal to the CPU's within 1e-4 in
-f32, and its greedy tokens.
+launched in the gradient passes; the decoder family's and whisper's
+prefill (kernel 7 once a decoder layer, with a prefix or a window) equal to
+the CPU's within 1e-4 in f32, and its greedy tokens.
 """
 
 import json
@@ -873,12 +873,15 @@ def test_charlm_on_the_card_is_bitwise_across_runs_and_modes(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,bsz,seq", (("mamba2-130m-reduced", 2, 256),
-                                          ("zamba2-2.7b-reduced", 1, 2100)))
+                                          ("zamba2-2.7b-reduced", 1, 2100),
+                                          ("whisper-small-reduced", 1, 2100)))
 def test_model_loss_gradient_on_the_card_equals_the_cpu(cuda, arch, bsz, seq):
     # the kernels have no backward: a gradient on the card takes the eager
     # forms (no kernel launch) and equals the CPU's within the forward
     # tolerance, atol 1e-4, relative to the gradient's largest entry; with
     # no gradient recorded the same forward launches the kernels again
+    # (whisper's layers are rematerialised in both gradients: kernel 7 in
+    # neither the forward nor the backward's recompute)
     from repro_torch.configs import get
     from repro_torch.kernels.ops import tree_leaves, tree_map
     from repro_torch.models import build_model
@@ -890,6 +893,9 @@ def test_model_loss_gradient_on_the_card_equals_the_cpu(cuda, arch, bsz, seq):
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (bsz, seq + 1)))
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    if cfg.encoder_seq:
+        batch["frames"] = torch.from_numpy((np.random.default_rng(1).normal(
+            size=(bsz, cfg.encoder_seq, cfg.d_model)) * 0.02).astype(np.float32))
     want = tree_leaves(torch.func.grad(lambda p: model.loss(p, batch)[0])(params))
     scale = max(float(w.abs().max()) for w in want)
     g_params = tree_map(lambda t: t.to(cuda), params)
@@ -904,9 +910,10 @@ def test_model_loss_gradient_on_the_card_equals_the_cpu(cuda, arch, bsz, seq):
     for route, got in grads.items():
         err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
         assert err <= 1e-4 * scale, (route, err, scale)
+    kernel = fa.flash_attention_cuda if cfg.encoder_layers else ss.ssd_scan_cuda
     with torch.no_grad():
         model.loss(g_params, g_batch)
-    assert ss.ssd_scan_cuda.launches > before[1]
+    assert kernel.launches > before[kernel is ss.ssd_scan_cuda]
 
 
 def _arch_rows(argv, init_fn=None):
@@ -975,12 +982,13 @@ def test_reduced_arch_rounds_on_the_card_equal_the_cpu(cuda, arch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ("llama3-8b-reduced", "paligemma-3b-reduced",
-                                  "mixtral-8x7b-reduced"))
+                                  "mixtral-8x7b-reduced", "whisper-small-reduced"))
 def test_decoder_prefill_on_the_card_equals_the_cpu(cuda, arch):
-    # chip_smoke.py's decoder_phase at the reduced size in f32: kernel 7 once
-    # a layer (with the VLM's prefix, or mixtral's window of 64 at 2,100
-    # tokens), the prefill's logits within 1e-4 of the CPU's, greedy decode
-    # tokens equal
+    # chip_smoke.py's decoder_phase (and whisper's encdec_phase) at the
+    # reduced size in f32: kernel 7 once a decoder layer (with the VLM's
+    # prefix, or mixtral's window of 64 at 2,100 tokens; whisper's encoder
+    # and cross-attention stay dense), the prefill's logits within 1e-4 of
+    # the CPU's, greedy decode tokens equal
     from repro_torch.configs import get
     from repro_torch.kernels.ops import tree_map
     from repro_torch.launch.serve import serve
@@ -994,6 +1002,9 @@ def test_decoder_prefill_on_the_card_equals_the_cpu(cuda, arch):
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     r = np.random.default_rng(0)
     batch = {"tokens": torch.from_numpy(r.integers(0, cfg.vocab_size, (1, 2100)))}
+    if cfg.encoder_seq:
+        batch["frames"] = torch.from_numpy(
+            (r.normal(size=(1, cfg.encoder_seq, cfg.d_model)) * 0.02).astype(np.float32))
     if cfg.prefix_tokens:
         batch["patches"] = torch.from_numpy(
             (r.normal(size=(1, cfg.prefix_tokens, cfg.d_model)) * 0.02).astype(np.float32))

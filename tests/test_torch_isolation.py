@@ -1,5 +1,6 @@
-"""The port stands alone: no file of ``src/repro_torch``, not
-``chip_smoke.py`` and not the card-only ``tests/test_torch_cuda.py`` imports
+"""The port stands alone: no file of ``src/repro_torch`` or
+``examples/torch``, not ``chip_smoke.py`` and not the card-only
+``tests/test_torch_cuda.py`` imports
 ``jax`` or the JAX package ``repro`` (the GPU machine has no JAX), and a
 reduced port scenario (on one device, and on the mesh round) runs in a fresh
 interpreter without loading jax."""
@@ -12,7 +13,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples" / "torch").glob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
 
 

@@ -12,9 +12,10 @@
   chunked attention; 132 chunks of 16: the fused SSD pass; not a chunk
   multiple: the padding; batch 1), all within atol 1e-4 in f32 (the two
   frameworks sum in other orders; the differences seen are ~1e-6).
-* The encoder-decoder family (whisper), which the port does not build yet,
-  raises ``NotImplementedError``; the decoder family builds (its parity is
-  ``tests/test_torch_decoder.py``).
+* Every family builds: the full decoder and encoder-decoder configs on the
+  meta device with the reference's cache shapes (whisper's ``cross``
+  buffers among them); their parity is ``tests/test_torch_decoder.py`` and
+  ``tests/test_torch_encdec.py``.
 """
 
 import dataclasses
@@ -145,18 +146,20 @@ def test_init_and_init_cache_are_shaped_like_the_references(arch):
 
 @pytest.mark.parametrize("name", ("llama3-8b", "mixtral-8x7b", "paligemma-3b",
                                   "whisper-small", "granite-8b-reduced"))
-def test_unported_families_raise(name):
-    """Whisper, the one family still to port, raises; the decoder family
-    builds, its cache shaped like the reference's (the full configs on the
-    meta device), and the reduced one initialises to the reference's tree."""
+def test_every_family_builds(name):
+    """The decoder and encoder-decoder families build, their caches shaped
+    like the reference's (the full configs on the meta device; whisper's
+    ``cross`` buffers included), and the reduced one initialises to the
+    reference's tree."""
     cfg = get(name)
-    if cfg.encoder_layers:
-        with pytest.raises(NotImplementedError):
-            build_model(cfg)
-        return
     m, jm = build_model(cfg), j_build(j_get(name), remat=False)
-    want = jax.tree_util.tree_leaves(jax.eval_shape(lambda: jm.init_cache(2, 24)))
-    got = tree_leaves(m.init_cache(2, 24, "meta"))
+    want = jax.eval_shape(lambda: jm.init_cache(2, 24))
+    got = m.init_cache(2, 24, "meta")
+    assert sorted(got) == sorted(want)
+    if cfg.encoder_layers:
+        assert tuple(got["cross"]["k"].shape) == (cfg.num_layers, 2, cfg.encoder_seq,
+                                                  cfg.num_kv_heads, cfg.resolved_head_dim)
+    want, got = jax.tree_util.tree_leaves(want), tree_leaves(got)
     assert [tuple(t.shape) for t in got] == [w.shape for w in want]
     assert all(str(t.dtype).split(".")[1] == str(w.dtype) for t, w in zip(got, want))
     if name.endswith("-reduced"):

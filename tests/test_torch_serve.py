@@ -9,6 +9,9 @@ bit) with the tokens of the unsaved ones, and ``--metrics-port`` exports the
 ``prefill`` and ``decode`` phase seconds.
 """
 
+import os
+import subprocess
+import sys
 import urllib.request
 
 import jax
@@ -64,15 +67,50 @@ def test_serve_gives_the_references_greedy_tokens(s, gen):
     assert timings["prefill_ms"] > 0 and timings["decode_ms"] > 0
 
 
-def test_serve_main_on_the_cpu(capsys):
+class _CurrentStdout:
+    """Writes to whatever ``sys.stdout`` is at the time of the write."""
+
+    def write(self, text):
+        return sys.stdout.write(text)
+
+    def flush(self):
+        sys.stdout.flush()
+
+
+@pytest.fixture
+def serve_log(monkeypatch):
+    """The obs logger's handler holds the stdout it was made with, at import;
+    for the test, it writes to the stdout that ``capsys`` captures."""
+    (handler,) = serve_mod.log.handlers
+    monkeypatch.setattr(handler, "stream", _CurrentStdout())
+
+
+def test_serve_main_on_the_cpu(capsys, serve_log):
     toks = serve_mod.main(["--arch", "mamba2-130m-reduced", "--batch", "2", "--prompt-len",
                            "16", "--gen", "3", "--device", "cpu"])
     assert toks.shape == (2, 3)
     assert "[serve] prefill 2x16" in capsys.readouterr().out
 
 
+def test_serve_status_lines_go_through_the_obs_logger():
+    # the logger the reference's serve uses, under the port's logger names:
+    # REPRO_LOG=WARNING leaves the run's output empty, INFO prints its lines
+    argv = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "mamba2-130m-reduced",
+            "--batch", "1", "--prompt-len", "8", "--gen", "2", "--device", "cpu"]
+    assert serve_mod.log.name == "repro_torch.obs.serve"
+    outs = {}
+    for level in ("WARNING", "INFO"):
+        env = dict(os.environ, REPRO_LOG=level)
+        run = subprocess.run(argv, env=env, capture_output=True, text=True, timeout=120)
+        assert run.returncode == 0, run.stderr
+        outs[level] = run.stdout.splitlines()
+    assert outs["WARNING"] == []
+    assert [line.split(" ")[:2] for line in outs["INFO"]] == [
+        ["[serve]", "prefill"], ["[serve]", "generated"], ["[serve]", "sample"]]
+
+
 @pytest.mark.parametrize("flag", (["--restore", "ckpt"], ["--metrics-port", "0"]))
-def test_serve_flags_of_unported_modules_raise(flag, tmp_path, monkeypatch, capsys):
+def test_serve_flags_of_unported_modules_raise(flag, tmp_path, monkeypatch, capsys, serve_log):
     # both flags, once refused, now work
     arch = "mamba2-130m-reduced"
     argv = ["--arch", arch, "--batch", "2", "--prompt-len", "16", "--gen", "3",
