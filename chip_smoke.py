@@ -183,6 +183,13 @@ nvcc (one process per source, all at once), then:
 * the example scripts (``examples_phase``): each ``examples/torch/*.py``
   ``main`` on the card at a small size (quickstart's distances within 1e-5
   of its CPU run);
+* the dry-run (``dryrun_phase``; ``repro_torch.launch.dryrun``, a fake
+  process group in child processes, fake tensors on the card's device type,
+  no kernel launched): llama3-8b x prefill_32k and mamba2-130m x train_4k
+  on the (32, 8) pod1 mesh, each record checked; then on a (1, 1) mesh the
+  roofline of the three prefills this script serves at batch 2 x 4,096
+  (zamba2-2.7b, llama3-8b, whisper-small), each printed beside its measured
+  prefill ms with the compute term's share of it;
 * a profiler pass (device ops per round among its numbers) of the main
   path, of the vmap + rand-k + pallas path, of the first slice's path and of
   the mesh round, and a per-layer breakdown of the main path, of the first
@@ -201,6 +208,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -220,7 +228,7 @@ CHARLM_CELL = "charlm-fedavg-aocs"            # the 2-layer GRU, D = 60,630
 CHARLM_ROUNDS = 10
 CHARLM_DIM = 60630
 MAIN_DIM = 58430
-SYNC_ROUNDS = 3              # profiled host/prefetch rounds; the window spans 2
+SYNC_ROUNDS = 2              # profiled host/prefetch rounds; the window spans 1
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
               "cudaMemcpy", "cudaMemcpy2D", "cudaMemcpyFromSymbol", "cudaMemcpyToSymbol")
 SERVER_OPT_ROUNDS = 3        # the reference's test_engine_matrix_parity_server_opt
@@ -229,7 +237,7 @@ PATH_ROUNDS = 12
 SCAN_BLOCK = 8               # the main path's rounds_per_scan: blocks of 8 and 4
 CHARLM_SCAN_BLOCK = 3        # charlm's: blocks end on the eval grid too
 CHARLM_EVAL_EVERY = 5
-SCAN_PROFILE_ROUNDS = 6      # profiled scan runs: blocks of 4 and 2
+SCAN_PROFILE_ROUNDS = 5      # profiled scan runs: blocks of 4 and 1
 SCAN_PROFILE_BLOCK = 4
 TRACE_TAIL = 4096            # small kernels after a profiled run (and 1/16 before it)
 SHARD_ROUNDS = 10            # = VMAP_ROUNDS = SLICE1_ROUNDS: compared bitwise
@@ -239,12 +247,12 @@ MESH4_TIMEOUT_S = 600
 VMAP_ROUNDS = 10
 SLICE1_ROUNDS = 10
 NORM_COHORTS = 5
-PROFILE_ROUNDS = 3
-BREAKDOWN_ROUNDS = 4
+PROFILE_ROUNDS = 2
+BREAKDOWN_ROUNDS = 3
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
-TIMING_REPS = 100
+TIMING_REPS = 50
 PROFILE_REPS = 20             # flushed calls per shape in a profiler window
 SPIN_CYCLES = 200_000         # ~100 us of device spin at H100 clocks
 SWEEP_C = (1, 3, 4, 32, 33, 200)
@@ -4058,6 +4066,81 @@ def examples_phase(torch) -> dict:
     return out
 
 
+# the dry-run phase: pairs on the pod1 mesh, and the serve phases' prefills
+# (batch 2 x 4,096) on a (1, 1) mesh, each in a child process of its own
+DRYRUN_PAIRS = (("llama3-8b", "prefill_32k"), ("mamba2-130m", "train_4k"))
+DRYRUN_PREFILLS = ("zamba2-2.7b", "llama3-8b", "whisper-small")
+DRYRUN_ONE_CHIP = """
+import sys
+from repro_torch.configs.base import InputShape
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_debug_mesh
+mesh = make_debug_mesh(1, 1)
+shape = InputShape("prefill_2x4096", seq_len=4096, global_batch=2, mode="prefill")
+for arch in sys.argv[2:]:
+    dryrun.run_pair(arch, shape, mesh, "1x1", sys.argv[1])
+"""
+
+
+def dryrun_phase(out_dir: Path, measured: dict) -> dict:
+    """The dry-run's CLI on DRYRUN_PAIRS (pod1) and its (1, 1) roofline of
+    DRYRUN_PREFILLS, all child processes started together (the fake process
+    group stays out of this process); ``measured`` is each prefill's ms
+    from the serve phases.  Every record must hold FLOPs and bytes > 0 and
+    a bottleneck among the three terms; a train record, collective
+    traffic > 0."""
+    t0 = time.perf_counter()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+                               "--shape", s, "--out", str(out_dir / "pod1")], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for a, s in DRYRUN_PAIRS]
+    procs.append(subprocess.Popen([sys.executable, "-c", DRYRUN_ONE_CHIP, str(out_dir / "1x1"),
+                                   *DRYRUN_PREFILLS], cwd=ROOT, env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"dryrun: {p.args[1:4]} exited {p.returncode}:\n{log[-3000:]}")
+    records = {}
+    for mesh, pairs in (("pod1", DRYRUN_PAIRS),
+                        ("1x1", [(a, "prefill_2x4096") for a in DRYRUN_PREFILLS])):
+        for arch, shape in pairs:
+            rec = json.loads((out_dir / mesh / f"{arch}__{shape}.json").read_text())
+            if not (rec["flops_per_chip"] > 0 and rec["hbm_bytes_per_chip"] > 0
+                    and rec["memory_s"] > 0
+                    and rec["bottleneck"] in ("compute", "memory", "collective")):
+                raise AssertionError(f"dryrun {mesh} {arch} x {shape}: bad record {rec}")
+            if shape.startswith("train") and not rec["collective_traffic_per_chip"] > 0:
+                raise AssertionError(f"dryrun {mesh} {arch} x {shape}: no collective traffic")
+            records[(mesh, arch)] = rec
+            print(f"dryrun {mesh} {arch} x {shape} (modeled from spec constants for "
+                  f"{card_line()}): compute {rec['compute_s'] * 1e3} ms (analytic floor "
+                  f"{rec['compute_model_s'] * 1e3} ms), memory {rec['memory_s'] * 1e3} ms, "
+                  f"collective {rec['collective_s'] * 1e3} ms, bottleneck {rec['bottleneck']}, "
+                  f"useful FLOPs {rec['useful_flops_ratio']}, trace {rec['trace_s']} s")
+    shares = {}
+    for arch in DRYRUN_PREFILLS:
+        rec, ms = records[("1x1", arch)], measured[arch]
+        compute_ms = max(rec["compute_s"], rec["compute_model_s"]) * 1e3
+        shares[arch] = compute_ms / ms
+        print(f"dryrun 1x1 {arch} prefill (2 x 4,096): measured {ms} ms on {card_line()}; "
+              f"modeled compute {compute_ms} ms, memory {rec['memory_s'] * 1e3} ms, "
+              f"collective {rec['collective_s'] * 1e3} ms; compute share of the measured "
+              f"prefill {shares[arch]}")
+    secs = time.perf_counter() - t0
+    print(f"phase dryrun: {secs:.1f} s")
+    return {"records": {f"{m} {a}": r for (m, a), r in records.items()},
+            "compute_share": shares, "seconds": secs}
+
+
 def _finite(x: float) -> bool:
     return x == x and abs(x) != float("inf")
 
@@ -4220,6 +4303,12 @@ def main() -> int:
     encdec = encdec_phase(torch, dev)
     examples_phase(torch)
     mark("encdec and examples phases")
+    dryrun_phase(args.out / "dryrun" if args.out is not None
+                 else ROOT / "dryrun_torch_out" / "chip_smoke",
+                 {"zamba2-2.7b": serves["zamba2-2.7b"]["prefill_ms"],
+                  "llama3-8b": decoders["llama3-8b"]["prefill_ms"],
+                  "whisper-small": encdec["serve"]["prefill_ms"]})
+    mark("dryrun phase")
     zamba, mamba = (f"{arch} serve" for arch, _, _ in SERVE_PATHS)
     launches = {
         "masked_scale_aggregate": (slice1_counts, SLICE1_CELL),

@@ -1,2 +1,3 @@
-"""Launch: the serving driver (``serve``) and the training driver's
-``--scenario`` branch (``train``)."""
+"""Launch: the serving driver (``serve``), the training driver (``train``),
+and the dry-run in H100 form (``mesh``, ``specs``, ``sharding``,
+``roofline``, ``dryrun``)."""

@@ -119,6 +119,43 @@ def autograd_records(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def on_card(t: torch.Tensor) -> bool:
+    """True for a plain CUDA tensor, whose storage a kernel can read: not a
+    tensor subclass such as a ``FakeTensor`` or a ``DTensor`` (the dry-run's
+    stand-ins), which take the eager forms."""
+    return t.is_cuda and type(t) in (torch.Tensor, torch.nn.Parameter)
+
+
+# the dry-run (``launch/dryrun.py``) sets this to its counters' ``repeat(n)``,
+# a context under which what they count is counted n times
+_LOOP_COUNTER = [None]
+
+
+class BlockLoop:
+    """``range(n)`` over the iterations of an eager form's block loop, which
+    all have the same shapes.  In a dry-run that counts work
+    (``_LOOP_COUNTER`` set), where autograd records nothing, only the first
+    iteration runs, counted n times; :meth:`fill` then repeats a list the
+    loop collected to n entries, so that what follows sees the full run's
+    shapes.  Otherwise it is ``range(n)``."""
+
+    def __init__(self, n: int, *tensors: torch.Tensor):
+        self.n = n
+        self.repeat = _LOOP_COUNTER[0]
+        if self.repeat is not None and autograd_records(*tensors):
+            self.repeat = None
+
+    def __iter__(self):
+        if self.repeat is None:
+            yield from range(self.n)
+            return
+        with self.repeat(self.n):
+            yield 0
+
+    def fill(self, items: list) -> list:
+        return items if self.repeat is None else items * self.n
+
+
 # the depth of :class:`_Remat` forwards running: their ops are recorded again
 # in the backward, so they take the eager forms the backward differentiates
 _REMAT_FORWARDS = [0]
@@ -184,11 +221,12 @@ def chunked_attention(q, k, v, *, window=None, prefix=0, block_q=512, block_k=51
 
     q, k, v: (B, S, H, hd) with kv heads already repeated; returns
     (B, S, H, hd).  On a CUDA tensor it runs the flash-attention kernel
-    (:func:`flash_attention_heads`, output in q's dtype); on a CPU tensor, or
-    when autograd records the call (:func:`autograd_records`), the
-    reference's blocked algorithm (:func:`chunked_attention_eager`, f32).
+    (:func:`flash_attention_heads`, output in q's dtype); on a CPU tensor, a
+    fake or distributed one (:func:`on_card`), or when autograd records the
+    call (:func:`autograd_records`), the reference's blocked algorithm
+    (:func:`chunked_attention_eager`, f32).
     """
-    if q.is_cuda and not autograd_records(q, k, v):
+    if on_card(q) and not autograd_records(q, k, v):
         return flash_attention_heads(q, k, v, window=window, prefix=prefix)
     return chunked_attention_eager(q, k, v, window=window, prefix=prefix,
                                    block_q=block_q, block_k=block_k)
@@ -217,13 +255,14 @@ def chunked_attention_eager(q, k, v, *, window=None, prefix=0, block_q=512, bloc
     vf = vf.reshape(b, nk, bk, h, hd)
     dev = q.device
     outs = []
-    for qi in range(nq):
+    q_loop = BlockLoop(nq, q, k, v)
+    for qi in q_loop:
         q_i = qf[:, qi]
         q_pos = qi * bq + torch.arange(bq, device=dev)
         m = torch.full((b, h, bq), NEG, device=dev)
         l = torch.zeros((b, h, bq), device=dev)
         acc = torch.zeros((b, h, bq, hd), device=dev)
-        for ki in range(nk):
+        for ki in BlockLoop(nk, q, k, v):
             k_pos = ki * bk + torch.arange(bk, device=dev)
             logits = torch.einsum("bshd,bthd->bhst", q_i, kf[:, ki])
             msk = k_pos[None, :] <= q_pos[:, None]
@@ -241,7 +280,7 @@ def chunked_attention_eager(q, k, v, *, window=None, prefix=0, block_q=512, bloc
             m = m_new
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         outs.append(out.permute(0, 2, 1, 3))      # (b, bq, h, hd)
-    return torch.cat(outs, dim=1)[:, :s]
+    return torch.cat(q_loop.fill(outs), dim=1)[:, :s]
 
 
 def attention_scores(q, k, v, mask, dtype):

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import _dense_init, autograd_records
+from repro_torch.models.layers import BlockLoop, _dense_init, autograd_records, on_card
 
 
 def dims(cfg: ModelConfig):
@@ -77,9 +77,10 @@ def ssd_chunked(xs, bmat, cmat, dt, da, chunk: int) -> tuple:
     """The chunked SSD core.  xs (B,S,H,P) and bmat, cmat (B,S,N) in the
     model's dtype, dt and da (B,S,H) f32, S a multiple of ``chunk`` ->
     (y (B,S,H,P) f32, final state (B,H,P,N) f32).  On a CUDA tensor the SSD
-    scan kernel (:func:`ssd_scan_heads`); on a CPU tensor, or when autograd
-    records the call, :func:`ssd_chunked_eager`."""
-    if xs.is_cuda and not autograd_records(xs, bmat, cmat, dt, da):
+    scan kernel (:func:`ssd_scan_heads`); on a CPU tensor, a fake or
+    distributed one (:func:`~repro_torch.models.layers.on_card`), or when
+    autograd records the call, :func:`ssd_chunked_eager`."""
+    if on_card(xs) and not autograd_records(xs, bmat, cmat, dt, da):
         return ssd_scan_heads(xs, bmat, cmat, dt, da, chunk)
     return ssd_chunked_eager(xs, bmat, cmat, dt, da, chunk)
 
@@ -115,7 +116,8 @@ def ssd_chunked_eager(xs, bmat, cmat, dt, da, chunk: int) -> tuple:
     if nc > 64:
         state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=xs.device)
         ys = []
-        for ci in range(nc):
+        loop = BlockLoop(nc, xs, bmat, cmat, dt, da)
+        for ci in loop:
             x_i, b_i, c_i = xs_c[:, ci], b_c[:, ci], c_c[:, ci]
             dt_i, da_i = dt_c[:, ci], da_c[:, ci]
             a_cs = torch.cumsum(da_i, dim=1)                           # (B,Q,H)
@@ -130,7 +132,7 @@ def ssd_chunked_eager(xs, bmat, cmat, dt, da, chunk: int) -> tuple:
             s_chunk = torch.einsum("bth,btn,bthp->bhpn", decay_out * dt_i, b_i, x_i)
             state = state * torch.exp(a_tot)[:, :, None, None] + s_chunk
             ys.append(y_diag + y_off)
-        return torch.stack(ys, dim=1).reshape(bsz, seq, h, p), state
+        return torch.stack(loop.fill(ys), dim=1).reshape(bsz, seq, h, p), state
 
     a_cs = torch.cumsum(da_c, dim=2)                                   # (B,NC,Q,H)
     seg = a_cs[:, :, :, None, :] - a_cs[:, :, None, :, :]              # (B,NC,Q,Q,H)
@@ -143,10 +145,11 @@ def ssd_chunked_eager(xs, bmat, cmat, dt, da, chunk: int) -> tuple:
     s_chunk = torch.einsum("bcth,bctn,bcthp->bchpn", decay_out * dt_c, b_c, xs_c)
     state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=xs.device)
     states_in = []
-    for ci in range(nc):               # the state *entering* each chunk
+    loop = BlockLoop(nc, xs, bmat, cmat, dt, da)
+    for ci in loop:                    # the state *entering* each chunk
         states_in.append(state)
         state = state * torch.exp(a_tot[:, ci])[:, :, None, None] + s_chunk[:, ci]
-    states_in = torch.stack(states_in, dim=1)                          # (B,NC,H,P,N)
+    states_in = torch.stack(loop.fill(states_in), dim=1)               # (B,NC,H,P,N)
     y_off = torch.einsum("bctn,bcth,bchpn->bcthp", c_c, torch.exp(a_cs), states_in)
     return (y_diag + y_off).reshape(bsz, seq, h, p), state
 

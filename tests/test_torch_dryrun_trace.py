@@ -1,0 +1,111 @@
+"""The port's dry-run pass (``repro_torch/launch/dryrun.py``) on a fake
+process group, in subprocesses (a process group would outlive a test in
+this worker), at the reference test's size: llama3-8b reduced, vocab 256,
+seq 64, batch 8, 4 clients, ``--device cpu``.
+
+* on a (4, 2) mesh the round counts FLOPs and bytes per chip and moves
+  collective traffic; prefill and decode in every ``kv_mode`` trace;
+* on a (1, 1) mesh the per-chip FLOPs equal ``FlopCounterMode``'s count of
+  the same round run on real CPU tensors, and on (2, 2) the per-chip FLOPs
+  times 4 lie between that count and twice it (the sharded program repeats
+  some work on every chip, never less than all of it).
+
+``test_torch_dryrun_options.py`` covers the round's options, the depth
+extrapolation and the CLI.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), ".."))
+
+SCRIPT = r"""
+import dataclasses, json
+import torch
+import torch.distributed as dist
+from torch.utils.flop_counter import FlopCounterMode
+from repro_torch import rng
+from repro_torch.configs import ARCHS, SHAPES
+from repro_torch.fl.round import make_round
+from repro_torch.launch import dryrun as D, specs as SP
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.models import build_model
+
+cfg = ARCHS["llama3-8b"].reduced().with_(vocab_size=256)
+small = {n: dataclasses.replace(s, seq_len=64, global_batch=8) for n, s in SHAPES.items()}
+fl = SP.fl_config_for(cfg, small["train_4k"], n_clients=4)
+SP.fl_config_for = lambda *a, **k: fl
+out = {}
+
+def counts(mesh, shape="train_4k", **kw):
+    c = D.trace(D.build_lowered(cfg, small[shape], mesh, **kw))
+    return {"flops": c.flops, "bytes": c.bytes, "peak": c.peak_bytes,
+            "traffic": sum(r[1] for r in c.comm_records), "n_comms": len(c.comm_records)}
+
+mesh = make_debug_mesh(4, 2, device="cpu")
+out["backend"], out["world"] = dist.get_backend(), dist.get_world_size()
+out["train_4x2"] = counts(mesh)
+out["prefill_4x2"] = counts(mesh, "prefill_32k")
+for mode in ("hd", "batch", "seq", "proj", "factored"):
+    out["decode_4x2_" + mode] = counts(mesh, "decode_32k", kv_mode=mode)
+out["train_1x1"] = counts(make_debug_mesh(1, 1, device="cpu"))
+out["train_2x2"] = counts(make_debug_mesh(2, 2, device="cpu"))
+
+dist.destroy_process_group()
+
+model = build_model(cfg)
+params = model.init(torch.Generator().manual_seed(0), "cpu")
+g = torch.Generator().manual_seed(1)
+batch = {k: torch.randint(0, 256, (4, 1, 2, 64), generator=g, dtype=torch.int32)
+         for k in ("tokens", "targets")}
+step = make_round(model.loss, fl, mode="vmap", scan_group=2, device="cpu")
+with FlopCounterMode(display=False) as fc:
+    step(params, (), batch, torch.full((4,), 0.25), rng.PRNGKey(0))
+out["plain_flops"] = fc.get_total_flops()
+print("DRYRUN-RESULT " + json.dumps(out))
+"""
+
+
+def _env():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env.pop("XLA_FLAGS", None)
+    return env
+
+
+@pytest.fixture(scope="module")
+def result():
+    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    line = [x for x in out.stdout.splitlines() if x.startswith("DRYRUN-RESULT ")]
+    assert line, out.stdout[-3000:] + out.stderr[-6000:]
+    return json.loads(line[0].split(" ", 1)[1])
+
+
+def test_the_fake_group_exists(result):
+    assert result["backend"] == "fake" and result["world"] == 8
+
+
+def test_sharded_round_counts_work_and_collectives(result):
+    r = result["train_4x2"]
+    assert r["flops"] > 0 and r["bytes"] > 0 and r["peak"] > 0
+    assert r["n_comms"] > 0 and r["traffic"] > 0
+
+
+@pytest.mark.parametrize("name", ["prefill_4x2"] + [
+    "decode_4x2_" + m for m in ("hd", "batch", "seq", "proj", "factored")])
+def test_serving_steps_trace(result, name):
+    assert result[name]["flops"] > 0 and result[name]["bytes"] > 0
+
+
+def test_one_chip_flops_equal_the_plain_steps(result):
+    assert result["train_1x1"]["flops"] == result["plain_flops"] > 0
+    assert result["train_1x1"]["traffic"] == 0
+
+
+def test_four_chips_share_the_plain_steps_flops(result):
+    total = 4 * result["train_2x2"]["flops"]
+    assert result["plain_flops"] <= total <= 2 * result["plain_flops"]
