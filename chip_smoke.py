@@ -186,10 +186,14 @@ nvcc (one process per source, all at once), then:
 * the dry-run (``dryrun_phase``; ``repro_torch.launch.dryrun``, a fake
   process group in child processes, fake tensors on the card's device type,
   no kernel launched): llama3-8b x prefill_32k and mamba2-130m x train_4k
-  on the (32, 8) pod1 mesh, each record checked; then on a (1, 1) mesh the
-  roofline of the three prefills this script serves at batch 2 x 4,096
-  (zamba2-2.7b, llama3-8b, whisper-small), each printed beside its measured
-  prefill ms with the compute term's share of it;
+  on the (32, 8) pod1 mesh, the latter again with the scan engine, each
+  record checked, the prefill's FLOPs per chip held within 1% of the CPU's
+  (``DRYRUN_PREFILL_FLOPS``: the record must not depend on the torch
+  version), the two train records' useful-FLOPs ratios and the children's
+  peak resident memory printed; then on a (1, 1) mesh the roofline of the
+  three prefills this script serves at batch 2 x 4,096 (zamba2-2.7b,
+  llama3-8b, whisper-small), each printed beside its measured prefill ms
+  with the compute term's share of it;
 * a profiler pass (device ops per round among its numbers) of the main
   path, of the vmap + rand-k + pallas path, of the first slice's path and of
   the mesh round, and a per-layer breakdown of the main path, of the first
@@ -213,6 +217,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from collections import defaultdict
@@ -4069,6 +4074,14 @@ def examples_phase(torch) -> dict:
 # the dry-run phase: pairs on the pod1 mesh, and the serve phases' prefills
 # (batch 2 x 4,096) on a (1, 1) mesh, each in a child process of its own
 DRYRUN_PAIRS = (("llama3-8b", "prefill_32k"), ("mamba2-130m", "train_4k"))
+# the train pair again with the scan engine (--fl-mode scan), its record tagged
+DRYRUN_SCAN = ("mamba2-130m", "train_4k")
+# pod1 llama3-8b x prefill_32k's flops_per_chip as the CPU's torch counts it
+# (python -m repro_torch.launch.dryrun --arch llama3-8b --shape prefill_32k
+# --device cpu; tests/test_torch_dryrun_trace.py holds the CPU to it): the
+# card's torch must give it within 1%, the record not depending on the
+# torch version that traced it
+DRYRUN_PREFILL_FLOPS = 127543480156160.0
 DRYRUN_PREFILLS = ("zamba2-2.7b", "llama3-8b", "whisper-small")
 DRYRUN_ONE_CHIP = """
 import sys
@@ -4082,63 +4095,128 @@ for arch in sys.argv[2:]:
 """
 
 
-def dryrun_phase(out_dir: Path, measured: dict) -> dict:
-    """The dry-run's CLI on DRYRUN_PAIRS (pod1) and its (1, 1) roofline of
-    DRYRUN_PREFILLS, all child processes started together (the fake process
-    group stays out of this process); ``measured`` is each prefill's ms
-    from the serve phases.  Every record must hold FLOPs and bytes > 0 and
-    a bottleneck among the three terms; a train record, collective
-    traffic > 0."""
-    t0 = time.perf_counter()
+def dryrun_start(out_dir: Path) -> tuple:
+    """Starts the dry-run's child processes, which ``dryrun_phase`` collects:
+    its CLI on DRYRUN_PAIRS (pod1), on DRYRUN_SCAN with the scan engine, and
+    its (1, 1) roofline of DRYRUN_PREFILLS, all together (the fake process
+    group stays out of this process).  They take no card, so they run beside
+    the examples phase."""
     out_dir.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
-                               "--shape", s, "--out", str(out_dir / "pod1")], cwd=ROOT, env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for a, s in DRYRUN_PAIRS]
-    procs.append(subprocess.Popen([sys.executable, "-c", DRYRUN_ONE_CHIP, str(out_dir / "1x1"),
-                                   *DRYRUN_PREFILLS], cwd=ROOT, env=env,
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    cli = [sys.executable, "-m", "repro_torch.launch.dryrun", "--out", str(out_dir / "pod1")]
+    jobs = {f"pod1 {a} x {s}": cli + ["--arch", a, "--shape", s] for a, s in DRYRUN_PAIRS}
+    jobs[f"pod1 {DRYRUN_SCAN[0]} x {DRYRUN_SCAN[1]} scan"] = cli + [
+        "--arch", DRYRUN_SCAN[0], "--shape", DRYRUN_SCAN[1], "--fl-mode", "scan", "--tag", "_scan"]
+    jobs["1x1 prefills"] = [sys.executable, "-c", DRYRUN_ONE_CHIP, str(out_dir / "1x1"),
+                            *DRYRUN_PREFILLS]
+    t0 = time.perf_counter()
+    procs = {}
+    for i, (name, cmd) in enumerate(jobs.items()):  # to files: an unread pipe can fill
+        with open(out_dir / f"child{i}.log", "w") as log:
+            procs[name] = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                           stderr=subprocess.STDOUT)
+    peaks = dict.fromkeys(procs, 0)
+    sampler = threading.Thread(target=_sample_rss, args=(procs, peaks), daemon=True)
+    sampler.start()
+    return out_dir, t0, procs, peaks, sampler
+
+
+def _sample_rss(procs: dict, peaks: dict) -> None:
+    """Each child's resident set (``VmRSS``) every 0.2 s while it runs, its
+    maximum into ``peaks``: ``getrusage``'s high-water mark of a child counts
+    the pages it was forked with, and some kernels' ``/proc`` has no
+    ``VmHWM``."""
+    while any(p.poll() is None for p in procs.values()):
+        for name, p in procs.items():
+            try:
+                with open(f"/proc/{p.pid}/status") as f:
+                    rss = [int(x.split()[1]) * 1024 for x in f if x.startswith("VmRSS:")]
+                peaks[name] = max([peaks[name], *rss])
+            except (OSError, ValueError):
+                pass
+        time.sleep(0.2)
+
+
+def dryrun_stop(procs: dict) -> None:
+    for p in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def dryrun_phase(started: tuple, measured: dict) -> dict:
+    """The records of ``dryrun_start``'s children, each within 300 s of their
+    start; ``measured`` is each prefill's ms from the serve phases.  Every
+    record must hold FLOPs and bytes > 0 and a bottleneck among the three
+    terms; a train record, collective traffic > 0; the pod1 prefill,
+    DRYRUN_PREFILL_FLOPS within 1%.  Prints the children's peak resident
+    memory."""
+    import resource
+
+    import torch
+
+    out_dir, t0, procs, peaks, sampler = started
+    t_wait = time.perf_counter()
     try:
-        logs = [p.communicate(timeout=300)[0] for p in procs]
+        for p in procs.values():
+            p.wait(timeout=max(1.0, 300 - (time.perf_counter() - t0)))
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, log in zip(procs, logs):
+        dryrun_stop(procs)
+    sampler.join()
+    for i, (name, p) in enumerate(procs.items()):
         if p.returncode != 0:
-            raise AssertionError(f"dryrun: {p.args[1:4]} exited {p.returncode}:\n{log[-3000:]}")
+            log = (out_dir / f"child{i}.log").read_text()
+            raise AssertionError(f"dryrun {name}: exited {p.returncode}:\n{log[-3000:]}")
+    peak = resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss / 2**20
     records = {}
-    for mesh, pairs in (("pod1", DRYRUN_PAIRS),
-                        ("1x1", [(a, "prefill_2x4096") for a in DRYRUN_PREFILLS])):
-        for arch, shape in pairs:
-            rec = json.loads((out_dir / mesh / f"{arch}__{shape}.json").read_text())
-            if not (rec["flops_per_chip"] > 0 and rec["hbm_bytes_per_chip"] > 0
-                    and rec["memory_s"] > 0
-                    and rec["bottleneck"] in ("compute", "memory", "collective")):
-                raise AssertionError(f"dryrun {mesh} {arch} x {shape}: bad record {rec}")
-            if shape.startswith("train") and not rec["collective_traffic_per_chip"] > 0:
-                raise AssertionError(f"dryrun {mesh} {arch} x {shape}: no collective traffic")
-            records[(mesh, arch)] = rec
-            print(f"dryrun {mesh} {arch} x {shape} (modeled from spec constants for "
-                  f"{card_line()}): compute {rec['compute_s'] * 1e3} ms (analytic floor "
-                  f"{rec['compute_model_s'] * 1e3} ms), memory {rec['memory_s'] * 1e3} ms, "
-                  f"collective {rec['collective_s'] * 1e3} ms, bottleneck {rec['bottleneck']}, "
-                  f"useful FLOPs {rec['useful_flops_ratio']}, trace {rec['trace_s']} s")
+    pairs = [("pod1", a, s) for a, s in DRYRUN_PAIRS] + [("pod1", DRYRUN_SCAN[0],
+                                                          DRYRUN_SCAN[1] + "_scan")]
+    for mesh, arch, shape in pairs + [("1x1", a, "prefill_2x4096") for a in DRYRUN_PREFILLS]:
+        rec = json.loads((out_dir / mesh / f"{arch}__{shape}.json").read_text())
+        if not (rec["flops_per_chip"] > 0 and rec["hbm_bytes_per_chip"] > 0
+                and rec["memory_s"] > 0
+                and rec["bottleneck"] in ("compute", "memory", "collective")):
+            raise AssertionError(f"dryrun {mesh} {arch} x {shape}: bad record {rec}")
+        if shape.startswith("train") and not rec["collective_traffic_per_chip"] > 0:
+            raise AssertionError(f"dryrun {mesh} {arch} x {shape}: no collective traffic")
+        records[(mesh, arch, shape)] = rec
+        print(f"dryrun {mesh} {arch} x {shape} (modeled from spec constants for "
+              f"{card_line()}): compute {rec['compute_s'] * 1e3} ms (analytic floor "
+              f"{rec['compute_model_s'] * 1e3} ms), memory {rec['memory_s'] * 1e3} ms, "
+              f"collective {rec['collective_s'] * 1e3} ms, bottleneck {rec['bottleneck']}, "
+              f"flops_per_chip {rec['flops_per_chip']}, useful FLOPs "
+              f"{rec['useful_flops_ratio']}, {rec['notes']}, trace {rec['trace_s']} s")
+    vmap, scan = (records[("pod1", DRYRUN_SCAN[0], DRYRUN_SCAN[1] + t)] for t in ("", "_scan"))
+    print(f"dryrun pod1 {DRYRUN_SCAN[0]} x {DRYRUN_SCAN[1]}: useful FLOPs {vmap['useful_flops_ratio']}"
+          f" (vmap engine), {scan['useful_flops_ratio']} (scan engine); flops_per_chip "
+          f"{vmap['flops_per_chip']} and {scan['flops_per_chip']}; the scan trace "
+          f"{scan['trace_s']} s of the 300 s allowed")
+    flops = records[("pod1", "llama3-8b", "prefill_32k")]["flops_per_chip"]
+    drift = flops / DRYRUN_PREFILL_FLOPS - 1
+    print(f"dryrun pod1 llama3-8b x prefill_32k: flops_per_chip {flops} under torch "
+          f"{torch.__version__}, the CPU's {DRYRUN_PREFILL_FLOPS}: {drift * 100:+.4f}%")
+    if abs(drift) > 0.01:
+        raise AssertionError(f"dryrun pod1 llama3-8b x prefill_32k: flops_per_chip {flops} "
+                             f"is {drift * 100:+.2f}% off the CPU's {DRYRUN_PREFILL_FLOPS}")
     shares = {}
     for arch in DRYRUN_PREFILLS:
-        rec, ms = records[("1x1", arch)], measured[arch]
+        rec, ms = records[("1x1", arch, "prefill_2x4096")], measured[arch]
         compute_ms = max(rec["compute_s"], rec["compute_model_s"]) * 1e3
         shares[arch] = compute_ms / ms
         print(f"dryrun 1x1 {arch} prefill (2 x 4,096): measured {ms} ms on {card_line()}; "
               f"modeled compute {compute_ms} ms, memory {rec['memory_s'] * 1e3} ms, "
               f"collective {rec['collective_s'] * 1e3} ms; compute share of the measured "
               f"prefill {shares[arch]}")
-    secs = time.perf_counter() - t0
-    print(f"phase dryrun: {secs:.1f} s")
-    return {"records": {f"{m} {a}": r for (m, a), r in records.items()},
-            "compute_share": shares, "seconds": secs}
+    secs, waited = time.perf_counter() - t0, time.perf_counter() - t_wait
+    sampled = {name: n / 2**30 for name, n in peaks.items()}
+    print(f"dryrun: peak resident memory of a child process {peak} GiB by getrusage "
+          f"RUSAGE_CHILDREN (a child forked from this process counts the pages it was "
+          f"forked with); each child's VmRSS sampled every 0.2 s, peak GiB: {sampled}")
+    print(f"phase dryrun: {secs:.1f} s from the children's start, {waited:.1f} s of it after "
+          f"the examples phase")
+    return {"records": {f"{m} {a} {s}": r for (m, a, s), r in records.items()},
+            "compute_share": shares, "seconds": secs, "waited_seconds": waited,
+            "children_peak_rss_gib": peak, "children_sampled_peak_rss_gib": sampled}
 
 
 def _finite(x: float) -> bool:
@@ -4301,10 +4379,15 @@ def main() -> int:
     decoders = decoder_phase(torch, dev)
     mark("restore, arch and decoder phases")
     encdec = encdec_phase(torch, dev)
-    examples_phase(torch)
+    dry = dryrun_start(args.out / "dryrun" if args.out is not None
+                       else ROOT / "dryrun_torch_out" / "chip_smoke")
+    try:
+        examples_phase(torch)
+    except BaseException:
+        dryrun_stop(dry[2])
+        raise
     mark("encdec and examples phases")
-    dryrun_phase(args.out / "dryrun" if args.out is not None
-                 else ROOT / "dryrun_torch_out" / "chip_smoke",
+    dryrun_phase(dry,
                  {"zamba2-2.7b": serves["zamba2-2.7b"]["prefill_ms"],
                   "llama3-8b": decoders["llama3-8b"]["prefill_ms"],
                   "whisper-small": encdec["serve"]["prefill_ms"]})

@@ -14,7 +14,13 @@ from repro_torch.core import bits, compression, improvement, ocs, sampling  # no
 from repro_torch.core.ocs import OCSResult, sample_and_aggregate  # noqa: F401
 from repro_torch.core.sampling import (  # noqa: F401
     SAMPLERS,
+    STATEFUL_SAMPLERS,
+    SamplerState,
     aocs_probabilities,
+    clustered_probabilities,
+    cyclic_probabilities,
+    init_sampler_state,
     optimal_probabilities,
     resolve_sampler,
+    threshold_probabilities,
 )

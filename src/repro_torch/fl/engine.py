@@ -71,6 +71,7 @@ from repro_torch.core import ocs, sampling
 from repro_torch.core.compression import COMPRESSORS, apply_compression, client_material
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import update_cache
+from repro_torch.models.layers import BlockLoop
 from repro_torch.obs.gap import flat_gap_stats, tree_gap_stats
 
 MEMORY_POLICIES = ("vmap", "scan")
@@ -448,16 +449,23 @@ class RoundEngine:
             cache = torch.empty((n_cached, g, dim), dtype=dtype, device=self.device)
 
             # pass 1: every group's updates once; norms from the same eager
-            # ocs.client_norms as the vmap path (masks never depend on a kernel)
+            # ocs.client_norms as the vmap path (masks never depend on a kernel).
+            # The groups have the same shapes: a dry-run counts one group of
+            # each loop n times (models/layers.py::BlockLoop)
             norm_parts, loss_parts = [], []
-            for j in range(n_groups):
-                gb, keys = group(j)
-                upd, losses = self._batched_update(params, gb)
-                upd = compress_client_updates(upd, keys, fl)
-                norm_parts.append(ocs.client_norms(upd, weights[j * g:(j + 1) * g]))
-                loss_parts.append(losses)
-                if j < n_cached:
-                    kops.tree_to_client_matrix(upd, out=cache[j])
+            for lo, hi in ((0, n_cached), (n_cached, n_groups)):
+                loop, norms, group_losses = BlockLoop(hi - lo, *leaves), [], []
+                for j in loop:
+                    j += lo
+                    gb, keys = group(j)
+                    upd, losses = self._batched_update(params, gb)
+                    upd = compress_client_updates(upd, keys, fl)
+                    norms.append(ocs.client_norms(upd, weights[j * g:(j + 1) * g]))
+                    group_losses.append(losses)
+                    if j < n_cached:
+                        kops.tree_to_client_matrix(upd, out=cache[j])
+                norm_parts += loop.fill(norms)
+                loss_parts += loop.fill(group_losses)
             plan = self._plan(torch.cat(norm_parts), weights, k_sample, trace,
                               sampler_state)
             scale_g = plan.scale.reshape(n_groups, g)
@@ -471,7 +479,7 @@ class RoundEngine:
             if diag:
                 wf_g = weights.to(torch.float32).reshape(n_groups, g)
                 full_flat = torch.zeros((dim,), dtype=torch.float32, device=self.device)
-            for j in range(n_cached):
+            for j in BlockLoop(n_cached, *leaves):
                 _, part = update_cache.group_norm_aggregate(cache[j], scale_g[j],
                                                             self.backend)
                 agg_flat = agg_flat + part
@@ -479,10 +487,11 @@ class RoundEngine:
                     _, full_part = update_cache.group_norm_aggregate(cache[j], wf_g[j],
                                                                      self.backend)
                     full_flat = full_flat + full_part
-            for j in range(n_cached, n_groups):
+            for j in BlockLoop(n_groups - n_cached, *leaves):
                 # spill: recompute the RAW updates and regenerate the material
                 # from the same per-client keys; the compressor runs inside the
                 # post-plan contraction
+                j += n_cached
                 gb, keys = group(j)
                 upd, _ = self._batched_update(params, gb)
                 mats = () if keys is None else tuple(

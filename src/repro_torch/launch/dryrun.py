@@ -31,10 +31,20 @@ iterations, and the depths traced):
   on the full-depth arguments, extrapolated (:func:`count_step`);
 * ``donate`` has no meaning in torch: the argument is kept and ignored;
 * the layout: parameters are stored by ``launch/sharding.py``'s specs and
-  gathered over the client axes where used (FSDP, :func:`_fsdp_step`), and
-  each sublayer's input is replicated over the model axis
-  (:func:`tp_input`): GSPMD lays the reference's step out so, where
-  DTensor's per-op choice would shard the residual stream's hidden dim;
+  gathered over the client axes where used (FSDP, :func:`_fsdp_step`);
+  over the model axis it is Megatron's (:func:`_tp_blocks`): each
+  sublayer's input and output replicated (:func:`tp_input`), the heads,
+  Mamba2's in-projection and the head's vocab sharded (:func:`tp_shard`),
+  also where the spec replicates a weight whose dim the axis does not
+  divide (whisper-small's vocab) or a shard does not split into whole heads
+  (its 12 heads over 8 chips: 2 on each of 6), and every batched product
+  (``torch.einsum``) keeps its operands' batch shards (:func:`sharded_einsum`):
+  GSPMD lays the reference's step out so, where DTensor's per-op choice
+  would shard the residual stream's hidden dim, replicate a product whose
+  batch merges a client shard with a head shard, and choose differently
+  from one torch version to the next;
+* the scan engine's group loops run one group of each loop counted n
+  times (``fl/engine.py``, ``models/layers.py::BlockLoop``);
 * an op for which DTensor has no sharding strategy, or none for its
   operands' placements, runs with the offending mesh dims replicated (the
   last mesh dims first, then all): its inputs are gathered (the gathers
@@ -64,15 +74,17 @@ import contextlib
 import glob
 import json
 import os
+import string
 import threading
 import time
 import traceback
 import weakref
 from dataclasses import dataclass, field
+from typing import Optional
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor._op_schema import OpSchema, OutputSharding, RuntimeSchemaInfo
 from torch.distributed.tensor import _collective_utils as CU
 from torch.distributed.tensor import _dispatch as DP
@@ -96,6 +108,7 @@ from repro_torch.launch.mesh import GPUS_PER_NODE, axis_sizes, make_production_m
 from repro_torch.models import build_model
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "../../../dryrun_torch_out")
@@ -199,6 +212,25 @@ def _strided_shard(p: _StridedShard, size, num_chunks: int, rank, *args, **kwarg
             return local, range(max(first, 0), max(first, 0) + local)
         return local, [i for r in spans for i in r]
     return local, first
+
+
+def _strided_split(p: _StridedShard, tensor, num_chunks: int, *, with_padding: bool = True,
+                   contiguous: bool = True):
+    """``_StridedShard._split_tensor`` in closed form: each rank's shard a new
+    fake tensor of the size :func:`_strided_shard` gives.  DTensor chunks
+    each of ``split_factor`` pieces into ``num_chunks`` and concatenates,
+    fake op by fake op: over the scan engine's flat client matrix (a piece
+    per parameter leaf and client) minutes of trace and, on some torch
+    versions, the host's memory.  A local slice moves nothing: uncounted."""
+    del contiguous
+    shards = []
+    with _uncounted():
+        for r in range(num_chunks):
+            shape = list(tensor.shape)
+            shape[p.dim] = _strided_shard(p, shape[p.dim], num_chunks, r)[0]
+            shards.append(tensor.new_empty(shape))
+    top = max(t.shape[p.dim] for t in shards)
+    return shards, [top - t.shape[p.dim] for t in shards] if with_padding else []
 
 
 def _relaxed(schema: OpSchema, keep: int) -> OpSchema:
@@ -326,12 +358,15 @@ _STRATEGIES = {
 }
 
 
-def _well_formed(out, has_shape_args: bool) -> bool:
+def _well_formed(out, has_shape_args: bool, src=None) -> bool:
     """A propagation's plan that DTensor can run: a placement per mesh dim
     in every spec (some strategies give one placement on any mesh), and for
     an op with shape arguments (a view) with a sharded output, shape
     arguments made local and every sharded output dim dividing evenly
-    (DTensor's local shape for an uneven one is wrong)."""
+    (DTensor's local shape for an uneven one that the view splits or merges
+    is wrong) unless the view leaves it as it is in ``src``, the first
+    operand's spec (the heads of ``whisper-small``'s 12 over 8 chips
+    through the blocked attention's reshapes)."""
     if not isinstance(out, OutputSharding):
         return True              # a composite op DTensor decomposed and ran
     specs = out.output_spec
@@ -350,6 +385,10 @@ def _well_formed(out, has_shape_args: bool) -> bool:
         if has_shape_args and spec.tensor_meta is not None and spec in specs[:1]:
             ways = [1] * len(spec.tensor_meta.shape)
             for i, p in enumerate(spec.placements):
+                q = src.placements[i] if isinstance(src, DTensorSpec) else None
+                if (type(p) is Shard and type(q) is Shard
+                        and src.shape[q.dim] == spec.tensor_meta.shape[p.dim]):
+                    continue                          # the same shard of a dim kept whole
                 if isinstance(p, _StridedShard):     # its pieces must split evenly too
                     ways[p.dim] *= spec.mesh.size(i) * int(p.split_factor)
                 elif isinstance(p, Shard):
@@ -463,19 +502,29 @@ def install_replicate_fallback() -> None:
         key = str(schema)       # a schema's hash may leave out its non-tensor arguments
         if key in relaxed_plans:
             return relaxed_plans[key]
+        if schema.is_out_variant_op():
+            # the output is the out= tensor as it lies (a plain buffer,
+            # replicated): every operand is replicated to match it, planned
+            # here (a torch version's decomposition search over the scan
+            # engine's cache copies, an operand per parameter leaf, does not
+            # end in bounded memory)
+            relaxed = _relaxed(schema, 0)
+            outs = [relaxed.kwargs_schema[a.name] for a in op_call._schema.arguments if a.is_out]
+            out = OutputSharding(outs[0] if len(outs) == 1 else tuple(outs), relaxed,
+                                 needs_redistribute=True)
+            _REPLICATED[str(op_call)] = 0
+            relaxed_plans[key] = out
+            return out
         try:
-            if schema.is_out_variant_op():
-                # the output is the out= tensor as it lies (a plain buffer,
-                # replicated): every operand is replicated to match it
-                raise RuntimeError(f"{op_call}: an out= op")
             out = slow_path(op_call, args, kwargs, op_info, try_cache)
-            if _well_formed(out, op_call in prop.op_to_shape_and_stride_idx):
+            if _well_formed(out, op_call in prop.op_to_shape_and_stride_idx,
+                            schema.args_schema[0]):
                 return out
             raise RuntimeError(f"{op_call}: a plan DTensor cannot run")
         except (RuntimeError, NotImplementedError, AssertionError, KeyError):
             ndim = max((s.mesh.ndim for s in tree_flatten(schema.args_schema)[0]
                         if isinstance(s, DTensorSpec)), default=0)
-            for keep in range(0 if schema.is_out_variant_op() else ndim - 1, -2, -1):
+            for keep in range(ndim - 1, -2, -1):
                 if keep < 0:
                     # no strategy, or none that gives a plan DTensor can run
                     if prop.op_strategy_funcs.get(op_call) is _replicate_strategy:
@@ -487,7 +536,8 @@ def install_replicate_fallback() -> None:
                     out = prop.propagate_op_sharding_non_cached(relaxed)
                 except Exception:  # noqa: BLE001  (any propagation failure: relax further)
                     continue
-                if not _well_formed(out, op_call in prop.op_to_shape_and_stride_idx):
+                if not _well_formed(out, op_call in prop.op_to_shape_and_stride_idx,
+                                    relaxed.args_schema[0]):
                     continue
                 if not out.needs_redistribute:
                     out = OutputSharding(out.output_spec, relaxed, needs_redistribute=True)
@@ -497,12 +547,20 @@ def install_replicate_fallback() -> None:
                 return out
             raise
 
-    prop.register_op_strategy(torch.ops.repro_dryrun.tp_input.default, _tp_input_strategy)
+    prop.register_op_strategy(torch.ops.repro_dryrun.tp_layout.default, _tp_strategy,
+                              RuntimeSchemaInfo(static_argnum=1))
+    prop.register_op_strategy(torch.ops.repro_dryrun.einsum.default, _einsum_strategy,
+                              RuntimeSchemaInfo(static_argnum=0))
     for name, strategy in _STRATEGIES.items():
         packet, overload = name.split(".")
-        prop.register_op_strategy(getattr(getattr(torch.ops.aten, packet), overload), strategy,
-                                  _EVERY_ARG)
+        op = getattr(getattr(torch.ops.aten, packet), overload)
+        # a single-dim strategy (some torch versions register one) would be
+        # chosen over this one; the arguments after the tensor are hashed
+        # as they are (torch 2.13's squeeze propagation reads a list of dims)
+        getattr(prop, "op_single_dim_strategy_funcs", {}).pop(op, None)
+        prop.register_op_strategy(op, strategy, RuntimeSchemaInfo(static_argnum=1))
     _StridedShard.local_shard_size_and_offset = _strided_shard
+    _StridedShard._split_tensor = _strided_split
     MaskBuffer.apply_mask = apply_mask
     RD.DTensorRedistributePlanner.find_min_cost_path = bounded_search
     RD.DTensorRedistributePlanner.get_next_state = next_state
@@ -630,6 +688,10 @@ class LocalCounter(TorchDispatchMode):
             return NotImplemented
         if func in _META_OPS or getattr(_UNCOUNTED, "depth", 0):
             return func(*args, **kwargs)
+        if func is torch.ops.repro_dryrun.einsum.default:
+            # the local product as torch runs it (a bmm between copies)
+            with self:
+                return torch.functional.einsum(*args)
         if (func not in self.registry and func is not torch.ops.prim.device.default
                 and getattr(func, "namespace", "") != "_c10d_functional"):
             with self:
@@ -705,7 +767,8 @@ def trace(lowered: Lowered) -> StepCounts:
     rec = CommRecorder(counter)
     L._LOOP_COUNTER[0] = counter.repeat
     try:
-        with SP.stand_in_mode(), implicit_replication(), _tp_blocks(), rec, counter:
+        with (SP.stand_in_mode(), implicit_replication(), _tp_blocks(), _sharded_products(),
+              rec, counter):
             out = lowered.fn(*lowered.args)
             del out
     finally:
@@ -778,75 +841,273 @@ def _sharded_caches(mesh, kv_mode: str):
 # the residual stream's layout: Megatron-style tensor parallelism
 
 
-@torch.library.custom_op("repro_dryrun::tp_input", mutates_args=())
-def _tp_input_op(x: torch.Tensor) -> torch.Tensor:
+@torch.library.custom_op("repro_dryrun::tp_layout", mutates_args=())
+def _tp_layout_op(x: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
     return x.clone()
 
 
-_tp_input_op.register_fake(lambda x: torch.empty_like(x))
-_tp_input_op.register_vmap(lambda info, in_dims, x: (_tp_input_op(x), in_dims[0]))
+_tp_layout_op.register_fake(lambda x, dim: torch.empty_like(x))
+_tp_layout_op.register_vmap(
+    lambda info, in_dims, x, dim: (_tp_layout_op(x, dim), None) if in_dims[0] is None
+    else (_tp_layout_op(x.movedim(in_dims[0], 0), dim), 0))
 
 
-class _TPInput(torch.autograd.Function):
+class _TPLayout(torch.autograd.Function):
+    """An identity on values and on gradients, which take the same layout;
+    on a DTensor the redistribution (an all-reduce of a partial sum, an
+    all-gather or a slice of a shard) is counted.  Differentiable under
+    ``torch.func`` and ``vmap``."""
+
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(x):
-        return _tp_input_op(x)
+    def forward(x, dim):
+        return _tp_layout_op(x, dim)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        pass
+        ctx.dim = inputs[1]
 
     @staticmethod
     def backward(ctx, g):
-        return _TPInput.apply(g)
+        return _TPLayout.apply(g, ctx.dim), None
 
 
 def tp_input(x: torch.Tensor) -> torch.Tensor:
     """``x`` replicated over the tensor-parallel mesh dims, its client-axis
-    placements kept: a sublayer's input, as Megatron and GSPMD lay it out
-    for these specs.  An identity on values (and on gradients, which take
-    the same layout); on a DTensor, the redistribution (an all-reduce of a
-    partial sum, an all-gather of a shard) is counted.  Differentiable under
-    ``torch.func`` and ``vmap``."""
-    return _TPInput.apply(x)
+    placements kept: a sublayer's input and output, as Megatron and GSPMD
+    lay them out for these specs."""
+    return _TPLayout.apply(x, None)
 
 
-def _tp_input_strategy(op_schema):
+def tp_shard(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` with ``dim`` (the heads) sharded over the tensor-parallel mesh
+    dims, its client-axis placements kept: the heads of an attention or an
+    SSD core, as Megatron lays them out, also where the projection's shard
+    does not split into whole heads (``whisper-small``'s 12 heads over 8
+    chips: 2 on each of the first 6) or the block splits one projection
+    into several inputs (Mamba2's ``in_proj``).  From a replicated ``x`` a
+    local slice."""
+    return _TPLayout.apply(x, dim - x.dim() if dim >= 0 else dim)
+
+
+def _tp_strategy(op_schema):
+    """:func:`tp_input`: the tensor-parallel mesh dims replicated;
+    :func:`tp_shard`: its dim sharded over each of them that it has at least
+    as many entries as (else replicated)."""
     from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
     from torch.distributed.tensor._ops.utils import generate_redistribute_costs
 
-    src = op_schema.args_schema[0]
+    src, dim = op_schema.args_schema[:2]
     out = []
     for spec in src.strategies:
         s = spec.output_spec
         names = s.mesh.mesh_dim_names or ()
-        pl = tuple(Replicate() if i < len(names) and names[i] not in ("pod", "data") else p
-                   for i, p in enumerate(s.placements))
+        pl = tuple(p if i < len(names) and names[i] in ("pod", "data") else
+                   Shard(dim % s.ndim) if dim is not None and s.shape[dim] >= s.mesh.size(i)
+                   else Replicate() for i, p in enumerate(s.placements))
         target = DTensorSpec(s.mesh, pl, tensor_meta=s.tensor_meta)
         out.append(OpSpec(output_specs=target, input_specs=(target,),
                           redistribute_cost=[generate_redistribute_costs(src, target)]))
     return OpStrategy(out)
 
 
+# ---------------------------------------------------------------------------
+# the batched products: one op whose sharding the dry-run decides
+
+
+@torch.library.custom_op("repro_dryrun::einsum", mutates_args=())
+def _einsum_op(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.functional.einsum(equation, a, b)
+
+
+_einsum_op.register_fake(lambda equation, a, b: torch.functional.einsum(equation, a, b))
+
+
+@_einsum_op.register_vmap
+def _(info, in_dims, equation, a, b):
+    ins, out = equation.split("->")
+    terms = ins.split(",")
+    new = next(c for c in string.ascii_letters if c not in equation)
+    ops = []
+    for i, (x, d) in enumerate(zip((a, b), in_dims[1:])):
+        if d is not None:
+            x, terms[i] = x.movedim(d, 0), new + terms[i]
+        ops.append(x)
+    return _einsum_op(",".join(terms) + "->" + new + out, *ops), 0
+
+
+class _Einsum(torch.autograd.Function):
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(equation, a, b):
+        return _einsum_op(equation, a, b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.equation = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        ins, out = ctx.equation.split("->")
+        ta, tb = ins.split(",")
+        a, b = ctx.saved_tensors
+        ga = _Einsum.apply(f"{out},{tb}->{ta}", g, b) if ctx.needs_input_grad[1] else None
+        gb = _Einsum.apply(f"{out},{ta}->{tb}", g, a) if ctx.needs_input_grad[2] else None
+        return None, ga, gb
+
+
+def _plain_terms(equation: str, n: int):
+    """``(terms, out)`` of an explicit einsum equation whose every input
+    letter appears once in its term and again in another term or the output
+    (each operand's gradient is then a product of the others), else None."""
+    equation = equation.replace(" ", "")
+    if "->" not in equation or "." in equation:
+        return None
+    ins, out = equation.split("->")
+    terms = ins.split(",")
+    if len(terms) != n or n < 2:
+        return None
+    for i, t in enumerate(terms):
+        rest = out + "".join(terms[:i] + terms[i + 1:])
+        if len(set(t)) != len(t) or any(c not in rest for c in t):
+            return None
+    return terms, out
+
+
+def sharded_einsum(equation: str, *operands):
+    """``torch.einsum`` as products of two operands, left to right (a letter
+    leaves as soon as no later operand and not the output holds it), each
+    through one op whose sharding :func:`_einsum_strategy` decides.  On
+    fake DTensors a product keeps the batch letters' shards where they lie
+    (DTensor's own decomposition merges the batch dims into one view, which
+    cannot hold a client shard and a head shard at once, and lays it out
+    differently from one torch version to the next).  Differentiable under
+    ``torch.func`` and ``vmap``."""
+    terms, out = _plain_terms(equation, len(operands))
+    acc, term = operands[0], terms[0]
+    for i in range(1, len(terms)):
+        later = out if i == len(terms) - 1 else out + "".join(terms[i + 1:])
+        nxt = out if i == len(terms) - 1 else "".join(
+            dict.fromkeys(c for c in term + terms[i] if c in later))
+        acc, term = _Einsum.apply(f"{term},{terms[i]}->{nxt}", acc, operands[i]), nxt
+    return acc
+
+
+def _einsum_strategy(op_schema):
+    """Each mesh dim by the first operand with a plain shard on it: its
+    letter sharded in every operand that holds it, and in the output (a
+    partial sum where the product contracts it); a mesh dim that no operand
+    shards so, replicated in all."""
+    from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
+    from torch.distributed.tensor._ops.utils import generate_redistribute_costs
+
+    equation, *srcs = op_schema.args_schema
+    ins, out = equation.split("->")
+    terms = ins.split(",")
+    specs = [s.strategies[0].output_spec for s in srcs]
+    mesh = specs[0].mesh
+    in_pl = [[Replicate()] * mesh.ndim for _ in srcs]
+    out_pl = [Replicate()] * mesh.ndim
+    for i in range(mesh.ndim):
+        letter = next((t[p.dim] for t, s in zip(terms, specs) for p in (s.placements[i],)
+                       if isinstance(p, Shard) and not isinstance(p, _StridedShard)), None)
+        if letter is None:
+            continue
+        for k, t in enumerate(terms):
+            if letter in t:
+                in_pl[k][i] = Shard(t.index(letter))
+        out_pl[i] = Shard(out.index(letter)) if letter in out else Partial()
+    targets = [DTensorSpec(mesh, tuple(pl), tensor_meta=s.tensor_meta)
+               for pl, s in zip(in_pl, specs)]
+    return OpStrategy([OpSpec(output_specs=DTensorSpec(mesh, tuple(out_pl)),
+                              input_specs=tuple(targets),
+                              redistribute_cost=[generate_redistribute_costs(s, t)
+                                                 for s, t in zip(srcs, targets)])])
+
+
+@contextlib.contextmanager
+def _sharded_products():
+    """The step's ``torch.einsum`` calls (the eager attention's and SSD
+    core's batched products, ``models/layers.py``, ``models/ssm.py``) go
+    through :func:`sharded_einsum`; an equation it cannot take runs as it
+    is (``torch.functional.einsum``, which this leaves alone)."""
+
+    def einsum(equation, *operands):
+        if _plain_terms(equation, len(operands)) is None:
+            return torch.functional.einsum(equation, *operands)
+        return sharded_einsum(equation, *operands)
+
+    torch.einsum = einsum
+    try:
+        yield
+    finally:
+        torch.einsum = torch.functional.einsum
+
+
 @contextlib.contextmanager
 def _tp_blocks():
-    """Every sublayer (attention, MLP, MoE, Mamba2 block) and the head take
-    their input through :func:`tp_input` (``models/transformer.py``'s
-    calls): DTensor's per-op choice would otherwise shard the residual
-    stream's hidden dim, all-reduce partial sums inside the attention loop
-    and gather whole weights over the model axis."""
-    saved = [(T, n, getattr(T, n)) for n in ("apply_attention", "apply_mlp", "mamba_block",
-                                            "mamba_block_decode", "lm_logits")]
-    saved.append((T.M, "apply_moe", T.M.apply_moe))
+    """The step's layout over the tensor-parallel (model) axis, Megatron's.
+    Every sublayer (attention, MLP, MoE, Mamba2 block) takes its input and
+    gives its output through :func:`tp_input` (the f and g operators: the
+    output's partial sum reduced, and a partial gradient reduced before the
+    sublayer's backward products), and so does the embedding (the residual
+    stream replicated over the axis from its start).  Sharded over the axis by :func:`tp_shard`,
+    also where a spec leaves the weight replicated or a shard does not split
+    into whole heads: the attention's heads (``layers._split_heads``, and the
+    cores' outputs, whose gradients come back through the heads merge), the
+    SSD core's (``ssm.ssd_chunked``: x, dt and the decay, and its outputs;
+    B and C are one group shared by all heads), Mamba2's in-projection output
+    (``ssm._split``) and the head's vocab (``transformer.lm_logits``, the
+    vocab-parallel head).  Left to DTensor's per-op choice, the residual
+    stream's hidden dim is sharded, partial sums are all-reduced inside the
+    attention loop, whole weights are gathered over the model axis, and a
+    backward product whose gradient arrives replicated or as a partial sum
+    runs on every head or on gathered weights."""
 
     def constrained(fn):
-        return lambda p, x, *a, **k: fn(p, tp_input(x), *a, **k)
+        def call(p, x, *a, **k):
+            out = fn(p, tp_input(x), *a, **k)
+            return (tp_input(out[0]), *out[1:]) if isinstance(out, tuple) else tp_input(out)
+        return call
 
+    def heads(fn):
+        return lambda x, n_heads, head_dim: tp_shard(fn(x, n_heads, head_dim), -2)
+
+    def core(fn):
+        return lambda *a, **k: tp_shard(fn(*a, **k), -2)
+
+    def head(fn):
+        def call(p, h, cfg):
+            w = "embedding" if cfg.tie_embeddings else "lm_head"
+            p = dict(p, **{w: tp_shard(p[w], 0 if cfg.tie_embeddings else -1)})
+            return fn(p, tp_input(h), cfg)
+        return call
+
+    def split(fn):
+        return lambda zxbcdt, cfg: fn(tp_shard(zxbcdt, -1), cfg)
+
+    def ssd(fn):
+        def call(xs, bmat, cmat, dt, da, chunk):
+            y, state = fn(tp_shard(xs, -2), bmat, cmat, tp_shard(dt, -1), tp_shard(da, -1),
+                          chunk)
+            return tp_shard(y, -2), tp_shard(state, -3)
+        return call
+
+    patches = [(T, n, constrained) for n in ("apply_attention", "apply_mlp", "mamba_block",
+                                             "mamba_block_decode")]
+    def embed(fn):
+        return lambda p, tokens, cfg: tp_input(fn(p, tokens, cfg))
+
+    patches += [(T.M, "apply_moe", constrained), (T, "lm_logits", head), (T, "embed_tokens", embed),
+                (L, "_split_heads", heads), (L, "chunked_attention", core),
+                (L, "attention_scores", core), (SSM, "_split", split), (SSM, "ssd_chunked", ssd)]
+    saved = [(mod, n, getattr(mod, n)) for mod, n, _ in patches]
     try:
-        for mod, n, fn in saved:
-            setattr(mod, n, constrained(fn))
+        for mod, n, wrap in patches:
+            setattr(mod, n, wrap(getattr(mod, n)))
         yield
     finally:
         for mod, n, fn in saved:

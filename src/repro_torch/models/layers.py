@@ -146,7 +146,7 @@ class BlockLoop:
             self.repeat = None
 
     def __iter__(self):
-        if self.repeat is None:
+        if self.repeat is None or self.n == 0:
             yield from range(self.n)
             return
         with self.repeat(self.n):

@@ -19,6 +19,10 @@ sharded pass in subprocesses):
   placements they turn into are checked on one leaf of each kind;
 * the ring model: ``count_collectives`` gives bitwise the reference's
   ``parse_collectives`` on HLO lines carrying the same op, bytes and group;
+* the package re-exports: every name the reference's ``repro.sim`` and
+  ``repro.core`` ``__init__``s bind resolves on ``repro_torch.sim`` and
+  ``repro_torch.core`` to the port's own definition (the 13 that were missing
+  one case each);
 * the routing: a fake CUDA tensor takes the eager forms of
   ``chunked_attention`` and ``ssd_chunked``, and the dry-run's loop sampling
   (``models/layers.py::BlockLoop``) counts exactly the FLOPs and bytes of
@@ -29,6 +33,8 @@ The reference's ``launch/dryrun.py`` forces 512 host devices through
 after, and importing it initialises no backend.
 """
 
+import ast
+import importlib
 import json
 import os
 from unittest import mock
@@ -336,3 +342,35 @@ def test_sampled_block_loops_count_the_full_loops(case):
     if case.startswith("attention"):            # under autograd every iteration runs
         q.requires_grad_(True)
         assert _counted(fn, True).sampled == 0
+
+
+REEXPORTS = {
+    "sim": ("SIM_SCHEMA", "build_client_mesh", "ClientState", "SystemConfig",
+            "init_client_state", "step_client_state", "register"),
+    "core": ("STATEFUL_SAMPLERS", "SamplerState", "clustered_probabilities",
+             "cyclic_probabilities", "threshold_probabilities", "init_sampler_state"),
+}
+
+
+def _bound_names(package: str) -> dict:
+    """``{name: submodule}`` of what the reference's package ``__init__``
+    binds by ``from repro.<package>.<submodule> import ...``."""
+    path = os.path.join(os.path.dirname(__file__), "..", "src", "repro", package, "__init__.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    return {a.asname or a.name: node.module for node in tree.body
+            if isinstance(node, ast.ImportFrom) and node.module for a in node.names}
+
+
+@pytest.mark.parametrize("package,name", [(p, n) for p, names in REEXPORTS.items() for n in names])
+def test_package_reexports_the_references_name(package, name):
+    module = _bound_names(package)[name]
+    port = importlib.import_module(f"repro_torch.{package}")
+    definition = importlib.import_module(module.replace("repro.", "repro_torch.", 1))
+    assert getattr(port, name) is getattr(definition, name)
+
+
+@pytest.mark.parametrize("package", sorted(REEXPORTS))
+def test_every_name_the_references_package_binds_resolves(package):
+    port = importlib.import_module(f"repro_torch.{package}")
+    assert [n for n in _bound_names(package) if not hasattr(port, n)] == []

@@ -6,6 +6,9 @@ size of ``test_torch_dryrun_trace.py`` (llama3-8b reduced, vocab 256, seq
 * a second trace of the round counts what the first, cold one did;
 * the round's options trace and move collective traffic: the scan engine,
   and ``out_shard`` (the updated parameters back to their storage layout);
+* the scan engine's group loops, one group of each counted n times (as the
+  dry-run samples them, ``models/layers.py::BlockLoop``), count what every
+  group run in full counts: 4 groups of one client, 2 cached and 2 spilled;
 * a model five layers deep counts what steps two and three layers deep on
   its arguments extrapolate to (``count_step``);
 * the CLI writes the reference's record keys for a pair.
@@ -25,6 +28,8 @@ import dataclasses, json
 from repro_torch.configs import ARCHS, SHAPES
 from repro_torch.launch import dryrun as D, specs as SP
 from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.fl import engine as E
+from repro_torch.models import layers as L
 
 cfg = ARCHS["llama3-8b"].reduced().with_(vocab_size=256)
 small = {n: dataclasses.replace(s, seq_len=64, global_batch=8) for n, s in SHAPES.items()}
@@ -38,6 +43,25 @@ out["twice"] = [[c.flops, c.bytes, c.peak_bytes, c.coll.traffic_bytes] for c in 
 for name, kw in (("scan", {"fl_mode": "scan"}), ("out_shard", {"out_shard": True})):
     c = D.trace(D.build_lowered(cfg, small["train_4k"], mesh, **kw))
     out[name] = {"flops": c.flops, "traffic": c.coll.total_traffic()}
+# the scan engine's group loops sampled, and every group run
+fl_scan = dataclasses.replace(fl, cache_groups=2)
+SP.fl_config_for = lambda *a, **k: fl_scan
+
+
+class FullLoop(L.BlockLoop):
+    def __init__(self, n, *tensors):
+        super().__init__(n)
+        self.repeat = None
+
+
+loops = []
+for loop in (L.BlockLoop, FullLoop):
+    E.BlockLoop = loop
+    c = D.trace(D.build_lowered(cfg, small["train_4k"], mesh, fl_mode="scan", scan_group=1))
+    loops.append([c.flops, c.bytes, c.coll.traffic_bytes, c.coll.counts, c.sampled_iterations])
+E.BlockLoop = L.BlockLoop
+SP.fl_config_for = lambda *a, **k: fl
+out["scan_loops"] = loops
 deep = cfg.with_(num_layers=5)
 for shape in ("train_4k", "decode_32k"):
     full = D.trace(D.build_lowered(deep, small[shape], mesh))
@@ -104,3 +128,14 @@ def test_cli_writes_records_and_skips(tmp_path):
     for key in ("compute_model_s", "collective_s", "useful_flops_ratio", "peak_memory_bytes",
                 "trace_s", "replicated_ops", "traced_depths", "params", "active_params"):
         assert key in rec
+
+
+def test_scan_group_loops_sampled_count_the_full_loops(result):
+    """FLOPs and collectives exactly; bytes within 0.5%: the first spilled
+    group's sum turns the replicated accumulator into a partial sum (a
+    division), which the later groups' do not repeat."""
+    (sampled, full) = result["scan_loops"]
+    assert sampled[4] > 0 and full[4] == 0
+    assert sampled[0] == full[0] > 0
+    assert sampled[2:4] == full[2:4]
+    assert abs(sampled[1] - full[1]) <= 5e-3 * full[1]

@@ -8,12 +8,19 @@ seq 64, batch 8, 4 clients, ``--device cpu``.
 * on a (1, 1) mesh the per-chip FLOPs equal ``FlopCounterMode``'s count of
   the same round run on real CPU tensors, and on (2, 2) the per-chip FLOPs
   times 4 lie between that count and twice it (the sharded program repeats
-  some work on every chip, never less than all of it).
+  some work on every chip, never less than all of it);
+* the same bound at sequence 1,024 on a (2, 4) mesh, where the attention's
+  products are most of the step: under ``vmap`` they batch the client shard
+  with the head shard, and each chip must keep its clients and its heads
+  (``launch/dryrun.py::sharded_einsum``) rather than compute every head;
+* pod1 llama3-8b x prefill_32k at full width gives the ``flops_per_chip``
+  that ``chip_smoke.py`` holds the card's torch to (``DRYRUN_PREFILL_FLOPS``).
 
 ``test_torch_dryrun_options.py`` covers the round's options, the depth
 extrapolation and the CLI.
 """
 
+import importlib.util
 import json
 import os
 import subprocess
@@ -24,7 +31,7 @@ import pytest
 ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), ".."))
 
 SCRIPT = r"""
-import dataclasses, json
+import dataclasses, json, sys
 import torch
 import torch.distributed as dist
 from torch.utils.flop_counter import FlopCounterMode
@@ -32,7 +39,7 @@ from repro_torch import rng
 from repro_torch.configs import ARCHS, SHAPES
 from repro_torch.fl.round import make_round
 from repro_torch.launch import dryrun as D, specs as SP
-from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
 from repro_torch.models import build_model
 
 cfg = ARCHS["llama3-8b"].reduced().with_(vocab_size=256)
@@ -41,8 +48,8 @@ fl = SP.fl_config_for(cfg, small["train_4k"], n_clients=4)
 SP.fl_config_for = lambda *a, **k: fl
 out = {}
 
-def counts(mesh, shape="train_4k", **kw):
-    c = D.trace(D.build_lowered(cfg, small[shape], mesh, **kw))
+def counts(mesh, shape="train_4k", shapes=small, **kw):
+    c = D.trace(D.build_lowered(cfg, shapes[shape], mesh, **kw))
     return {"flops": c.flops, "bytes": c.bytes, "peak": c.peak_bytes,
             "traffic": sum(r[1] for r in c.comm_records), "n_comms": len(c.comm_records)}
 
@@ -54,18 +61,23 @@ for mode in ("hd", "batch", "seq", "proj", "factored"):
     out["decode_4x2_" + mode] = counts(mesh, "decode_32k", kv_mode=mode)
 out["train_1x1"] = counts(make_debug_mesh(1, 1, device="cpu"))
 out["train_2x2"] = counts(make_debug_mesh(2, 2, device="cpu"))
+long = {"train_4k": dataclasses.replace(small["train_4k"], seq_len=1024)}
+out["train_2x4_long"] = counts(make_debug_mesh(2, 4, device="cpu"), shapes=long)
+rec = D.run_pair("llama3-8b", "prefill_32k", make_production_mesh(device="cpu"), "pod1", sys.argv[1])
+out["prefill_pod1"] = rec["flops_per_chip"]
 
 dist.destroy_process_group()
 
 model = build_model(cfg)
 params = model.init(torch.Generator().manual_seed(0), "cpu")
-g = torch.Generator().manual_seed(1)
-batch = {k: torch.randint(0, 256, (4, 1, 2, 64), generator=g, dtype=torch.int32)
-         for k in ("tokens", "targets")}
 step = make_round(model.loss, fl, mode="vmap", scan_group=2, device="cpu")
-with FlopCounterMode(display=False) as fc:
-    step(params, (), batch, torch.full((4,), 0.25), rng.PRNGKey(0))
-out["plain_flops"] = fc.get_total_flops()
+for name, seq in (("plain_flops", 64), ("plain_flops_long", 1024)):
+    g = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, 256, (4, 1, 2, seq), generator=g, dtype=torch.int32)
+             for k in ("tokens", "targets")}
+    with FlopCounterMode(display=False) as fc:
+        step(params, (), batch, torch.full((4,), 0.25), rng.PRNGKey(0))
+    out[name] = fc.get_total_flops()
 print("DRYRUN-RESULT " + json.dumps(out))
 """
 
@@ -77,9 +89,9 @@ def _env():
 
 
 @pytest.fixture(scope="module")
-def result():
-    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=_env(),
-                         capture_output=True, text=True, timeout=300)
+def result(tmp_path_factory):
+    out = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path_factory.mktemp("pod1"))],
+                         cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300)
     line = [x for x in out.stdout.splitlines() if x.startswith("DRYRUN-RESULT ")]
     assert line, out.stdout[-3000:] + out.stderr[-6000:]
     return json.loads(line[0].split(" ", 1)[1])
@@ -109,3 +121,20 @@ def test_one_chip_flops_equal_the_plain_steps(result):
 def test_four_chips_share_the_plain_steps_flops(result):
     total = 4 * result["train_2x2"]["flops"]
     assert result["plain_flops"] <= total <= 2 * result["plain_flops"]
+
+
+def test_heads_and_clients_stay_sharded_in_the_batched_products(result):
+    """At sequence 1,024 the attention's products are most of the step: a
+    chip that computed every head of its clients would count ~3x the plain
+    step's FLOPs over the (2, 4) mesh's 8 chips."""
+    total = 8 * result["train_2x4_long"]["flops"]
+    assert result["plain_flops_long"] <= total <= 2 * result["plain_flops_long"]
+
+
+def test_pod1_prefill_flops_equal_the_card_scripts_constant(result):
+    """``chip_smoke.py`` holds the card's torch to this CPU value (within 1%):
+    the record must not depend on the torch version that traced it."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    assert result["prefill_pod1"] == pytest.approx(chip_smoke.DRYRUN_PREFILL_FLOPS, rel=1e-9)
