@@ -187,10 +187,12 @@ nvcc (one process per source, all at once), then:
   process group in child processes, fake tensors on the card's device type,
   no kernel launched): llama3-8b x prefill_32k and mamba2-130m x train_4k
   on the (32, 8) pod1 mesh, the latter again with the scan engine, each
-  record checked, the prefill's FLOPs per chip held within 1% of the CPU's
-  (``DRYRUN_PREFILL_FLOPS``: the record must not depend on the torch
-  version), the two train records' useful-FLOPs ratios and the children's
-  peak resident memory printed; then on a (1, 1) mesh the roofline of the
+  record checked, each of the three records' FLOPs per chip held within
+  0.01% and its bytes per chip within 0.1% of the CPU's
+  (``DRYRUN_PREFILL_FLOPS``, ``DRYRUN_PREFILL_BYTES``, ``DRYRUN_TRAIN``:
+  a record must not depend on the torch version), the two train records'
+  useful-FLOPs ratios and the children's peak resident memory printed;
+  then on a (1, 1) mesh the roofline of the
   three prefills this script serves at batch 2 x 4,096 (zamba2-2.7b,
   llama3-8b, whisper-small), each printed beside its measured prefill ms
   with the compute term's share of it;
@@ -4076,12 +4078,20 @@ def examples_phase(torch) -> dict:
 DRYRUN_PAIRS = (("llama3-8b", "prefill_32k"), ("mamba2-130m", "train_4k"))
 # the train pair again with the scan engine (--fl-mode scan), its record tagged
 DRYRUN_SCAN = ("mamba2-130m", "train_4k")
-# pod1 llama3-8b x prefill_32k's flops_per_chip as the CPU's torch counts it
-# (python -m repro_torch.launch.dryrun --arch llama3-8b --shape prefill_32k
-# --device cpu; tests/test_torch_dryrun_trace.py holds the CPU to it): the
-# card's torch must give it within 1%, the record not depending on the
-# torch version that traced it
+# the pod1 records as the CPU's torch counts them (python -m
+# repro_torch.launch.dryrun --arch A --shape S [--fl-mode scan] --device cpu;
+# tests/test_torch_dryrun_trace.py holds the CPU to them): the card's torch
+# must give each flops_per_chip within DRYRUN_FLOPS_TOL and each
+# hbm_bytes_per_chip within DRYRUN_BYTES_TOL, the records not depending on
+# the torch version that traced them.  llama3-8b x prefill_32k:
 DRYRUN_PREFILL_FLOPS = 127543480156160.0
+DRYRUN_PREFILL_BYTES = 8220669656792.0
+# mamba2-130m x train_4k on the vmap and the scan engine
+DRYRUN_TRAIN = {
+    "vmap": {"flops_per_chip": 3590810763264.0, "hbm_bytes_per_chip": 812500897152.0},
+    "scan": {"flops_per_chip": 172367171579904.0, "hbm_bytes_per_chip": 29232280935083.0},
+}
+DRYRUN_FLOPS_TOL, DRYRUN_BYTES_TOL = 1e-4, 1e-3
 DRYRUN_PREFILLS = ("zamba2-2.7b", "llama3-8b", "whisper-small")
 DRYRUN_ONE_CHIP = """
 import sys
@@ -4148,9 +4158,10 @@ def dryrun_phase(started: tuple, measured: dict) -> dict:
     """The records of ``dryrun_start``'s children, each within 300 s of their
     start; ``measured`` is each prefill's ms from the serve phases.  Every
     record must hold FLOPs and bytes > 0 and a bottleneck among the three
-    terms; a train record, collective traffic > 0; the pod1 prefill,
-    DRYRUN_PREFILL_FLOPS within 1%.  Prints the children's peak resident
-    memory."""
+    terms; a train record, collective traffic > 0; the three pod1 records,
+    the CPU's FLOPs and bytes (DRYRUN_PREFILL_FLOPS, DRYRUN_PREFILL_BYTES,
+    DRYRUN_TRAIN) within DRYRUN_FLOPS_TOL and DRYRUN_BYTES_TOL.  Prints the
+    children's peak resident memory."""
     import resource
 
     import torch
@@ -4188,16 +4199,26 @@ def dryrun_phase(started: tuple, measured: dict) -> dict:
               f"{rec['useful_flops_ratio']}, {rec['notes']}, trace {rec['trace_s']} s")
     vmap, scan = (records[("pod1", DRYRUN_SCAN[0], DRYRUN_SCAN[1] + t)] for t in ("", "_scan"))
     print(f"dryrun pod1 {DRYRUN_SCAN[0]} x {DRYRUN_SCAN[1]}: useful FLOPs {vmap['useful_flops_ratio']}"
-          f" (vmap engine), {scan['useful_flops_ratio']} (scan engine); flops_per_chip "
-          f"{vmap['flops_per_chip']} and {scan['flops_per_chip']}; the scan trace "
+          f" (vmap engine), {scan['useful_flops_ratio']} (scan engine); the scan trace "
           f"{scan['trace_s']} s of the 300 s allowed")
-    flops = records[("pod1", "llama3-8b", "prefill_32k")]["flops_per_chip"]
-    drift = flops / DRYRUN_PREFILL_FLOPS - 1
-    print(f"dryrun pod1 llama3-8b x prefill_32k: flops_per_chip {flops} under torch "
-          f"{torch.__version__}, the CPU's {DRYRUN_PREFILL_FLOPS}: {drift * 100:+.4f}%")
-    if abs(drift) > 0.01:
-        raise AssertionError(f"dryrun pod1 llama3-8b x prefill_32k: flops_per_chip {flops} "
-                             f"is {drift * 100:+.2f}% off the CPU's {DRYRUN_PREFILL_FLOPS}")
+    held = {"pod1 llama3-8b x prefill_32k": (records[("pod1", "llama3-8b", "prefill_32k")],
+                                             DRYRUN_PREFILL_FLOPS, DRYRUN_PREFILL_BYTES)}
+    for engine, rec in (("vmap", vmap), ("scan", scan)):
+        held[f"pod1 {DRYRUN_SCAN[0]} x {DRYRUN_SCAN[1]} {engine}"] = (
+            rec, DRYRUN_TRAIN[engine]["flops_per_chip"], DRYRUN_TRAIN[engine]["hbm_bytes_per_chip"])
+    drifts = {}
+    for name, (rec, flops, nbytes) in held.items():
+        df = rec["flops_per_chip"] / flops - 1
+        db = rec["hbm_bytes_per_chip"] / nbytes - 1
+        drifts[name] = {"flops": df, "bytes": db}
+        print(f"dryrun {name} under torch {torch.__version__}: flops_per_chip "
+              f"{rec['flops_per_chip']} ({df * 100:+.6f}% off the CPU's {flops}), "
+              f"hbm_bytes_per_chip {rec['hbm_bytes_per_chip']} ({db * 100:+.6f}% off {nbytes})")
+    missed = {n: d for n, d in drifts.items()
+              if abs(d["flops"]) > DRYRUN_FLOPS_TOL or abs(d["bytes"]) > DRYRUN_BYTES_TOL}
+    if missed:
+        raise AssertionError(f"dryrun records off the CPU's beyond {DRYRUN_FLOPS_TOL} (FLOPs) "
+                             f"or {DRYRUN_BYTES_TOL} (bytes): {missed}")
     shares = {}
     for arch in DRYRUN_PREFILLS:
         rec, ms = records[("1x1", arch, "prefill_2x4096")], measured[arch]
@@ -4215,6 +4236,7 @@ def dryrun_phase(started: tuple, measured: dict) -> dict:
     print(f"phase dryrun: {secs:.1f} s from the children's start, {waited:.1f} s of it after "
           f"the examples phase")
     return {"records": {f"{m} {a} {s}": r for (m, a, s), r in records.items()},
+            "drift_from_cpu": drifts,
             "compute_share": shares, "seconds": secs, "waited_seconds": waited,
             "children_peak_rss_gib": peak, "children_sampled_peak_rss_gib": sampled}
 

@@ -12,7 +12,9 @@ work while it runs, allocating nothing:
   (the matmul-class ops; ops without a formula decompose first, as
   ``FlopCounterMode`` does);
 * bytes: input plus output bytes of every local aten op that is not a
-  view — the port runs eagerly, so the unfused traffic is its memory term;
+  view or a metadata query (``prim.device``) — the port runs eagerly, so
+  the unfused traffic is its memory term; a redistribution's own local
+  copies are left to the collective term (:func:`_unbilled`);
 * collectives: what ``CommDebugMode`` saw DTensor issue, each with its
   result bytes and its group (``roofline.count_collectives``);
 * peak memory: rank 0's live local storages, tracked op by op.
@@ -22,7 +24,15 @@ traced for it, its replicated ops, modeled redistributions and sampled loop
 iterations, and the depths traced):
 
 * the meshes are H100 nodes of 8 (``(32, 8)``, ``(2, 32, 8)``) and the
-  collective term has two links (``launch/roofline.py``);
+  collective term has two links (``launch/roofline.py``); pod2's client
+  axes hold 64 GPUs where the reference's hold 32, so its 32 clients lie
+  on 'data' and 'pod' splits each client's 8 sequences (the step's mesh
+  dims ordered ('data', 'pod', 'model'), and a matmul over the flattened
+  clients and sequences planned on plain shards, :func:`_unit_strided_plan`),
+  and its 32 prefill sequences lie on 'data' with 'pod' replicated, the
+  step then traced on the submesh without it (the record's notes say "pod
+  replicated ×2"; :func:`_batch_layout`); the reference replicates a
+  batch its client axes do not divide, which on its own pod2 they do;
 * bytes are per-op eager bytes, not XLA's fused "bytes accessed";
 * every loop iteration is counted (XLA counts a ``while`` body once): a
   block loop that autograd does not record runs its first iteration
@@ -42,9 +52,15 @@ iterations, and the depths traced):
   GSPMD lays the reference's step out so, where DTensor's per-op choice
   would shard the residual stream's hidden dim, replicate a product whose
   batch merges a client shard with a head shard, and choose differently
-  from one torch version to the next;
+  from one torch version to the next; for the same reason the dry-run
+  plans the vmapped embedding gradient (:func:`_index_put_strategy`), the
+  embedding's lookup (on the gathered table), Mamba2's splits of its
+  in-projection and conv output (gathered once, then resharded) and its
+  gated norm's mean (all-reduced);
 * the scan engine's group loops run one group of each loop counted n
-  times (``fl/engine.py``, ``models/layers.py::BlockLoop``);
+  times (``fl/engine.py``, ``models/layers.py::BlockLoop``), and a group's
+  update runs on the submesh without the client axes, over which its
+  slice of the batch is whole (:func:`_without_client_axes`);
 * an op for which DTensor has no sharding strategy, or none for its
   operands' placements, runs with the offending mesh dims replicated (the
   last mesh dims first, then all): its inputs are gathered (the gathers
@@ -84,6 +100,7 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor._op_schema import OpSchema, OutputSharding, RuntimeSchemaInfo
 from torch.distributed.tensor import _collective_utils as CU
@@ -100,7 +117,7 @@ from torch.utils._pytree import tree_flatten, tree_map_only
 
 from repro_torch.configs import ARCHS, SHAPES
 from repro_torch.configs.base import InputShape, ModelConfig
-from repro_torch.fl.round import make_round
+from repro_torch.fl.engine import RoundEngine
 from repro_torch.launch import roofline as RL
 from repro_torch.launch import sharding as SH
 from repro_torch.launch import specs as SP
@@ -165,7 +182,9 @@ _REPLICATED: dict = {}          # op name -> the mesh dims it kept sharded
 _EVERY_ARG = RuntimeSchemaInfo(static_argnum=1, needs_pytree=True)
 _PLAN_BUDGET = 2048              # states a redistribution plan search may expand
 _MODELED = [0]                   # redistributions modeled as gathers (_modeled_redistribute)
+_REPLICATED_AXES: dict = {}      # client axis -> size, where a batch left it replicated
 _UNCOUNTED = threading.local()   # depth of DTensor's own bookkeeping
+_UNBILLED = threading.local()    # depth of a redistribution's local copies
 
 
 @contextlib.contextmanager
@@ -178,6 +197,17 @@ def _uncounted():
         yield
     finally:
         _UNCOUNTED.depth -= 1
+
+
+@contextlib.contextmanager
+def _unbilled():
+    """Local ops whose bytes are not counted (their FLOPs, collectives and
+    storage are): a redistribution's own copies."""
+    _UNBILLED.depth = getattr(_UNBILLED, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _UNBILLED.depth -= 1
 
 
 def _strided_shard(p: _StridedShard, size, num_chunks: int, rank, *args, **kwargs):
@@ -349,13 +379,79 @@ def _squeeze_strategy(op_schema):
     return _dims_strategy(op_schema, gone, remap=lambda d: d - sum(g < d for g in gone))
 
 
+def _index_put_strategy(op_schema):
+    """``index_put(self, indices, values)`` (the vmapped embedding
+    gradient), mesh dim by mesh dim: a shard of the values on a dim the op
+    does not index kept on that dim of self and the output (torch 2.13's
+    rule; 2.11 has none, and replicated the (clients, vocab, hidden)
+    gradient on every chip); a shard of the values on the dim of a batch
+    index (``vmap``'s ``arange`` over the clients, the one index that spans
+    that dim) kept as a shard of the dim it indexes, each chip writing its
+    own clients; else a shard of self on a dim not indexed kept; a partial
+    sum kept; any other mesh dim replicated.  Index tensors are replicated
+    but for the batch dim."""
+    from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
+    from torch.distributed.tensor._ops.utils import generate_redistribute_costs
+
+    src, idx, vals = op_schema.args_schema[:3]
+    idx = [(d, i) for d, i in enumerate(getattr(idx, "children", idx)) if i is not None]
+    s_spec, v_spec = src.strategies[0].output_spec, vals.strategies[0].output_spec
+    i_specs = [i.strategies[0].output_spec for _, i in idx]
+    shape, vshape = s_spec.shape, v_spec.shape
+    indexed = [d for d, _ in idx]
+    nb = len(torch.broadcast_shapes(*(sp.shape for sp in i_specs)))
+    ishapes = [(1,) * (nb - len(sp.shape)) + tuple(sp.shape) for sp in i_specs]
+    rest = [("s", d) for d in range(len(shape)) if d not in indexed]
+    if indexed == list(range(indexed[0], indexed[0] + len(indexed))):
+        layout = ([r for r in rest if r[1] < indexed[0]] + [("b", k) for k in range(nb)]
+                  + [r for r in rest if r[1] > indexed[0]])
+    else:
+        layout = [("b", k) for k in range(nb)] + rest
+    off = len(layout) - len(vshape)          # values broadcast from the right
+    rep = Replicate()
+    pl = {"out": [], "v": [], "i": [[] for _ in idx]}
+    for m in range(s_spec.mesh.ndim):
+        sp, vp = s_spec.placements[m], v_spec.placements[m]
+        out, v, ips = rep, rep, [rep] * len(idx)
+        kind, d = layout[vp.dim + off] if type(vp) is Shard else (None, None)
+        batch = [j for (j, _), ish in zip(idx, ishapes) if kind == "b" and ish[d] == shape[j]
+                 and all(e == 1 for k, e in enumerate(ish) if k != d)]
+        if kind == "s":
+            out, v = Shard(d), vp
+        elif batch:
+            out, v = Shard(batch[0]), vp
+            ips = [Shard(d - nb + len(sp_k.shape)) if ish[d] > 1 else rep
+                   for sp_k, ish in zip(i_specs, ishapes)]
+        elif type(sp) is Shard and ("s", sp.dim) in layout:
+            vd = layout.index(("s", sp.dim)) - off
+            out, v = sp, Shard(vd) if vd >= 0 and vshape[vd] > 1 else rep
+        elif sp.is_partial() or vp.is_partial():
+            out = v = Partial()
+        pl["out"].append(out)
+        pl["v"].append(v)
+        for k, p in enumerate(ips):
+            pl["i"][k].append(p)
+    targets = [DTensorSpec(s_spec.mesh, tuple(pl["out"]), tensor_meta=s_spec.tensor_meta)]
+    targets += [DTensorSpec(sp.mesh, tuple(p), tensor_meta=sp.tensor_meta)
+                for sp, p in zip(i_specs, pl["i"])]
+    targets.append(DTensorSpec(v_spec.mesh, tuple(pl["v"]), tensor_meta=v_spec.tensor_meta))
+    inputs = [src, *(i for _, i in idx), vals]
+    return OpStrategy([OpSpec(output_specs=DTensorSpec(s_spec.mesh, tuple(pl["out"])),
+                              input_specs=tuple(targets),
+                              redistribute_cost=[generate_redistribute_costs(a, t)
+                                                 for a, t in zip(inputs, targets)])])
+
+
 # ops whose strategies some torch versions lack or make replicate everything
 _STRATEGIES = {
     "constant_pad_nd.default": _pad_strategy,
     "roll.default": _roll_strategy,
     "flip.default": _flip_strategy,
     "squeeze.dims": _squeeze_strategy,
+    "index_put.default": _index_put_strategy,
 }
+# the schema information of a strategy, where not the first argument's alone
+_SCHEMA_INFO = {"index_put.default": RuntimeSchemaInfo(static_argnum=3, needs_pytree=True)}
 
 
 def _well_formed(out, has_shape_args: bool, src=None) -> bool:
@@ -396,6 +492,59 @@ def _well_formed(out, has_shape_args: bool, src=None) -> bool:
             if any(n % w for n, w in zip(spec.tensor_meta.shape, ways)):
                 return False
     return True
+
+
+_MATMULS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default}
+
+
+def _unit_strided(spec) -> set:
+    """The mesh dims on which ``spec`` holds a strided shard of split factor
+    1."""
+    if not isinstance(spec, DTensorSpec):
+        return set()
+    return {i for i, p in enumerate(spec.placements)
+            if isinstance(p, _StridedShard) and p.split_factor == 1}
+
+
+def _unit_strided_plan(prop, schema: OpSchema) -> OutputSharding:
+    """A matmul on a flattened dim whose outer part is sharded one entry a
+    rank and whose inner part over a later mesh dim (pod2's clients on
+    'data' and their sequences on 'pod'; the MoE's clients and token
+    groups): DTensor's view rules give the later mesh dim a strided shard
+    of split factor 1, the same local shard as a plain one, which its
+    matmul strategies do not take (they would gather the tokens).  Planned
+    on the plain shard; each operand keeps its strided one where the plan
+    keeps that shard, and the output's shard on that mesh dim is strided
+    again, so that the view back splits it."""
+    def plain(spec):
+        dims = _unit_strided(spec)
+        if not dims:
+            return spec
+        return DTensorSpec(spec.mesh, tuple(Shard(p.dim) if i in dims else p
+                                            for i, p in enumerate(spec.placements)),
+                           tensor_meta=spec.tensor_meta)
+
+    orig = [s for s in tree_flatten(schema.args_schema)[0] if isinstance(s, DTensorSpec)]
+    flat = OpSchema(schema.op, tree_map_only(DTensorSpec, plain, schema.args_schema),
+                    tree_map_only(DTensorSpec, plain, schema.kwargs_schema),
+                    schema_info=schema.schema_info)
+    out = prop.propagate_op_sharding_non_cached(flat)
+    strided = set().union(*map(_unit_strided, orig))
+
+    def restride(spec, ref):
+        pl = tuple(_StridedShard(p.dim, split_factor=1) if i in strided and type(p) is Shard
+                   and (ref is None or ref.placements[i] == _StridedShard(p.dim, split_factor=1))
+                   else p for i, p in enumerate(spec.placements))
+        return DTensorSpec(spec.mesh, pl, tensor_meta=spec.tensor_meta)
+
+    expected = out.redistribute_schema or flat
+    it = iter(orig)
+    args = tree_map_only(DTensorSpec, lambda e: restride(e, next(it)), expected.args_schema)
+    return OutputSharding(restride(out.output_spec, None),
+                          OpSchema(schema.op, args, expected.kwargs_schema,
+                                   schema_info=schema.schema_info),
+                          needs_redistribute=True)
 
 
 def install_replicate_fallback() -> None:
@@ -465,16 +614,21 @@ def install_replicate_fallback() -> None:
     unplanned = set()       # (current, target) pairs DTensor could not redistribute
 
     def redistribute_local(local, current, target, *a, **k):
-        if (current, target) not in unplanned:
-            try:
-                return planned(local, current, target, *a, **k)
-            except (_PlanTooLarge, RuntimeError):
-                # past the search budget, or a plan DTensor's own checks
-                # reject (a strided shard whose local size its planner
-                # computes otherwise than its view rules)
-                unplanned.add((current, target))
-        _MODELED[0] += 1
-        return _modeled_redistribute(local, current, target)
+        # the collectives are counted; the local copies around them (a
+        # gather's concatenation on a dim other than the first, an
+        # average's division, a strided shard's permutation) are the
+        # redistribution's own, which each torch version does its own way
+        with _unbilled():
+            if (current, target) not in unplanned:
+                try:
+                    return planned(local, current, target, *a, **k)
+                except (_PlanTooLarge, RuntimeError):
+                    # past the search budget, or a plan DTensor's own checks
+                    # reject (a strided shard whose local size its planner
+                    # computes otherwise than its view rules)
+                    unplanned.add((current, target))
+            _MODELED[0] += 1
+            return _modeled_redistribute(local, current, target)
 
     def tail(op_call, args, kwargs, mesh, output_sharding, *rest):
         # an in-place view (matmul's squeeze_) that keeps the placements and
@@ -513,6 +667,10 @@ def install_replicate_fallback() -> None:
             out = OutputSharding(outs[0] if len(outs) == 1 else tuple(outs), relaxed,
                                  needs_redistribute=True)
             _REPLICATED[str(op_call)] = 0
+            relaxed_plans[key] = out
+            return out
+        if op_call in _MATMULS and any(map(_unit_strided, tree_flatten(schema.args_schema)[0])):
+            out = _unit_strided_plan(prop, schema)
             relaxed_plans[key] = out
             return out
         try:
@@ -558,7 +716,8 @@ def install_replicate_fallback() -> None:
         # chosen over this one; the arguments after the tensor are hashed
         # as they are (torch 2.13's squeeze propagation reads a list of dims)
         getattr(prop, "op_single_dim_strategy_funcs", {}).pop(op, None)
-        prop.register_op_strategy(op, strategy, RuntimeSchemaInfo(static_argnum=1))
+        prop.register_op_strategy(op, strategy,
+                                  _SCHEMA_INFO.get(name, RuntimeSchemaInfo(static_argnum=1)))
     _StridedShard.local_shard_size_and_offset = _strided_shard
     _StridedShard._split_tensor = _strided_split
     MaskBuffer.apply_mask = apply_mask
@@ -589,7 +748,7 @@ _META_OPS = {
     torch.ops.prim.layout.default,
 }
 _NO_TRAFFIC = {torch.ops.aten.detach.default, torch.ops.aten.alias.default,
-               torch.ops.aten.lift_fresh.default}
+               torch.ops.aten.lift_fresh.default, torch.ops.prim.device.default}
 _COLLECTIVES = {
     "all_reduce": "all-reduce",
     "all_gather_into_tensor": "all-gather",
@@ -703,7 +862,7 @@ class LocalCounter(TorchDispatchMode):
         if packet in self.registry:
             self.flops += self.scale * self.registry[packet](*args, **kwargs, out_val=out)
         outs = _tensors(out)
-        if (not func.is_view and func not in _NO_TRAFFIC
+        if (not func.is_view and func not in _NO_TRAFFIC and not getattr(_UNBILLED, "depth", 0)
                 and getattr(func, "namespace", "") not in ("_c10d_functional", "repro_dryrun")):
             moved = sum(_nbytes(t) for t in _tensors((args, kwargs)) + outs)
             self.bytes += self.scale * moved
@@ -853,31 +1012,36 @@ _tp_layout_op.register_vmap(
 
 
 class _TPLayout(torch.autograd.Function):
-    """An identity on values and on gradients, which take the same layout;
-    on a DTensor the redistribution (an all-reduce of a partial sum, an
-    all-gather or a slice of a shard) is counted.  Differentiable under
-    ``torch.func`` and ``vmap``."""
+    """An identity on values and on gradients; the value takes the layout
+    ``dim`` and the gradient ``grad_dim`` (the same, but for
+    :func:`tp_gather`).  On a DTensor the redistribution (an all-reduce of
+    a partial sum, an all-gather or a slice of a shard) is counted.
+    Differentiable under ``torch.func`` and ``vmap``."""
 
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(x, dim):
+    def forward(x, dim, grad_dim):
         return _tp_layout_op(x, dim)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.dim = inputs[1]
+        ctx.grad_dim = inputs[2]
 
     @staticmethod
     def backward(ctx, g):
-        return _TPLayout.apply(g, ctx.dim), None
+        return _TPLayout.apply(g, ctx.grad_dim, ctx.grad_dim), None, None
 
 
 def tp_input(x: torch.Tensor) -> torch.Tensor:
     """``x`` replicated over the tensor-parallel mesh dims, its client-axis
     placements kept: a sublayer's input and output, as Megatron and GSPMD
     lay them out for these specs."""
-    return _TPLayout.apply(x, None)
+    return _TPLayout.apply(x, None, None)
+
+
+def _neg(x: torch.Tensor, dim: int) -> int:
+    return dim - x.dim() if dim >= 0 else dim
 
 
 def tp_shard(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -888,7 +1052,16 @@ def tp_shard(x: torch.Tensor, dim: int) -> torch.Tensor:
     chips: 2 on each of the first 6) or the block splits one projection
     into several inputs (Mamba2's ``in_proj``).  From a replicated ``x`` a
     local slice."""
-    return _TPLayout.apply(x, dim - x.dim() if dim >= 0 else dim)
+    return _TPLayout.apply(x, _neg(x, dim), _neg(x, dim))
+
+
+def tp_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` replicated over the tensor-parallel mesh dims, its gradient
+    sharded on ``dim`` as :func:`tp_shard` shards it: a column-parallel
+    projection's output gathered for slices that its shards do not align
+    with (Mamba2's z, conv input and dt), whose weight gradient then stays
+    column-parallel."""
+    return _TPLayout.apply(x, None, _neg(x, dim))
 
 
 def _tp_strategy(op_schema):
@@ -1059,9 +1232,14 @@ def _tp_blocks():
     into whole heads: the attention's heads (``layers._split_heads``, and the
     cores' outputs, whose gradients come back through the heads merge), the
     SSD core's (``ssm.ssd_chunked``: x, dt and the decay, and its outputs;
-    B and C are one group shared by all heads), Mamba2's in-projection output
-    (``ssm._split``) and the head's vocab (``transformer.lm_logits``, the
-    vocab-parallel head).  Left to DTensor's per-op choice, the residual
+    B and C are one group shared by all heads), Mamba2's z, conv input and
+    dt (``ssm._split``, from its in-projection's output gathered once by
+    :func:`tp_gather`) and the head's vocab (``transformer.lm_logits``, the
+    vocab-parallel head).  Gathered by :func:`tp_input`: the embedding's
+    table before its lookup, Mamba2's conv output before its x, B and C are
+    sliced (``ssm._split_xbc``) and its gated norm's mean
+    (``ssm._mean_square``, a partial sum that torch 2.13 would
+    reduce-scatter over the batch).  Left to DTensor's per-op choice, the residual
     stream's hidden dim is sharded, partial sums are all-reduced inside the
     attention loop, whole weights are gathered over the model axis, and a
     backward product whose gradient arrives replicated or as a partial sum
@@ -1087,7 +1265,21 @@ def _tp_blocks():
         return call
 
     def split(fn):
-        return lambda zxbcdt, cfg: fn(tp_shard(zxbcdt, -1), cfg)
+        # the in-projection's output gathered once, then z, the conv's input
+        # and dt each sharded on its channels or heads (the conv's weight and
+        # bias are sharded on their channels)
+        def call(zxbcdt, cfg):
+            return tuple(tp_shard(t, -1) for t in fn(tp_gather(zxbcdt, -1), cfg))
+        return call
+
+    def split_xbc(fn):
+        # the conv's output gathered once for its x, B and C
+        return lambda xbc, cfg: fn(tp_input(xbc), cfg)
+
+    def mean_square(fn):
+        # the gated norm's partial mean all-reduced (torch 2.13 would
+        # reduce-scatter it over the batch, 2.11 does not)
+        return lambda y: tp_input(fn(y))
 
     def ssd(fn):
         def call(xs, bmat, cmat, dt, da, chunk):
@@ -1099,11 +1291,16 @@ def _tp_blocks():
     patches = [(T, n, constrained) for n in ("apply_attention", "apply_mlp", "mamba_block",
                                              "mamba_block_decode")]
     def embed(fn):
-        return lambda p, tokens, cfg: tp_input(fn(p, tokens, cfg))
+        # the lookup on the gathered table (DTensor's own choice for a
+        # vocab-sharded table differs from one torch version to the next)
+        return lambda p, tokens, cfg: tp_input(fn(dict(p, embedding=tp_input(p["embedding"])),
+                                                  tokens, cfg))
 
     patches += [(T.M, "apply_moe", constrained), (T, "lm_logits", head), (T, "embed_tokens", embed),
                 (L, "_split_heads", heads), (L, "chunked_attention", core),
-                (L, "attention_scores", core), (SSM, "_split", split), (SSM, "ssd_chunked", ssd)]
+                (L, "attention_scores", core), (SSM, "_split", split),
+                (SSM, "_split_xbc", split_xbc), (SSM, "_mean_square", mean_square),
+                (SSM, "ssd_chunked", ssd)]
     saved = [(mod, n, getattr(mod, n)) for mod, n, _ in patches]
     try:
         for mod, n, wrap in patches:
@@ -1116,6 +1313,85 @@ def _tp_blocks():
 
 def _replicated_dt(t, mesh):
     return SH.distribute(t, SH.NamedSharding(mesh, ()))
+
+
+def _batch_layout(batch, mesh, fit_dims: tuple) -> tuple:
+    """``(mesh, shardings)`` of the batch (``sharding.batch_shardings`` with
+    ``fit_dims``): where the client axes' product does not divide the
+    leading dim (pod2's 32 clients, or prefill sequences, over 64 GPUs),
+    that dim over the axes that divide it and the axis left over on a
+    client's batch (``fit_dims``).  A 'pod' axis the batch leaves
+    replicated shards no input (the parameters' FSDP axis is 'data'), so
+    the step runs on the submesh without it, as it would replicated over it
+    (DTensor's per-op choice cannot then shard an activation over it), and
+    ``_REPLICATED_AXES`` records it for the record's notes."""
+    b_sh = SH.batch_shardings(batch, mesh, fit_dims=fit_dims)
+    left = {a: n for a, n in SH.replicated_client_axes(b_sh, mesh).items() if a == "pod"}
+    if left:
+        _REPLICATED_AXES.update(left)
+        mesh = mesh[tuple(a for a in mesh.mesh_dim_names if a not in left)]
+        return mesh, SH.batch_shardings(batch, mesh, fit_dims=fit_dims)
+    # the mesh dims in the order of the batch dims they shard ('data' on the
+    # clients before 'pod' on a client's sequences): a view that merges the
+    # two (a batched matmul's flattening under vmap) then keeps both shards,
+    # as the same ranks in the same groups
+    first = {}
+    for sh in _flat(b_sh):
+        for d, spec in enumerate(sh.spec):
+            for a in (spec if isinstance(spec, tuple) else (spec,)):
+                first.setdefault(a, d)
+    names = mesh.mesh_dim_names
+    order = sorted(range(len(names)), key=lambda i: (first.get(names[i], len(names)), i))
+    if order == sorted(order):
+        return mesh, b_sh
+    mesh = DeviceMesh(mesh.device_type, mesh.mesh.permute(order),
+                      mesh_dim_names=tuple(names[i] for i in order))
+    return mesh, SH.batch_shardings(batch, mesh, fit_dims=fit_dims)
+
+
+def _flat(tree) -> list:
+    out = []
+    SH._map(out.append, tree)
+    return out
+
+
+def _without_client_axes(fn, mesh):
+    """``fn`` run on the submesh of ``mesh`` without its client axes, its
+    DTensor arguments replicated over them and its results replicated over
+    them again: the scan engine's group update.  A group's slice of the
+    client-sharded batch lies whole on every chip (the reference's scan
+    slices each group out of the sharded batch likewise), so its update is
+    replicated over the client axes; on the submesh no torch version's
+    per-op choice can shard an activation over them instead (torch 2.13
+    split some of the in-projection's gradient over them as a strided
+    shard of the tokens, 2.11 did not)."""
+    names = mesh.mesh_dim_names
+    kept = [i for i, a in enumerate(names) if a not in ("pod", "data")]
+    if len(kept) == len(names):
+        return fn
+    sub = mesh[tuple(names[i] for i in kept)]
+
+    def down(t):
+        if not isinstance(t, DTensor):
+            return t
+        t = _gather(t, tuple(p if i in kept else Replicate()
+                             for i, p in enumerate(t.placements)))
+        return DTensor.from_local(t.to_local(), sub, tuple(t.placements[i] for i in kept),
+                                  run_check=False, shape=t.shape, stride=t.stride())
+
+    def up(t):
+        if not isinstance(t, DTensor):
+            return t
+        pl = [Replicate()] * len(names)
+        for j, i in enumerate(kept):
+            pl[i] = t.placements[j]
+        return DTensor.from_local(t.to_local(), mesh, tuple(pl), run_check=False,
+                                  shape=t.shape, stride=t.stride())
+
+    def call(*args):
+        return tree_map_only(DTensor, up, fn(*tree_map_only(DTensor, down, args)))
+
+    return call
 
 
 _STACKS = ("layers", "mamba", "enc_layers", "dec_layers")
@@ -1194,21 +1470,35 @@ def build_lowered(cfg: ModelConfig, shape: InputShape, mesh, fl_mode: str = "vma
     arguments of the full depth (:func:`count_step`)."""
     del donate
     dev = mesh.device_type
+    full = build_model(cfg)
+    if shape.mode == "train":
+        fl = SP.fl_config_for(cfg, shape)
+        batch = SP.train_inputs(cfg, shape, fl, dev)
+        # a client's (R, b, s) step keeps its b sharded: an axis the clients
+        # leave over splits each client's batch
+        mesh, b_sh = _batch_layout(batch, mesh, (2,))
+    elif shape.mode == "prefill":
+        batch = SP.prefill_inputs(cfg, shape, dev)
+        mesh, b_sh = _batch_layout(batch, mesh, ())
+    else:
+        tok, cache, pos = SP.decode_inputs(cfg, shape, full, dev)
+        mesh, t_sh = _batch_layout({"t": tok}, mesh, ())
+        t_sh = t_sh["t"]
     if expert_parallel and cfg.num_experts:
         data_size = axis_sizes(mesh).get("data", 1)
         if cfg.num_experts % data_size == 0:
             cfg = cfg.with_(moe_ep_axis="data")
-    full = build_model(cfg)
+            full = build_model(cfg)
     model = build_model(cfg.with_(**depth)) if depth else full
     params = SP.params_spec(full, dev)
     p_sh = SH.param_shardings(params, mesh, fsdp=fsdp, expert_parallel=expert_parallel)
     p_use = SH.param_shardings(params, mesh, fsdp=False, expert_parallel=expert_parallel)
 
     if shape.mode == "train":
-        fl = SP.fl_config_for(cfg, shape)
-        step = make_round(model.loss, fl, mode=fl_mode, scan_group=scan_group, device=dev)
-        batch = SP.train_inputs(cfg, shape, fl, dev)
-        b_sh = SH.batch_shardings(batch, mesh)
+        engine = RoundEngine(model.loss, fl, memory=fl_mode, scan_group=scan_group, device=dev)
+        if fl_mode == "scan":
+            engine._batched_update = _without_client_axes(engine._batched_update, mesh)
+        step = engine.make_step()
         w = _replicated_dt(SP._sds((fl.n_clients,), torch.float32, dev), mesh)
         key = _replicated_dt(SP._sds((2,), torch.int64, dev), mesh)
         fn = _fsdp_step(step, 0, p_use, per_layer=False)
@@ -1226,9 +1516,6 @@ def build_lowered(cfg: ModelConfig, shape: InputShape, mesh, fl_mode: str = "vma
         return Lowered(fn, (SH.distribute(params, p_sh), (), SH.distribute(batch, b_sh), w, key))
 
     if shape.mode == "prefill":
-        batch = SP.prefill_inputs(cfg, shape, dev)
-        b_sh = SH.batch_shardings(batch, mesh)
-
         def prefill(p, b):
             with _sharded_caches(mesh, kv_mode):
                 return model.prefill(p, b, shape.seq_len)
@@ -1237,7 +1524,6 @@ def build_lowered(cfg: ModelConfig, shape: InputShape, mesh, fl_mode: str = "vma
                        (SH.distribute(params, p_sh), SH.distribute(batch, b_sh)))
 
     # decode
-    tok, cache, pos = SP.decode_inputs(cfg, shape, full, dev)
     if kv_mode == "factored" and cfg.num_kv_heads:
         sizes = axis_sizes(mesh)
         kv = min(cfg.num_kv_heads, sizes["model"])
@@ -1255,7 +1541,6 @@ def build_lowered(cfg: ModelConfig, shape: InputShape, mesh, fl_mode: str = "vma
                                   expert_parallel=expert_parallel, kv_in_shard=True)
         p_use = SH.param_shardings(params, mesh, fsdp=False,
                                    expert_parallel=expert_parallel, kv_in_shard=True)
-    t_sh = SH.batch_shardings({"t": tok}, mesh)["t"]
     c_sh = SH.cache_shardings(cache, mesh, mode="hd" if kv_mode == "proj" else kv_mode)
     fn = model.decode_step
     if out_shard:
@@ -1292,6 +1577,7 @@ def run_pair(arch: str, shape_name, mesh, mesh_name: str, out_dir: str,
 
     chips = mesh.size()
     _REPLICATED.clear()
+    _REPLICATED_AXES.clear()
     _MODELED[0] = 0
     t0 = time.perf_counter()
     counts, depths = count_step(cfg, shape, mesh, fl_mode=fl_mode, fsdp=fsdp,
@@ -1306,7 +1592,8 @@ def run_pair(arch: str, shape_name, mesh, mesh_name: str, out_dir: str,
         notes=note + (f" fl_mode={fl_mode}" if shape.mode == "train" else "")
         + (" out_shard" if out_shard else "")
         + (" expert_parallel" if expert_parallel else "")
-        + (f" kv={kv_mode}" if kv_mode != "hd" else ""),
+        + (f" kv={kv_mode}" if kv_mode != "hd" else "")
+        + "".join(f" {a} replicated ×{n}" for a, n in _REPLICATED_AXES.items()),
     )
     rec = json.loads(rf.to_json())
     rec.update(

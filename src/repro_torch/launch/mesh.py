@@ -13,7 +13,11 @@ and counts rank 0's work.
 The ``model`` axis is one node's 8-GPU NVLink domain; a group that spans
 nodes runs over InfiniBand.  The chip counts are the reference's (its
 v5e pods are 16 x 16 and 2 x 16 x 16); the reference's per-leaf specs are
-generic in the mesh shape, so they apply here unchanged.
+generic in the mesh shape, so they apply here unchanged, but for a batch
+that pod2's 64 client-axis GPUs do not divide (32 clients or sequences,
+which the reference's 32 do): the dry-run lays it on 'data' and splits
+each client's sequences over 'pod' (``sharding.batch_shardings``'
+``fit_dims``).
 
 Functions, not module-level constants: importing this module never starts
 a process group.
@@ -59,9 +63,13 @@ def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda") -> De
     return _mesh(shape, axes, device)
 
 
-def make_debug_mesh(n_data: int = 2, n_model: int = 2, device: str = "cuda") -> DeviceMesh:
-    """Small mesh for tests (``device='cpu'`` in CPU tests)."""
-    return _mesh((n_data, n_model), ("data", "model"), device)
+def make_debug_mesh(n_data: int = 2, n_model: int = 2, device: str = "cuda",
+                    n_pod: int | None = None) -> DeviceMesh:
+    """Small mesh for tests (``device='cpu'`` in CPU tests); with ``n_pod``
+    a ``("pod", "data", "model")`` mesh shaped as pod2 is."""
+    if n_pod is None:
+        return _mesh((n_data, n_model), ("data", "model"), device)
+    return _mesh((n_pod, n_data, n_model), ("pod", "data", "model"), device)
 
 
 def axis_sizes(mesh) -> dict:
@@ -69,7 +77,9 @@ def axis_sizes(mesh) -> dict:
     reference's ``axis_names`` and ``devices`` (the duck-typed meshes of
     ``sharding.py`` and of the tests)."""
     if hasattr(mesh, "mesh_dim_names"):
-        return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+        # sizes, not ``mesh.mesh``: a submesh's rank tensor is made lazily,
+        # which fails under a fake-tensor mode
+        return {n: mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names)}
     return dict(zip(mesh.axis_names, mesh.devices.shape))
 
 

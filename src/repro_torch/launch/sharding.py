@@ -4,7 +4,8 @@
 Baseline scheme: tensor parallelism over 'model' on head/ffn/vocab dims,
 optional FSDP over 'data' on the complementary dim, FL clients / serving
 batch over ('pod','data').  Any dim not divisible by its axis size falls
-back to replication.
+back to replication (but for ``batch_shardings``' ``fit_dims``, the
+dry-run's layout of a batch the client axes do not divide).
 
 The rules are the reference's, leaf for leaf, and give the same per-dim
 axis assignment (a tuple, the reference's ``PartitionSpec``: per tensor dim
@@ -163,8 +164,16 @@ def param_shardings(params_shape, mesh, fsdp: bool = True, expert_parallel: bool
     return _map_with_path(per_leaf, params_shape)
 
 
-def batch_shardings(batch_shape, mesh, leading_axes=None):
-    """Shard the leading (client or batch) dim over ('pod','data')."""
+def batch_shardings(batch_shape, mesh, leading_axes=None, fit_dims=None):
+    """Shard the leading (client or batch) dim over ('pod','data').
+
+    ``fit_dims=None``: the reference's rule, a leading dim that the axes'
+    product does not divide replicated.  Else such a dim is sharded over the
+    axes whose product divides it, taken greedily from 'data' on, and each
+    axis left over goes to the first of ``fit_dims`` (dims of the leaf that
+    the step keeps sharded, e.g. a client's batch) whose size it divides, or
+    stays replicated: pod2's 32 clients over its 64 client-axis GPUs lie on
+    'data', and 'pod' splits each client's batch."""
     sizes = axis_sizes(mesh)
     if leading_axes is None:
         leading_axes = tuple(a for a in ("pod", "data") if a in sizes)
@@ -173,9 +182,28 @@ def batch_shardings(batch_shape, mesh, leading_axes=None):
     def per_leaf(leaf):
         if leaf.ndim and leaf.shape[0] % total == 0:
             return NamedSharding(mesh, (tuple(leading_axes),))
-        return NamedSharding(mesh, ())
+        if fit_dims is None or not leaf.ndim:
+            return NamedSharding(mesh, ())
+        spec = [()] * leaf.ndim
+        for ax in reversed(leading_axes):
+            for d in (0, *fit_dims):
+                if d < leaf.ndim and leaf.shape[d] % (sizes[ax] * math.prod(
+                        sizes[a] for a in spec[d])) == 0:
+                    spec[d] = (ax, *spec[d])
+                    break
+        return NamedSharding(mesh, tuple(s or None for s in spec))
 
     return _map(per_leaf, batch_shape)
+
+
+def replicated_client_axes(shardings, mesh) -> dict:
+    """``{axis: size}`` of the client axes that no leaf of ``shardings``
+    shards."""
+    flat = []
+    _map(flat.append, shardings)
+    used = {a for sh in flat for s in sh.spec for a in (s if isinstance(s, tuple) else (s,))}
+    sizes = axis_sizes(mesh)
+    return {a: sizes[a] for a in ("pod", "data") if a in sizes and a not in used}
 
 
 def cache_shardings(cache_shape, mesh, mode: str = "hd"):

@@ -67,10 +67,19 @@ def _split(zxbcdt: torch.Tensor, cfg: ModelConfig):
     return z, xbc, dt
 
 
+def _split_xbc(xbc: torch.Tensor, cfg: ModelConfig):
+    """The conv output's (x, B, C) along its last axis."""
+    d_in, n = dims(cfg)[0], cfg.ssm_state
+    return xbc[..., :d_in], xbc[..., d_in:d_in + n], xbc[..., d_in + n:]
+
+
+def _mean_square(y: torch.Tensor) -> torch.Tensor:
+    return y.square().mean(-1, keepdim=True)
+
+
 def _gated_norm(y, z, scale, eps=1e-6):
     y = y * F.silu(z.float())
-    ms = y.square().mean(-1, keepdim=True)
-    return y * torch.rsqrt(ms + eps) * scale
+    return y * torch.rsqrt(_mean_square(y) + eps) * scale
 
 
 def ssd_chunked(xs, bmat, cmat, dt, da, chunk: int) -> tuple:
@@ -173,7 +182,7 @@ def apply_mamba2(params, x: torch.Tensor, cfg: ModelConfig) -> tuple:
     final_state = (ssm_state (B,H,P,N), conv_state (B, K-1, conv_dim))."""
     bsz, true_seq, _ = x.shape
     d_in, nheads, _ = dims(cfg)
-    n, p, q = cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_chunk
+    p, q = cfg.ssm_head_dim, cfg.ssm_chunk
     # pad to a chunk multiple; padded steps get dt = 0 (identity recurrence)
     pad = (-true_seq) % q
     if pad:
@@ -183,9 +192,8 @@ def apply_mamba2(params, x: torch.Tensor, cfg: ModelConfig) -> tuple:
     zxbcdt = x @ params["in_proj"]
     z, xbc_pre, dt = _split(zxbcdt, cfg)
     xbc = F.silu(_causal_conv(xbc_pre, params["conv_w"], params["conv_b"]))
-    xs = xbc[..., :d_in].reshape(bsz, seq, nheads, p)
-    bmat = xbc[..., d_in:d_in + n]                                      # (B,S,N)
-    cmat = xbc[..., d_in + n:]                                          # (B,S,N)
+    xs, bmat, cmat = _split_xbc(xbc, cfg)                               # bmat, cmat (B,S,N)
+    xs = xs.reshape(bsz, seq, nheads, p)
 
     dt = F.softplus(dt.float() + params["dt_bias"])                     # (B,S,H)
     if pad:
@@ -216,7 +224,7 @@ def decode_mamba2(params, x: torch.Tensor, state, cfg: ModelConfig) -> tuple:
     """Single-token decode.  x: (B, 1, d), state from init_state/apply."""
     bsz = x.shape[0]
     d_in, nheads, _ = dims(cfg)
-    n, p = cfg.ssm_state, cfg.ssm_head_dim
+    p = cfg.ssm_head_dim
     ssm_state, conv_state = state
 
     zxbcdt = x[:, 0, :] @ params["in_proj"]                             # (B, ...)
@@ -227,9 +235,8 @@ def decode_mamba2(params, x: torch.Tensor, state, cfg: ModelConfig) -> tuple:
     cdtype = torch.promote_types(wdtype, params["conv_w"].dtype)
     conv_out = torch.einsum("bkc,ck->bc", window.to(cdtype), params["conv_w"].to(cdtype))
     xbc = F.silu(conv_out + params["conv_b"])
-    xt = xbc[:, :d_in].reshape(bsz, nheads, p).float()
-    bt = xbc[:, d_in:d_in + n].float()
-    ct = xbc[:, d_in + n:].float()
+    xt, bt, ct = _split_xbc(xbc, cfg)
+    xt, bt, ct = xt.reshape(bsz, nheads, p).float(), bt.float(), ct.float()
 
     dt = F.softplus(dt.float() + params["dt_bias"])                     # (B,H)
     a = -torch.exp(params["A_log"].float())

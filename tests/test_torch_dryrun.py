@@ -242,6 +242,32 @@ def test_specs_turn_into_placements():
         pod2, (("pod", "data"), None, "model"))) == (1, 4096, 128)
 
 
+@pytest.mark.parametrize("mesh_name", ["pod1", "pod2"])
+def test_batches_fit_the_client_axes(mesh_name):
+    """The dry-run's batch layout (``batch_shardings(fit_dims=...)``): on
+    pod2, 32 clients over 64 client-axis GPUs lie on 'data' and 'pod'
+    splits each client's 8 sequences; 32 prefill sequences lie on 'data',
+    'pod' replicated.  On pod1 the product divides, and the layout is the
+    reference's."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = _duck(*MESHES[mesh_name])
+    cfg, train, prefill = ARCHS["llama3-8b"], SHAPES["train_4k"], SHAPES["prefill_32k"]
+    batch = specs.train_inputs(cfg, train, specs.fl_config_for(cfg, train), "cpu")
+    t_sh = sharding.batch_shardings(batch, mesh, fit_dims=(2,))
+    p_sh = sharding.batch_shardings(specs.prefill_inputs(cfg, prefill, "cpu"), mesh, fit_dims=())
+    want = {"pod1": ((1, 1, 8, 4096), (1, 32768), {}),
+            "pod2": ((1, 1, 4, 4096), (1, 32768), {"pod": 2})}[mesh_name]
+    assert sharding.local_shape(batch["tokens"].shape, t_sh["tokens"]) == want[0]
+    assert sharding.local_shape((32, 32768), p_sh["tokens"]) == want[1]
+    assert sharding.replicated_client_axes(t_sh, mesh) == {}
+    assert sharding.replicated_client_axes(p_sh, mesh) == want[2]
+    if mesh_name == "pod1":
+        assert t_sh == sharding.batch_shardings(batch, mesh)
+    else:
+        assert t_sh["tokens"].placements == (Shard(2), Shard(0), Replicate())
+
+
 def test_h100_constants():
     assert (PEAK_FLOPS_BF16, HBM_BW, NVLINK_BW, IB_BW) == (989e12, 3.35e12, 450e9, 50e9)
 

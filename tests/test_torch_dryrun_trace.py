@@ -13,8 +13,16 @@ seq 64, batch 8, 4 clients, ``--device cpu``.
   products are most of the step: under ``vmap`` they batch the client shard
   with the head shard, and each chip must keep its clients and its heads
   (``launch/dryrun.py::sharded_einsum``) rather than compute every head;
-* pod1 llama3-8b x prefill_32k at full width gives the ``flops_per_chip``
-  that ``chip_smoke.py`` holds the card's torch to (``DRYRUN_PREFILL_FLOPS``).
+* on a pod-shaped (2, 4, 2) mesh (16 chips, the test's 4 clients on
+  'data'), the per-chip FLOPs times 16 lie between the plain step's count
+  and twice it: 'pod' splits each client's batch, as on pod2, where 32
+  clients lie on 'data' and 'pod' splits each client's 8 sequences
+  (``sharding.batch_shardings(fit_dims=...)``); a prefill of 4 sequences
+  leaves 'pod' replicated and counts what the (4, 2) mesh counts;
+* pod1 llama3-8b x prefill_32k and mamba2-130m x train_4k (the vmap and
+  scan engines) at full width give the ``flops_per_chip`` and
+  ``hbm_bytes_per_chip`` that ``chip_smoke.py`` holds the card's torch to
+  (``DRYRUN_PREFILL_FLOPS``, ``DRYRUN_PREFILL_BYTES``, ``DRYRUN_TRAIN``).
 
 ``test_torch_dryrun_options.py`` covers the round's options, the depth
 extrapolation and the CLI.
@@ -45,7 +53,7 @@ from repro_torch.models import build_model
 cfg = ARCHS["llama3-8b"].reduced().with_(vocab_size=256)
 small = {n: dataclasses.replace(s, seq_len=64, global_batch=8) for n, s in SHAPES.items()}
 fl = SP.fl_config_for(cfg, small["train_4k"], n_clients=4)
-SP.fl_config_for = lambda *a, **k: fl
+fl_config_for, SP.fl_config_for = SP.fl_config_for, lambda *a, **k: fl
 out = {}
 
 def counts(mesh, shape="train_4k", shapes=small, **kw):
@@ -63,8 +71,20 @@ out["train_1x1"] = counts(make_debug_mesh(1, 1, device="cpu"))
 out["train_2x2"] = counts(make_debug_mesh(2, 2, device="cpu"))
 long = {"train_4k": dataclasses.replace(small["train_4k"], seq_len=1024)}
 out["train_2x4_long"] = counts(make_debug_mesh(2, 4, device="cpu"), shapes=long)
-rec = D.run_pair("llama3-8b", "prefill_32k", make_production_mesh(device="cpu"), "pod1", sys.argv[1])
-out["prefill_pod1"] = rec["flops_per_chip"]
+out["train_pod"] = counts(make_debug_mesh(4, 2, device="cpu", n_pod=2))
+four = {"prefill_32k": dataclasses.replace(small["prefill_32k"], global_batch=4)}
+out["prefill_pod_b4"] = counts(make_debug_mesh(4, 2, device="cpu", n_pod=2), "prefill_32k", four)
+out["prefill_pod_b4"]["notes"] = D.run_pair(
+    "llama3-8b", four["prefill_32k"], make_debug_mesh(4, 2, device="cpu", n_pod=2), "pod",
+    sys.argv[1])["notes"]
+out["prefill_4x2_b4"] = counts(make_debug_mesh(4, 2, device="cpu"), "prefill_32k", four)
+SP.fl_config_for = fl_config_for
+for arch, shape, kw in (("llama3-8b", "prefill_32k", {}),
+                        ("mamba2-130m", "train_4k", {"fl_mode": "vmap", "tag": "_vmap"}),
+                        ("mamba2-130m", "train_4k", {"fl_mode": "scan", "tag": "_scan"})):
+    rec = D.run_pair(arch, shape, make_production_mesh(device="cpu"), "pod1", sys.argv[1], **kw)
+    out[f"pod1 {arch} {shape}{kw.get('tag', '')}"] = [rec["flops_per_chip"],
+                                                      rec["hbm_bytes_per_chip"]]
 
 dist.destroy_process_group()
 
@@ -131,10 +151,48 @@ def test_heads_and_clients_stay_sharded_in_the_batched_products(result):
     assert result["plain_flops_long"] <= total <= 2 * result["plain_flops_long"]
 
 
-def test_pod1_prefill_flops_equal_the_card_scripts_constant(result):
-    """``chip_smoke.py`` holds the card's torch to this CPU value (within 1%):
-    the record must not depend on the torch version that traced it."""
+def test_pod_mesh_splits_each_clients_batch(result):
+    """4 clients over the (2, 4, 2) mesh's 8 client-axis chips: on 'data',
+    with 'pod' on each client's 2 sequences.  Replicated over all 8 (the
+    reference's rule where the axes' product does not divide the clients)
+    the count is ~8x the plain step's."""
+    total = 16 * result["train_pod"]["flops"]
+    assert result["plain_flops"] <= total <= 2 * result["plain_flops"]
+    assert result["train_pod"]["traffic"] > 0
+
+
+def test_pod_mesh_prefill_leaves_pod_replicated(result):
+    """A prefill of 4 sequences on the (2, 4, 2) mesh: 'data' holds them,
+    'pod' is replicated (the record's notes say so) and every chip counts
+    what a chip of the (4, 2) mesh counts."""
+    pod, flat = result["prefill_pod_b4"], result["prefill_4x2_b4"]
+    assert pod["flops"] == flat["flops"] > 0
+    assert pod["bytes"] == flat["bytes"]
+    assert "pod replicated ×2" in pod["notes"]
+
+
+def _chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
-    assert result["prefill_pod1"] == pytest.approx(chip_smoke.DRYRUN_PREFILL_FLOPS, rel=1e-9)
+    return chip_smoke
+
+
+def test_pod1_prefill_flops_equal_the_card_scripts_constant(result):
+    """``chip_smoke.py`` holds the card's torch to this CPU value (within
+    0.01%): the record must not depend on the torch version that traced it."""
+    flops, nbytes = result["pod1 llama3-8b prefill_32k"]
+    cs = _chip_smoke()
+    assert flops == pytest.approx(cs.DRYRUN_PREFILL_FLOPS, rel=1e-9)
+    assert nbytes == pytest.approx(cs.DRYRUN_PREFILL_BYTES, rel=1e-9)
+
+
+@pytest.mark.parametrize("engine", ["vmap", "scan"])
+def test_pod1_train_records_equal_the_card_scripts_constants(result, engine):
+    """The two train records ``chip_smoke.py`` traces on the card (torch
+    2.11) equal this CPU's (torch 2.13): the card is held to them within
+    0.01% (FLOPs) and 0.1% (bytes)."""
+    flops, nbytes = result[f"pod1 mamba2-130m train_4k_{engine}"]
+    want = _chip_smoke().DRYRUN_TRAIN[engine]
+    assert flops == pytest.approx(want["flops_per_chip"], rel=1e-9)
+    assert nbytes == pytest.approx(want["hbm_bytes_per_chip"], rel=1e-9)
